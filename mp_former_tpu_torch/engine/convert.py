@@ -7,7 +7,10 @@ slice's model (d2 ResNet, MSDeformAttn pixel decoder, masked-attention
 decoder): conv kernels HWIO -> OIHW, Dense (in, out) -> Linear (out, in),
 q/k/v projections concatenated into `in_proj_*`, LayerNorm/GroupNorm
 `scale` -> `weight`. It takes the params tree as numpy arrays (no jax
-needed) and returns the port's state dict, with the reference's names.
+needed) and returns the port's state dict, with the reference's names. A
+tree trained with `TPU.SAMPLING_ENGINE headshare` converts the same way: only
+the shape of `sampling_offsets` differs, and `load_weights` says so when such
+weights meet a model built for the other engine.
 """
 
 from __future__ import annotations
@@ -151,3 +154,22 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
                                                              "sem_seg_head.adapter_1")
         out[k] = torch.as_tensor(v)
     return out
+
+
+def load_weights(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Strict load. Weights of the head-shared sampling engine and of the
+    per-head engines do not interconvert: name the setting instead of leaving
+    it at torch's size-mismatch list."""
+    own = model.state_dict()
+    for key, tensor in state_dict.items():
+        if key.endswith("self_attn.sampling_offsets.weight") and key in own \
+                and own[key].shape != tensor.shape:
+            kind = {True: "head-shared (TPU.SAMPLING_ENGINE headshare)",
+                    False: "per-head (TPU.SAMPLING_ENGINE packed2x2 or pallas)"}
+            model_shared = own[key].shape[0] < tensor.shape[0]
+            raise ValueError(
+                f"{key}: the weights have {tensor.shape[0]} sampling offsets, the model "
+                f"{own[key].shape[0]}: the weights were trained with {kind[not model_shared]} "
+                f"sampling locations and the model was built with {kind[model_shared]}; "
+                "the two do not interconvert, set TPU.SAMPLING_ENGINE to match the weights")
+    model.load_state_dict(state_dict, strict=True)

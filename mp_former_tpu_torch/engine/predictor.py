@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from ..inference import InstanceOutput, instance_inference, sem_seg_postprocess, upsample_masks
 from ..models import build_model
-from .convert import load_state_dict_file
+from .convert import load_state_dict_file, load_weights
 
 
 def preprocess_image(cfg, image_bgr: np.ndarray,
@@ -69,7 +69,7 @@ class Predictor:
         if model is None:
             model = build_model(cfg)
             if cfg.MODEL.WEIGHTS:
-                model.load_state_dict(load_state_dict_file(cfg.MODEL.WEIGHTS), strict=True)
+                load_weights(model, load_state_dict_file(cfg.MODEL.WEIGHTS))
         self.model = model.to(self.device).eval()
 
     def preprocess(self, image_bgr: np.ndarray):
@@ -84,8 +84,10 @@ class Predictor:
         return out["pred_logits"][0], out["pred_masks"][0], image_size
 
     @torch.inference_mode()
-    def __call__(self, image_bgr: np.ndarray) -> Dict:
-        h, w = image_bgr.shape[:2]
+    def __call__(self, image_bgr: np.ndarray,
+                 out_hw: Optional[Tuple[int, int]] = None) -> Dict:
+        """Instances at `out_hw`, by default the image's own size."""
+        h, w = out_hw or image_bgr.shape[:2]
         logits, masks, image_size = self.forward_raw(image_bgr)
         inst = postprocess_instance(logits, masks, image_size, h, w,
                                     self.cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,

@@ -5,8 +5,10 @@ A deformable-DETR encoder over the res3-res5 features (6 layers in the
 recipe) and one FPN step down to res2. Returns (mask_features at 1/4, the
 encoder's 1/32 map, [1/32, 1/16, 1/8] multi-scale maps), all NCHW. Images are
 unpadded, so the valid ratios are 1 and the reference points are the fixed
-grid of pixel centres. Only the unrolled encoder is ported: `TPU.SCAN_ENCODER`,
-`TPU.SHARD_TOKENS` and remat are TPU devices.
+grid of pixel centres. `TPU.SAMPLING_ENGINE` and `TPU.PALLAS_TAP_WEIGHTING`
+choose the deformable sampling engine (`ops/ms_deform_attn.py:MSDeformAttn`).
+Only the unrolled encoder is ported: `TPU.SCAN_ENCODER`, `TPU.SHARD_TOKENS` and
+remat are TPU devices.
 """
 
 from __future__ import annotations
@@ -42,9 +44,11 @@ class MSDeformAttnTransformerEncoderLayer(nn.Module):
     """Post-norm deformable self-attention + FFN (dropout is 0 at eval)."""
 
     def __init__(self, d_model: int = 256, d_ffn: int = 1024, n_levels: int = 3,
-                 n_heads: int = 8, n_points: int = 4):
+                 n_heads: int = 8, n_points: int = 4, sampling_engine: str = "packed2x2",
+                 pallas_weighting: bool = False):
         super().__init__()
-        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
+                                      sampling_engine, pallas_weighting)
         self.norm1 = nn.LayerNorm(d_model)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
@@ -66,12 +70,14 @@ class MSDeformAttnTransformerEncoderOnly(nn.Module):
 
     def __init__(self, d_model: int = 256, nhead: int = 8, num_encoder_layers: int = 6,
                  dim_feedforward: int = 1024, num_feature_levels: int = 3,
-                 enc_n_points: int = 4):
+                 enc_n_points: int = 4, sampling_engine: str = "packed2x2",
+                 pallas_weighting: bool = False):
         super().__init__()
         self.d_model = d_model
         self.encoder = MSDeformAttnTransformerEncoder([
             MSDeformAttnTransformerEncoderLayer(d_model, dim_feedforward, num_feature_levels,
-                                                nhead, enc_n_points)
+                                                nhead, enc_n_points, sampling_engine,
+                                                pallas_weighting)
             for _ in range(num_encoder_layers)])
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
         # reference _reset_parameters: xavier on every matrix, then the
@@ -107,7 +113,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
                  transformer_dim_feedforward: int = 1024, transformer_enc_layers: int = 6,
                  conv_dim: int = 256, mask_dim: int = 256, norm: str = "GN",
                  transformer_in_features: Sequence[str] = ("res3", "res4", "res5"),
-                 common_stride: int = 4, maskformer_num_feature_levels: int = 3):
+                 common_stride: int = 4, maskformer_num_feature_levels: int = 3,
+                 sampling_engine: str = "packed2x2", pallas_weighting: bool = False):
         super().__init__()
         self.conv_dim = conv_dim
         self.in_features = sorted(input_shape, key=lambda k: input_shape[k].stride)
@@ -124,7 +131,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
             d_model=conv_dim, nhead=transformer_nheads,
             num_encoder_layers=transformer_enc_layers,
             dim_feedforward=transformer_dim_feedforward,
-            num_feature_levels=len(self.transformer_in_features))
+            num_feature_levels=len(self.transformer_in_features),
+            sampling_engine=sampling_engine, pallas_weighting=pallas_weighting)
         self.mask_features = Conv2d(conv_dim, mask_dim, kernel_size=1)
         c2_xavier_fill(self.mask_features)
         self.maskformer_num_feature_levels = maskformer_num_feature_levels
@@ -147,9 +155,6 @@ class MSDeformAttnPixelDecoder(nn.Module):
 
     @classmethod
     def from_config(cls, cfg, input_shape: Dict[str, ShapeSpec]):
-        if cfg.TPU.SAMPLING_ENGINE == "headshare":
-            raise NotImplementedError(
-                "TPU.SAMPLING_ENGINE headshare changes the model; its port is ROADMAP item A23")
         head = cfg.MODEL.SEM_SEG_HEAD
         return cls(
             {k: v for k, v in input_shape.items() if k in head.IN_FEATURES},
@@ -161,6 +166,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
             norm=head.NORM,
             transformer_in_features=tuple(head.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES),
             common_stride=head.COMMON_STRIDE,
+            sampling_engine=cfg.TPU.SAMPLING_ENGINE,
+            pallas_weighting=cfg.TPU.PALLAS_TAP_WEIGHTING,
         )
 
     def forward_features(self, features: Dict[str, torch.Tensor]):

@@ -52,7 +52,7 @@ def test_slice_config_and_overrides():
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("TPU.SAMPLING_ENGINE", "headshare", "A23"),
+    ("TPU.SAMPLING_ENGINE", "headshare", None),  # ported: the model builds
     ("MODEL.MASK_FORMER.PRE_NORM", "True", "post-norm only"),
 ])
 def test_unported_settings_raise(key, value, match):
@@ -63,18 +63,44 @@ def test_unported_settings_raise(key, value, match):
     torch_config.add_maskformer2_config(cfg)
     cfg.merge_from_file(os.path.join(ROOT, SLICE))
     cfg.merge_from_list([key, value])
+    if match is None:
+        model = build_model(cfg)
+        offsets = model.state_dict()[
+            "sem_seg_head.pixel_decoder.transformer.encoder.layers.0.self_attn.sampling_offsets.weight"]
+        assert offsets.shape == (3 * 4 * 2, 256)  # one location set for all heads
+        return
     with pytest.raises(NotImplementedError, match=match):
         build_model(cfg)
 
 
-def test_port_imports_no_jax():
-    """The port runs where jax is not installed: importing it pulls in
-    neither jax, flax nor the JAX package."""
-    code = ("import sys, mp_former_tpu_torch.engine.predictor, mp_former_tpu_torch.models; "
-            "bad = sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'flax', 'mp_former_tpu'}); "
-            "assert not bad, bad")
+def _port_modules():
+    """Every module of the port, and the scripts that run with it on the card."""
     root = os.path.join(os.path.dirname(__file__), "..")
-    subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)
+    mods = []
+    for dp, _, fs in os.walk(os.path.join(root, "mp_former_tpu_torch")):
+        for f in fs:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dp, f), root)[:-3]
+                mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    return sorted(mods) + ["chip_smoke", "tools.probe_torch_row_gather",
+                           "tools.profile_torch_slice"]
+
+
+def test_port_imports_no_jax():
+    """The port runs where neither jax nor cv2 is installed: importing every
+    one of its modules, `chip_smoke.py` and its tools pulls in neither jax,
+    flax, cv2 nor the JAX package."""
+    mods = _port_modules()
+    assert "mp_former_tpu_torch.ops.tap_weighting" in mods
+    assert "mp_former_tpu_torch.engine.eval_loop" in mods
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "    bad = sorted({k.split('.')[0] for k in sys.modules} "
+            "& {'jax', 'flax', 'cv2', 'mp_former_tpu'})\n"
+            "    assert not bad, (m, bad)\n")
+    root = os.path.join(os.path.dirname(__file__), "..")
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=300)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -23,7 +23,7 @@ from mp_former_tpu.engine.checkpoint_import import convert_maskformer_state_dict
 from mp_former_tpu.models import build_model as jax_build_model
 
 from mp_former_tpu_torch.config import add_deeplab_config, add_maskformer2_config, get_cfg
-from mp_former_tpu_torch.engine.convert import state_dict_from_jax_params
+from mp_former_tpu_torch.engine.convert import load_weights, state_dict_from_jax_params
 from mp_former_tpu_torch.engine.predictor import Predictor
 from mp_former_tpu_torch.models import build_model
 
@@ -46,11 +46,11 @@ SMALL = [
 IMG = (64, 96)
 
 
-def _cfg(get, deeplab, mf2, overrides=SMALL):
+def _cfg(get, deeplab, mf2, overrides=SMALL, config=CONFIG):
     cfg = get()
     deeplab(cfg)
     mf2(cfg)
-    cfg.merge_from_file(CONFIG)
+    cfg.merge_from_file(config)
     cfg.merge_from_list(overrides)
     return cfg
 
@@ -66,18 +66,18 @@ def _perturb(tree, rng):
     return a + rng.normal(0.0, 0.02, a.shape).astype(np.float32)
 
 
-def _build_pair(overrides, img_hw):
+def _build_pair(overrides, img_hw, config=CONFIG):
     """JAX model + seeded perturbed params, and the port's model holding the
     same weights (strict load)."""
-    jcfg = _cfg(jax_get_cfg, jax_add_deeplab, jax_add_mf2, overrides)
+    jcfg = _cfg(jax_get_cfg, jax_add_deeplab, jax_add_mf2, overrides, config)
     jmodel = jax_build_model(jcfg)
     rng = np.random.RandomState(0)
     img = (rng.rand(1, *img_hw, 3) * 255).astype(np.float32)
     variables = jmodel.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(img), None, train=False)
     params = _perturb(jax.tree.map(np.asarray, dict(variables["params"])), rng)
-    tcfg = _cfg(get_cfg, add_deeplab_config, add_maskformer2_config, overrides)
+    tcfg = _cfg(get_cfg, add_deeplab_config, add_maskformer2_config, overrides, config)
     tmodel = build_model(tcfg)
-    tmodel.load_state_dict(state_dict_from_jax_params(params), strict=True)
+    load_weights(tmodel, state_dict_from_jax_params(params))
     return jcfg, jmodel, params, tcfg, tmodel, img
 
 

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's serving path on one CUDA card.
 
-    python3 tools/profile_torch_slice.py [--requests 3] [--height 480 --width 640]
+    python3 tools/profile_torch_slice.py [--recipe released|tpu] [--requests 3]
+                                         [--height 480 --width 640]
 
-Builds the released R50 COCO instance recipe at full width with seeded
-random weights (as `chip_smoke.py` does), warms up on the request shape,
+Builds the released R50 COCO instance recipe (K1 and K3), or with `--recipe
+tpu` the TPU recipe in float32 (head-shared sampling through K2, and K3), at
+full width with seeded random weights (as `chip_smoke.py` does), warms up on
+the request shape,
 then traces `--requests` requests with `torch.profiler` and prints: the
 card, host time per request, device busy time per request (the sum of the
 kernels' device time over the traced window), the top ops by device time
@@ -29,6 +32,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--recipe", choices=("released", "tpu"), default="released")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--height", type=int, default=480)
     ap.add_argument("--width", type=int, default=640)
@@ -36,7 +40,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice: needs a CUDA card")
     sys.path.insert(0, REPO)
-    from chip_smoke import SEED, slice_cfg
+    from chip_smoke import SEED, slice2_cfg, slice_cfg
     from mp_former_tpu_torch.engine.predictor import Predictor
     from mp_former_tpu_torch.models import build_model
 
@@ -44,7 +48,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = slice_cfg()
+    cfg = slice2_cfg() if args.recipe == "tpu" else slice_cfg()
     torch.manual_seed(SEED)
     model = build_model(cfg)
     predictor = Predictor(cfg, model=model, device="cuda")
@@ -79,7 +83,7 @@ def main() -> int:
     device = [e for e in events if e.device_type.name == "CUDA" and not e.key.startswith(ranges)]
     dev_us = sum(e.self_device_time_total for e in device)
     copy_us = sum(e.self_device_time_total for e in device if e.key.startswith("Memcpy"))
-    print(f"card: {card}")
+    print(f"card: {card}  recipe: {args.recipe}")
     print(f"request {args.height}x{args.width}: host ms per request "
           f"{[round(t * 1e3, 2) for t in host]}")
     print(f"device busy ms per request (kernels and copies): {dev_us / 1e3 / args.requests:.3f}, "
