@@ -8,8 +8,9 @@ result line):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build the CUDA kernels from `mp_former_tpu_torch/csrc/` with nvcc;
-3. K1 (deformable sampling) against its plain version at the slice's
-   shapes, float32 and bfloat16, with locations outside the map;
+3. K1 (deformable sampling) against its plain version and against the plain
+   function that does the kernel's folded arithmetic, at the slice's shapes,
+   float32 and bfloat16, with locations outside the map;
 4. K3 (masked cross-attention) against its plain version at the decoder's
    three key lengths, with random masks and fully masked rows;
 5. K2 (tap weighting) against its plain version at both call shapes of the
@@ -32,8 +33,12 @@ result line):
 Each kernel phase also computes the kernel's bound (the least time the card
 could take: bytes over the memory rate or operations over the peak rate,
 whichever is larger) and times the one PyTorch call that computes the same
-function, where there is one; the port itself never calls it. Then a JSON
-line with each kernel's launches, error, times and bound, the card's name
+function, where there is one; the port itself never calls it. Every time is
+read on two clocks (`mp_former_tpu_torch/utils/cuda_timing.py`): `ms`,
+`plain_ms` and `library_ms` are device times (the calls captured into a CUDA
+graph and replayed), `issue_ms`, `plain_issue_ms` and `library_issue_ms` the
+host's time to issue one eager call; an eager caller pays the larger. Then a
+JSON line with each kernel's launches, error, times and bound, the card's name
 and power limit, and last the result line `{"ok": true, "device": {...}}`.
 """
 
@@ -88,6 +93,22 @@ def mean(values) -> float:
     return sum(values) / len(values)
 
 
+def timed(kernel, plain, library=None, calls: int = 20) -> dict:
+    """Both clocks of a kernel, its plain version and the library call."""
+    from mp_former_tpu_torch.utils.cuda_timing import two_clocks
+
+    k, pl = two_clocks(kernel, calls), two_clocks(plain, calls)
+    lb = two_clocks(library, calls) if library is not None else {}
+    return {"ms": k["ms"], "issue_ms": k["issue_ms"],
+            "plain_ms": pl["ms"], "plain_issue_ms": pl["issue_ms"],
+            "library_ms": lb.get("ms"), "library_issue_ms": lb.get("issue_ms")}
+
+
+def fmt_times(t: dict) -> dict:
+    """The fields of `timed` for a log line."""
+    return {k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in t.items()}
+
+
 def phase_device(torch) -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -116,7 +137,6 @@ def phase_build() -> None:
 
 def phase_k1(torch, card: str) -> dict:
     from mp_former_tpu_torch.ops import msda_cuda
-    from mp_former_tpu_torch.utils.cuda_timing import cuda_ms
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     B, M, D, P = 1, 8, 32, 4
@@ -139,18 +159,22 @@ def phase_k1(torch, card: str) -> dict:
         got = msda_cuda.msda_fwd(v, MSDA_SHAPES, lo, a)
         want = msda_cuda.ms_deform_attn_plain(v.float(), MSDA_SHAPES, lo.float(), a.float())
         torch.cuda.synchronize()
+        folded = msda_cuda.ms_deform_attn_folded(v.float(), MSDA_SHAPES, lo.float(), a.float())
+        torch.cuda.synchronize()
         err = (got.float() - want).abs().max().item()
-        ms = cuda_ms(lambda: msda_cuda.msda_fwd(v, MSDA_SHAPES, lo, a))
-        plain_ms = cuda_ms(lambda: msda_cuda.ms_deform_attn_plain(v, MSDA_SHAPES, lo, a))
+        folded_err = (got.float() - folded).abs().max().item()
+        del want, folded
+        times = timed(lambda: msda_cuda.msda_fwd(v, MSDA_SHAPES, lo, a),
+                      lambda: msda_cuda.ms_deform_attn_plain(v, MSDA_SHAPES, lo, a))
         bnd = bound(nbytes(v, lo, a, got), on_map * 5 * 2 * D, name)
         log("K1", dtype=name, shape=f"B{B}xQ{S}xM{M}xD{D}xL{L}xP{P}", max_abs_err=f"{err:.3e}",
-            tol=TOL[name], kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            max_abs_err_vs_folded=f"{folded_err:.3e}", tol=TOL[name], **fmt_times(times),
             bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
-            points_on_map=f"{on_map}/{B * S * M * L * P}", library_ms=None, card=repr(card))
-        if not err <= TOL[name]:
-            raise AssertionError(f"K1 {name}: max abs error {err} above {TOL[name]}")
-        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-                     "library_ms": None}
+            points_on_map=f"{on_map}/{B * S * M * L * P}", card=repr(card))
+        if not max(err, folded_err) <= TOL[name]:
+            raise AssertionError(f"K1 {name}: max abs error {err} against the plain version, "
+                                 f"{folded_err} against the folded one, above {TOL[name]}")
+        res[name] = {"max_abs_err": err, **times, **bnd}
     return res
 
 
@@ -158,14 +182,13 @@ def phase_k3(torch, card: str) -> dict:
     import torch.nn.functional as F
 
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
-    from mp_former_tpu_torch.utils.cuda_timing import cuda_ms
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     B, H, Q, D = 1, 8, 100, 32
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
-        errs, times, plain_times, lib_times, bounds = [], [], [], [], []
+        errs, times, bounds = [], [], []
         for S in ATTN_KEYS:
             q = torch.randn((B, H, Q, D), generator=g, device="cuda").to(dtype)
             k = torch.randn((B, H, S, D), generator=g, device="cuda").to(dtype)
@@ -179,8 +202,6 @@ def phase_k3(torch, card: str) -> dict:
                 want = mac.masked_attention_plain(q.float(), k.float(), v.float(), m)
                 torch.cuda.synchronize()
                 err = max(err, (got.float() - want).abs().max().item())
-            ms = cuda_ms(lambda: mac.masked_attn_fwd(q, k, v, mask))
-            plain_ms = cuda_ms(lambda: mac.masked_attention_plain(q, k, v, mask))
             # the one library call for the same function: an additive -1e9
             # mask, made outside the timed call
             additive = torch.zeros((B, 1, Q, S), dtype=dtype, device="cuda")
@@ -191,31 +212,30 @@ def phase_k3(torch, card: str) -> dict:
             if not lib_err <= TOL[name]:
                 raise AssertionError(f"K3 {name} S={S}: the library call computes another "
                                      f"function (max abs error {lib_err})")
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive))
+            t = timed(lambda: mac.masked_attn_fwd(q, k, v, mask),
+                      lambda: mac.masked_attention_plain(q, k, v, mask),
+                      lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive))
             # q k^T and p v: 2 * 2 * Q * S * D per head
             bnd = bound(nbytes(q, k, v, mask, got), 4.0 * B * H * Q * S * D, name)
             log("K3", dtype=name, shape=f"B{B}xH{H}xQ{Q}xS{S}xD{D}", max_abs_err=f"{err:.3e}",
-                tol=TOL[name], kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                tol=TOL[name], **fmt_times(t),
                 bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
-                library_ms=f"{lib_ms:.4f}", library="F.scaled_dot_product_attention",
-                card=repr(card))
+                library="F.scaled_dot_product_attention", card=repr(card))
             if not err <= TOL[name]:
                 raise AssertionError(f"K3 {name} S={S}: max abs error {err} above {TOL[name]}")
             errs.append(err)
-            times.append(ms)
-            plain_times.append(plain_ms)
-            lib_times.append(lib_ms)
+            times.append(t)
             bounds.append(bnd)
         # one decoder cycle visits each level once: report the mean per call
-        res[name] = {"max_abs_err": max(errs), "ms": mean(times), "plain_ms": mean(plain_times),
+        res[name] = {"max_abs_err": max(errs),
+                     **{key: mean([t[key] for t in times]) for key in times[0]},
                      "bound_ms": mean([b["bound_ms"] for b in bounds]),
-                     "bound_by": bounds[-1]["bound_by"], "library_ms": mean(lib_times)}
+                     "bound_by": bounds[-1]["bound_by"]}
     return res
 
 
 def phase_k2(torch, card: str) -> dict:
     from mp_former_tpu_torch.ops import tap_weighting as tw
-    from mp_former_tpu_torch.utils.cuda_timing import cuda_ms
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     Q = sum(h * w for h, w in MSDA_SHAPES)
@@ -242,8 +262,6 @@ def phase_k2(torch, card: str) -> dict:
             tol = (TOL[name] * max(1, P // 4) if dtype == torch.float32
                    else 2.0 ** -8 * want.abs().max().item())
             del want
-            ms = cuda_ms(lambda: tw.weight_taps(taps, w, P, M, D))
-            plain_ms = cuda_ms(lambda: tw.weight_taps_plain(taps, w, P, M, D), iters=5, warmup=1)
             taps6, w5 = taps.view(B, P, q, T, M, D), w.view(B, P, q, T, M)
             lib = torch.einsum("bpqtmd,bpqtm->bqmd", taps6, w5).reshape(B, q, M * D)
             lib_err = (lib.float() - got.float()).abs().max().item()
@@ -251,18 +269,19 @@ def phase_k2(torch, card: str) -> dict:
             if not lib_err <= 4 * tol:
                 raise AssertionError(f"K2 {case} {name}: the library call computes another "
                                      f"function (max abs difference {lib_err})")
-            lib_ms = cuda_ms(lambda: torch.einsum("bpqtmd,bpqtm->bqmd", taps6, w5),
-                             iters=5, warmup=1)
+            # few calls a graph: the plain version and einsum write a product
+            # as large as the taps
+            t = timed(lambda: tw.weight_taps(taps, w, P, M, D),
+                      lambda: tw.weight_taps_plain(taps, w, P, M, D),
+                      lambda: torch.einsum("bpqtmd,bpqtm->bqmd", taps6, w5), calls=5)
             bnd = bound(nbytes(taps, w, got), 2.0 * taps.numel(), name)
             log("K2", case=case, dtype=name, shape=f"B{B}xQ{q}xP{P}xT{T}xM{M}xD{D}",
-                max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}", kernel_ms=f"{ms:.4f}",
-                plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bnd['bound_ms']:.4f}",
-                bound_by=bnd["bound_by"], library_ms=f"{lib_ms:.4f}", library="torch.einsum",
-                card=repr(card))
+                max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}", **fmt_times(t),
+                bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
+                library="torch.einsum", card=repr(card))
             if not err <= tol:
                 raise AssertionError(f"K2 {case} {name}: max abs error {err} above {tol}")
-            res[(case, name)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-                                 "library_ms": lib_ms}
+            res[(case, name)] = {"max_abs_err": err, **t, **bnd}
             del taps, w, got, taps6, w5
     return res
 
@@ -287,7 +306,9 @@ def phase_row_gather(torch, card: str) -> dict:
         bnd = bound(r["n"] * r["index_size"] + min(table, gathered) + out, 0.0, "float32")
         log("row_gather", probe=r["probe"], op=r["op"], bound_ms=f"{bnd['bound_ms']:.6f}",
             bound_by=bnd["bound_by"], note="tables fit the L2 and stay warm between calls")
-        res[r["probe"]] = {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms")} | bnd
+        res[r["probe"]] = {k: r[k] for k in (
+            "max_abs_err", "ms", "issue_ms", "plain_ms", "plain_issue_ms", "library_ms",
+            "library_issue_ms")} | bnd
     # the tool's own path, counted
     rg.GATHER_LAUNCHES = rg.SUM_LAUNCHES = 0
     probe.main(["--iters", "5", "--seed", str(SEED + 1)])

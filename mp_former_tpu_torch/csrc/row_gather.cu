@@ -14,14 +14,20 @@
 // check them, as the TPU probes did not.
 //
 // Design. A gather of whole rows is a copy: row_gather moves each row in the
-// widest aligned unit its byte length allows (16, 4 or 2 bytes), one unit per
-// thread, neighbouring threads on neighbouring units of one row, so a 512-byte
-// row is one coalesced request of a warp. row_gather_sum gives each block a
-// run of rows (a multiple of `slots`) and each thread (slot, column) pairs; a
-// thread sums its rows in a register and adds the partial sum to the output
-// with one atomicAdd, so the gathered rows never reach memory. The order of
-// the atomic additions changes from run to run, hence a tolerance in the
-// comparison with the plain version.
+// widest aligned unit its byte length allows (16, 4 or 2 bytes). A row belongs
+// to a team of 2^k neighbouring lanes, the smallest power of two that covers
+// the row's units, up to a warp: a 512-byte row is one coalesced 16-byte
+// request of a warp, and several short rows share a warp. A thread finds its
+// row and its unit by a shift and a mask of its 32-bit index (no division),
+// reads the row's index once (the team's lanes read one address, which is one
+// request), and copies up to kUnitsPerLane units in strides of the team; a
+// row longer than a team's share continues in the next block along y. Blocks
+// are 128 threads, so 64 rows of 512 bytes already make 16 blocks.
+// row_gather_sum gives each block a run of rows (a multiple of `slots`) and
+// each thread (slot, column) pairs; a thread sums its rows in a register and
+// adds the partial sum to the output with one atomicAdd, so the gathered rows
+// never reach memory. The order of the atomic additions changes from run to
+// run, hence a tolerance in the comparison with the plain version.
 //
 // What bounds them on the H100: bytes, and for small N the launch itself; the
 // tables of the probes (128 KB to 8.5 MB) stay in the 50 MB L2.
@@ -31,28 +37,46 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;             // row_gather_sum
 constexpr int kRowsPerSlotPerBlock = 64;  // row_gather_sum: rows a thread sums per pair
+constexpr int kGatherThreads = 128;       // row_gather
+constexpr int kUnitsPerLane = 8;          // row_gather: units a lane copies of one row
 
+// team = 1 << team_shift lanes per row; a block holds kGatherThreads >> team_shift
+// rows along x and one share of (kUnitsPerLane << team_shift) units along y.
 template <typename U, typename I>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGatherThreads)
 row_gather_kernel(const U* __restrict__ tab, const I* __restrict__ idx, U* __restrict__ out,
-                  long long N, long long units) {
-  const long long gid = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (gid >= N * units) return;
-  const long long i = gid / units;
-  const long long u = gid % units;
-  out[gid] = tab[(long long)idx[i] * units + u];
+                  unsigned N, long long units, int team_shift) {
+  const unsigned team = 1u << team_shift;
+  const unsigned row = blockIdx.x * (kGatherThreads >> team_shift) + (threadIdx.x >> team_shift);
+  if (row >= N) return;
+  const unsigned lane = threadIdx.x & (team - 1);
+  const U* src = tab + (long long)idx[row] * units;
+  U* dst = out + (long long)row * units;
+  const long long share = (long long)kUnitsPerLane << team_shift;
+  for (long long first = blockIdx.y * share; first < units; first += gridDim.y * share) {
+    const long long last = min(first + share, units);
+#pragma unroll 4
+    for (long long u = first + lane; u < last; u += team) dst[u] = src[u];
+  }
 }
 
 template <typename U, typename I>
 cudaError_t launch_gather(const void* tab, const void* idx, void* out, long long N,
                           long long units, cudaStream_t stream) {
-  const long long blocks = (N * units + kThreads - 1) / kThreads;
-  if (blocks == 0) return cudaSuccess;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  row_gather_kernel<U, I><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const U*>(tab), static_cast<const I*>(idx), static_cast<U*>(out), N, units);
+  if (N == 0) return cudaSuccess;
+  if (N > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int team_shift = 0;
+  while (team_shift < 5 && (1LL << team_shift) < units) ++team_shift;
+  const long long rows_per_block = kGatherThreads >> team_shift;
+  const long long share = (long long)kUnitsPerLane << team_shift;
+  const long long shares = (units + share - 1) / share;
+  const dim3 grid((unsigned)((N + rows_per_block - 1) / rows_per_block),
+                  (unsigned)(shares < 65535 ? shares : 65535));
+  row_gather_kernel<U, I><<<grid, kGatherThreads, 0, stream>>>(
+      static_cast<const U*>(tab), static_cast<const I*>(idx), static_cast<U*>(out),
+      (unsigned)N, units, team_shift);
   return cudaGetLastError();
 }
 

@@ -58,20 +58,16 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the kernels if no library for the current sources exists;
-    return the library's path. The build log (ptxas register and shared
-    memory use) is kept beside it as `build.log`."""
-    sources = _sources()
-    out_dir = BUILD_ROOT / _digest(sources)
-    lib = out_dir / LIB_NAME
-    if lib.is_file():
-        return lib
+def compile_library(sources, out_dir: Path, lib_name: str = LIB_NAME) -> Path:
+    """Compile `sources` with nvcc (one process per source, side by side) and
+    link them into `out_dir/lib_name`; the log (ptxas register and shared
+    memory use) is kept beside it as `build.log`. Raises if nvcc is missing
+    or fails."""
+    lib = out_dir / lib_name
     nvcc = _find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as obj_dir:
-        # one nvcc per source, side by side; then one link
         objects = [os.path.join(obj_dir, src.stem + ".o") for src in sources]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
                 for src, obj in zip(sources, objects)]
@@ -98,13 +94,24 @@ def build() -> Path:
     return lib
 
 
+def build() -> Path:
+    """Compile the port's kernels if no library for the current sources
+    exists; return the library's path."""
+    sources = _sources()
+    out_dir = BUILD_ROOT / _digest(sources)
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib
+    return compile_library(sources, out_dir)
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use, with every entry
     point's argument types declared."""
     lib = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.msda_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.msda_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.msda_fwd.restype = i
     lib.masked_attn_fwd.argtypes = [p, p, p, p, p, p, p, p,
                                     i, i, i, i, i, ll, ll, i, i, p]
@@ -116,3 +123,49 @@ def library() -> ctypes.CDLL:
     lib.row_gather_sum.argtypes = [p, p, p, ll, i, i, i, p]
     lib.row_gather_sum.restype = i
     return lib
+
+
+def check_inputs(name: str, typed, dtypes, others=(), align: int = 1) -> torch.device:
+    """The checks that guard every kernel, in one pass: `typed` and `others`
+    are CUDA tensors on one device, contiguous, forward-only and start on a
+    multiple of `align` bytes (for a kernel that reads 16 bytes a thread
+    whatever it is given: a contiguous view with a storage offset can start
+    elsewhere); the `typed` ones all have one type out of `dtypes`. Returns
+    the device."""
+    first = typed[0]
+    device = first.device
+    for n, t in enumerate((*typed, *others)):
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name}: all inputs must be CUDA tensors on one device")
+        if n < len(typed) and (t.dtype != first.dtype or t.dtype not in dtypes):
+            raise TypeError(f"{name}: inputs must all be "
+                            f"{' or '.join(str(d).split('.')[1] for d in dtypes)}, got "
+                            f"{[str(u.dtype) for u in typed]}")
+        if t.requires_grad:
+            raise RuntimeError(f"{name} is forward-only: run it under torch.no_grad() "
+                               "(the backward kernel is not ported yet)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: inputs must start on a {align}-byte boundary (a view with "
+                             "a storage offset may not: pass a copy)")
+    return device
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the entry point `name` with `args` and, as its last argument, the
+    raw handle of PyTorch's current stream on `device` (inside
+    `torch.cuda.graph` that is the capturing stream), with `device` current.
+    The launch is asynchronous. Raises if it was refused."""
+    fn = getattr(library(), name)
+    index = device.index
+    # the handle straight from the C++ side, as an int: `torch.cuda.current_stream`
+    # builds a Stream object on every call to reach the same integer
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    if index == torch.cuda.current_device():
+        err = fn(*args, raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, raw_stream(index))
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")

@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from .cuda_build import DTYPE_CODES, library
+from .cuda_build import DTYPE_CODES, check_inputs, launch
 
 # launches of the kernel since the last reset (one per call: the partial
 # and the merge kernel together)
@@ -54,19 +54,9 @@ def masked_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch K3 on CUDA tensors (forward only); raises on anything it does
     not take, and if a launch fails."""
     global LAUNCHES
-    tensors = (q, k, v, mask)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("masked_attn_fwd: all inputs must be CUDA tensors on one device")
-    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"masked_attn_fwd: q, k, v must all be float32 or bfloat16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if mask.dtype not in (torch.bool, torch.uint8):
         raise TypeError(f"masked_attn_fwd: mask must be bool or uint8, got {mask.dtype}")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("masked_attn_fwd is forward-only: run it under torch.no_grad() "
-                           "(the backward kernel is not ported yet)")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("masked_attn_fwd: inputs must be contiguous")
+    device = check_inputs("masked_attn_fwd", (q, k, v), tuple(DTYPE_CODES), others=(mask,))
     B, H, Q, D = q.shape
     S = k.shape[2]
     if D != 32:
@@ -89,13 +79,10 @@ def masked_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part_m = torch.empty((B * H, chunks, Q), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
     out = torch.empty_like(q)
-    err = library().masked_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(),
-        B, H, Q, S, D, mask_sb, mask_sh, chunk, DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"masked_attn_fwd: kernel launch failed with cudaError {err}")
+    launch("masked_attn_fwd", device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+           part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(),
+           B, H, Q, S, D, mask_sb, mask_sh, chunk, DTYPE_CODES[q.dtype])
     LAUNCHES += 1
     return out
 

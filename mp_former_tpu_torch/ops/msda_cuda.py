@@ -3,7 +3,8 @@
 `msda_fwd` launches `csrc/msda_fwd.cu` (the port of the TPU kernel
 `mp_former_tpu/ops/msda_pallas.py:_gather_weight_level`);
 `ms_deform_attn_plain` is the same function in plain PyTorch, the grid_sample
-form of the reference's CPU path (`ms_deform_attn_core_pytorch`). The
+form of the reference's CPU path (`ms_deform_attn_core_pytorch`), and
+`ms_deform_attn_folded` is it once more in the kernel's own arithmetic. The
 dispatcher `ops/ms_deform_attn.py:ms_deform_attn` sends CUDA tensors to the
 kernel and CPU tensors to the plain version.
 
@@ -20,7 +21,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .cuda_build import DTYPE_CODES, library
+from .cuda_build import DTYPE_CODES, check_inputs, launch
 
 # launches of the kernel since the last reset (a plain counter: a run shows
 # that its path went through the kernel)
@@ -46,16 +47,55 @@ def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int
     return out.transpose(1, 2).contiguous()
 
 
-@functools.lru_cache(maxsize=64)
-def _level_tables(shapes: Tuple[Tuple[int, int], ...],
-                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(L, 2) level sizes and (L,) first tokens, int64 on `device`. Cached per
-    canvas: a copy from the host would wait for the stream at every layer."""
+def _level_starts(shapes: Sequence[Tuple[int, int]]):
     starts = [0]
     for h, w in shapes[:-1]:
         starts.append(starts[-1] + h * w)
-    return (torch.tensor(shapes, dtype=torch.int64).to(device),
-            torch.tensor(starts, dtype=torch.int64).to(device))
+    return starts
+
+
+def ms_deform_attn_folded(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                          sampling_locations: torch.Tensor,
+                          attention_weights: torch.Tensor) -> torch.Tensor:
+    """The same function in the kernel's arithmetic: per point the pixel
+    corner, four tap indices clamped onto the map and four tap weights =
+    bilinear x validity x attention (0 for a tap off the map, and for a point
+    whose location is not finite or lies a pixel or more off the map), then a
+    gather of the taps and one sum over levels, points and taps."""
+    B, S, M, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    hw = torch.tensor(spatial_shapes, dtype=torch.float32, device=value.device)
+    H, W = hw[:, 0].view(L, 1), hw[:, 1].view(L, 1)
+    start = torch.tensor(_level_starts(spatial_shapes), device=value.device).view(L, 1)
+    loc = sampling_locations.float()
+    x, y = loc[..., 0] * W - 0.5, loc[..., 1] * H - 0.5             # (B, Q, M, L, P)
+    x0, y0 = x.floor(), y.floor()
+    valid = (x0 >= -1) & (x0 <= W - 1) & (y0 >= -1) & (y0 <= H - 1)
+    zero = torch.zeros((), device=value.device)
+    tx, ty = torch.where(valid, x - x0, zero), torch.where(valid, y - y0, zero)
+    a = torch.where(valid, attention_weights.float(), zero)
+    x0, y0 = torch.where(valid, x0, zero), torch.where(valid, y0, zero)
+    wx = torch.stack([torch.where(x0 >= 0, 1 - tx, zero), torch.where(x0 + 1 < W, tx, zero)], -1)
+    wy = torch.stack([torch.where(y0 >= 0, a * (1 - ty), zero),
+                      torch.where(y0 + 1 < H, a * ty, zero)], -1)
+    xi = torch.stack([x0.clamp(min=0), torch.minimum(x0 + 1, W - 1)], -1).long()
+    yi = torch.stack([y0.clamp(min=0), torch.minimum(y0 + 1, H - 1)], -1).long()
+    # taps in the order (y0, x0), (y0, x1), (y1, x0), (y1, x1): (B, Q, M, L, P, 2, 2)
+    idx = start[..., None, None] + yi[..., :, None] * W.long()[..., None, None] + xi[..., None, :]
+    w = wy[..., :, None] * wx[..., None, :]
+    idx = idx.permute(0, 2, 1, 3, 4, 5, 6).reshape(B, M, Q * L * P * 4, 1)
+    taps = torch.gather(value.float().permute(0, 2, 1, 3), 2, idx.expand(-1, -1, -1, D))
+    w = w.permute(0, 2, 1, 3, 4, 5, 6).reshape(B, M, Q, L * P * 4, 1)
+    out = (taps.view(B, M, Q, L * P * 4, D) * w).sum(3)             # (B, M, Q, D)
+    return out.transpose(1, 2).reshape(B, Q, M * D).to(value.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _level_table(shapes: Tuple[Tuple[int, int], ...], device: torch.device) -> torch.Tensor:
+    """(L, 3) int32 on `device`: H, W and first token of each level. Cached per
+    canvas: a copy from the host would wait for the stream at every layer."""
+    rows = [(h, w, s) for (h, w), s in zip(shapes, _level_starts(shapes))]
+    return torch.tensor(rows, dtype=torch.int32).to(device)
 
 
 def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -64,17 +104,8 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     """Launch K1 on CUDA tensors (forward only); raises on anything it does
     not take, and if the launch fails."""
     global LAUNCHES
-    tensors = (value, sampling_locations, attention_weights)
-    if not all(t.is_cuda and t.device == value.device for t in tensors):
-        raise ValueError("msda_fwd: all inputs must be CUDA tensors on one device")
-    if value.dtype not in DTYPE_CODES or any(t.dtype != value.dtype for t in tensors):
-        raise TypeError(f"msda_fwd: inputs must all be float32 or bfloat16, got "
-                        f"{[t.dtype for t in tensors]}")
-    if any(t.requires_grad for t in tensors):
-        raise RuntimeError("msda_fwd is forward-only: run it under torch.no_grad() "
-                           "(the backward kernel is not ported yet)")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("msda_fwd: inputs must be contiguous")
+    device = check_inputs("msda_fwd", (value, sampling_locations, attention_weights),
+                          tuple(DTYPE_CODES), align=16)
     B, S, M, D = value.shape
     if D != 32:
         raise ValueError(f"msda_fwd: the kernel takes 32 channels per head, got {D}")
@@ -89,14 +120,13 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     if len(shapes) != L or sum(h * w for h, w in shapes) != S:
         raise ValueError(f"msda_fwd: spatial_shapes {list(spatial_shapes)} do not tile "
                          f"S={S} in L={L} levels")
-    shapes_t, starts_t = _level_tables(shapes, value.device)
-    out = torch.empty((B, Q, M * D), dtype=value.dtype, device=value.device)
-    err = library().msda_fwd(
-        value.data_ptr(), shapes_t.data_ptr(), starts_t.data_ptr(),
-        sampling_locations.data_ptr(), attention_weights.data_ptr(), out.data_ptr(),
-        B, S, Q, M, L, P, D, DTYPE_CODES[value.dtype],
-        torch.cuda.current_stream(value.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"msda_fwd: kernel launch failed with cudaError {err}")
+    if S * M * D >= 2 ** 31 or B * Q * M >= 2 ** 31:
+        raise ValueError(f"msda_fwd: the kernel indexes one batch element's values and the "
+                         f"(batch, query, head) pairs in 32 bits; S*M*D={S * M * D} or "
+                         f"B*Q*M={B * Q * M} is too large")
+    out = torch.empty((B, Q, M * D), dtype=value.dtype, device=device)
+    launch("msda_fwd", device, value.data_ptr(), _level_table(shapes, device).data_ptr(),
+           sampling_locations.data_ptr(), attention_weights.data_ptr(), out.data_ptr(),
+           B, S, Q, M, L, P, D, DTYPE_CODES[value.dtype])
     LAUNCHES += 1
     return out

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import library
+from .cuda_build import check_inputs, launch
 
 GATHER_DTYPES = (torch.float32, torch.bfloat16)
 INDEX_DTYPES = (torch.int32, torch.int64)
@@ -46,30 +46,16 @@ def _check(name: str, tab: torch.Tensor, idx: torch.Tensor, slots: int = 1) -> N
         raise ValueError(f"{name}: N={idx.shape[0]} is not a multiple of slots={slots}")
 
 
-def _check_cuda(name: str, tab: torch.Tensor, idx: torch.Tensor) -> None:
-    if not (tab.is_cuda and idx.is_cuda and tab.device == idx.device):
-        raise ValueError(f"{name}: tab and idx must be CUDA tensors on one device")
-    if not (tab.is_contiguous() and idx.is_contiguous()):
-        raise ValueError(f"{name}: inputs must be contiguous")
-    if tab.requires_grad:
-        raise RuntimeError(f"{name} is forward-only: run it under torch.no_grad()")
-
-
 def row_gather_fwd(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the gather kernel on CUDA tensors; raises on anything it does
     not take, and if the launch fails."""
     global GATHER_LAUNCHES
     _check("row_gather", tab, idx)
-    _check_cuda("row_gather", tab, idx)
-    if tab.dtype not in GATHER_DTYPES:
-        raise TypeError(f"row_gather: tab must be float32 or bfloat16, got {tab.dtype}")
+    device = check_inputs("row_gather", (tab,), GATHER_DTYPES, others=(idx,))
     n, width = idx.shape[0], tab.shape[1]
-    out = torch.empty((n, width), dtype=tab.dtype, device=tab.device)
-    err = library().row_gather(
-        tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, width * tab.element_size(),
-        int(idx.dtype == torch.int64), torch.cuda.current_stream(tab.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"row_gather: kernel launch failed with cudaError {err}")
+    out = torch.empty((n, width), dtype=tab.dtype, device=device)
+    launch("row_gather", device, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n,
+           width * tab.element_size(), int(idx.dtype == torch.int64))
     GATHER_LAUNCHES += 1
     return out
 
@@ -79,16 +65,11 @@ def row_gather_sum_fwd(tab: torch.Tensor, idx: torch.Tensor, slots: int) -> torc
     on anything it does not take, and if the launch fails."""
     global SUM_LAUNCHES
     _check("row_gather_sum", tab, idx, slots)
-    _check_cuda("row_gather_sum", tab, idx)
-    if tab.dtype != torch.float32:
-        raise TypeError(f"row_gather_sum: tab must be float32, got {tab.dtype}")
+    device = check_inputs("row_gather_sum", (tab,), (torch.float32,), others=(idx,))
     n, width = idx.shape[0], tab.shape[1]
-    out = torch.zeros((slots, width), dtype=torch.float32, device=tab.device)
-    err = library().row_gather_sum(
-        tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, width, slots,
-        int(idx.dtype == torch.int64), torch.cuda.current_stream(tab.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"row_gather_sum: kernel launch failed with cudaError {err}")
+    out = torch.zeros((slots, width), dtype=torch.float32, device=device)
+    launch("row_gather_sum", device, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, width,
+           slots, int(idx.dtype == torch.int64))
     SUM_LAUNCHES += 1
     return out
 

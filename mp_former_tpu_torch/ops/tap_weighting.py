@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import DTYPE_CODES, library
+from .cuda_build import DTYPE_CODES, check_inputs, launch
 
 # launches of the kernel since the last reset
 LAUNCHES = 0
@@ -55,23 +55,11 @@ def tap_weight_fwd(taps: torch.Tensor, w: torch.Tensor, n_points: int, n_heads: 
     """Launch K2 on CUDA tensors (forward only); raises on anything it does
     not take, and if the launch fails."""
     global LAUNCHES
-    if not (taps.is_cuda and w.is_cuda and taps.device == w.device):
-        raise ValueError("tap_weight_fwd: taps and w must be CUDA tensors on one device")
-    if taps.dtype not in DTYPE_CODES or w.dtype != taps.dtype:
-        raise TypeError(f"tap_weight_fwd: taps and w must both be float32 or bfloat16, got "
-                        f"{taps.dtype} and {w.dtype}")
-    if taps.requires_grad or w.requires_grad:
-        raise RuntimeError("tap_weight_fwd is forward-only: run it under torch.no_grad() "
-                           "(the backward is not ported yet)")
-    if not (taps.is_contiguous() and w.is_contiguous()):
-        raise ValueError("tap_weight_fwd: inputs must be contiguous")
+    device = check_inputs("tap_weight_fwd", (taps, w), tuple(DTYPE_CODES))
     b, q, t = _check_shapes(taps, w, n_points, n_heads, d)
     out = torch.empty((b, q, n_heads * d), dtype=taps.dtype, device=taps.device)
-    err = library().tap_weight_fwd(
-        taps.data_ptr(), w.data_ptr(), out.data_ptr(), b, q, n_points, t, n_heads, d,
-        DTYPE_CODES[taps.dtype], torch.cuda.current_stream(taps.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"tap_weight_fwd: kernel launch failed with cudaError {err}")
+    launch("tap_weight_fwd", device, taps.data_ptr(), w.data_ptr(), out.data_ptr(),
+           b, q, n_points, t, n_heads, d, DTYPE_CODES[taps.dtype])
     LAUNCHES += 1
     return out
 

@@ -51,9 +51,46 @@ def test_msda_kernel_matches_plain(cuda, dtype, tol, shapes, P):
     assert (got.float() - want).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("B,Q,M,shapes,P", [
+    (1, 37, 3, [(9, 7), (4, 5)], 4),        # B*Q*M = 111: the last warp is not full
+    (2, 5, 1, [(6, 6), (3, 3), (1, 1)], 4),  # M = 1, fewer pairs than one block
+    (1, 130, 8, [(11, 13)], 4),             # L = 1
+    (3, 33, 2, [(8, 8), (4, 4)], 1),        # P = 1
+    (1, 21, 4, [(5, 5), (3, 3), (2, 2)], 7),  # L*P = 21: three rounds, the last ragged
+])
+def test_msda_kernel_matches_plain_at_ragged_shapes(cuda, dtype, tol, B, Q, M, shapes, P):
+    value, loc, attn = (t.to(dtype) for t in _msda_inputs(cuda, B, Q, M, 32, shapes, P))
+    got = msda_cuda.msda_fwd(value, shapes, loc, attn)
+    want = msda_cuda.ms_deform_attn_plain(value.float(), shapes, loc.float(), attn.float())
+    folded = msda_cuda.ms_deform_attn_folded(value.float(), shapes, loc.float(), attn.float())
+    assert got.dtype == dtype and got.shape == (B, Q, M * 32)
+    assert (got.float() - want).abs().max().item() <= tol
+    assert (got.float() - folded).abs().max().item() <= tol
+
+
+def test_msda_kernel_gives_zero_off_the_map_and_for_locations_not_finite(cuda):
+    shapes = [(6, 5), (3, 2)]
+    value, loc, attn = _msda_inputs(cuda, 1, 12, 2, 32, shapes, 2)
+    loc[0, 0] = float("nan")
+    loc[0, 1] = float("inf")
+    loc[0, 2] = -7.0
+    loc[0, 3] = 1e30
+    got = msda_cuda.msda_fwd(value, shapes, loc, attn)
+    folded = msda_cuda.ms_deform_attn_folded(value, shapes, loc, attn)
+    assert torch.equal(got[0, :4], torch.zeros_like(got[0, :4]))
+    assert (got - folded).abs().max().item() <= 1e-4
+
+
 def test_msda_kernel_refuses_what_it_does_not_take(cuda):
     shapes = [(4, 4)]
     value, loc, attn = _msda_inputs(cuda, 1, 16, 2, 32, shapes, 2)
+    # a contiguous view that starts 4 bytes into its storage: the kernel's
+    # 16-byte loads would be misaligned
+    shifted = torch.empty(value.numel() + 1, device=cuda)[1:].view_as(value).copy_(value)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        msda_cuda.msda_fwd(shifted, shapes, loc, attn)
     with pytest.raises(RuntimeError, match="forward-only"):
         msda_cuda.msda_fwd(value.clone().requires_grad_(), shapes, loc, attn)
     with pytest.raises(ValueError, match="32 channels"):
@@ -174,6 +211,79 @@ def test_row_gather_kernel_is_exact(cuda, dtype, idx_dtype, rows, width, n):
     got = rg.row_gather(tab, idx)
     assert rg.GATHER_LAUNCHES == before + 1
     assert got.dtype == dtype and torch.equal(got, rg.row_gather_plain(tab, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,width,n", [
+    (5, 128, 1),          # one row
+    (9, 40000, 3),        # a row longer than one block's share of units
+    (9, 40001, 3),        # the same in 4-byte (float32) or 2-byte (bfloat16) units
+    (300, 128, 300000),   # 75000 blocks of 4 rows along x
+    (300, 8, 70000),      # short rows: teams of 2 lanes, 64 rows a block
+    (64, 12, 1000),       # 3 units of 16 bytes in float32: teams of 4 lanes, one idle
+])
+def test_row_gather_kernel_is_exact_at_ragged_shapes(cuda, dtype, rows, width, n):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    tab = torch.randn((rows, width), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(0, rows, (n,), generator=g, device=cuda, dtype=torch.int32)
+    got = rg.row_gather(tab, idx)
+    assert got.shape == (n, width) and torch.equal(got, rg.row_gather_plain(tab, idx))
+
+
+def test_row_gather_kernel_takes_a_misaligned_table(cuda):
+    """A view 4 bytes into its storage: the kernel falls to 4-byte units."""
+    tab = torch.randn(33 * 16 + 1, device=cuda)[1:].view(33, 16)
+    idx = torch.arange(32, -1, -1, device=cuda, dtype=torch.int64)
+    assert tab.data_ptr() % 16 != 0
+    assert torch.equal(rg.row_gather(tab, idx), tab[idx])
+
+
+def _graph_replay_matches_eager(fn, inputs):
+    """Capture fn() into a CUDA graph, change the inputs in place, replay:
+    the captured output must equal a fresh eager call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    for t in inputs:
+        t.copy_(t.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, fn())
+
+
+def test_wrappers_are_capturable_into_a_cuda_graph(cuda):
+    """Every wrapper launches on the capturing stream, allocates through
+    PyTorch and never synchronises; a launch error inside capture would raise."""
+    shapes = [(9, 7), (4, 5)]
+    value, loc, attn = _msda_inputs(cuda, 2, 37, 3, 32, shapes, 4)
+    before = msda_cuda.LAUNCHES
+    _graph_replay_matches_eager(lambda: msda_cuda.msda_fwd(value, shapes, loc, attn), [value])
+    assert msda_cuda.LAUNCHES == before + 3  # warm-up, capture, eager: a replay is no call
+    tab = torch.randn((300, 128), device=cuda)
+    idx = torch.randint(0, 300, (64,), device=cuda, dtype=torch.int32)
+    _graph_replay_matches_eager(lambda: rg.row_gather(tab, idx), [tab, idx])
+    q, k, v, mask = _attn_inputs(cuda, 2, 8, 100, 850, 32)
+    _graph_replay_matches_eager(lambda: mac.masked_attn_fwd(q, k, v, mask), [k, v])
+    taps, w = _tap_inputs(cuda, 2, 101, 3, 8, 32, torch.float32)
+    _graph_replay_matches_eager(lambda: tw.weight_taps(taps, w, 3, 8, 32), [taps])
+
+
+def test_device_time_by_graph_replay_is_below_the_eager_reading(cuda):
+    """`device_ms` reads the card, `cuda_ms` the slower of card and host: for
+    a 64-row gather the host's issue time is the larger by far."""
+    from mp_former_tpu_torch.utils.cuda_timing import cuda_ms, device_ms, issue_ms
+
+    tab = torch.randn((256, 128), device=cuda)
+    idx = torch.randint(0, 256, (64,), device=cuda, dtype=torch.int32)
+    fn = lambda: rg.row_gather(tab, idx)
+    device, eager, issue = device_ms(fn), cuda_ms(fn), issue_ms(fn)
+    assert 0 < device < eager and 0 < issue
+    assert device < 0.01  # a 32 KB copy: microseconds on the card
 
 
 @pytest.mark.parametrize("rows,width,n,slots", [(16641, 128, 65536, 8), (9, 3, 35, 5)])

@@ -12,7 +12,10 @@ the compiler could lower a gather at all; on this card that is not in
 question, so this tool checks each kernel against its plain version and
 prints its time per row, beside `torch.index_select` (for the sum:
 `F.embedding_bag`) on the same inputs and beside the card's name and power
-limit. At these sizes a call is mostly launch time.
+limit. Every time is read on two clocks: `ms` is device time (the calls
+captured into a CUDA graph and replayed), `issue_ms` the host's time to issue
+one eager call. At these sizes the second is the larger, and is what an eager
+caller pays.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ def run_probes(card: str, seed: int = 0, iters: int = 50):
     import torch.nn.functional as F
 
     from mp_former_tpu_torch.ops import row_gather as rg
-    from mp_former_tpu_torch.utils.cuda_timing import cuda_ms
+    from mp_former_tpu_torch.utils.cuda_timing import two_clocks
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     results = []
@@ -71,17 +74,19 @@ def run_probes(card: str, seed: int = 0, iters: int = 50):
         if not lib_err <= SUM_TOL:
             raise AssertionError(f"{name}: the library call computes another function "
                                  f"(max abs error {lib_err})")
-        ms = cuda_ms(kernel, iters)
-        plain_ms = cuda_ms(plain, iters)
-        library_ms = cuda_ms(library, iters)
+        k, pl, lb = (two_clocks(fn, iters=iters) for fn in (kernel, plain, library))
         res = {"probe": name, "op": op, "rows": rows, "width": width, "n": n,
                "dtype": dtype_name, "slots": slots, "element_size": tab.element_size(),
                "index_size": idx.element_size(), "max_abs_err": err, "tol": tol,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+               "ms": k["ms"], "issue_ms": k["issue_ms"],
+               "plain_ms": pl["ms"], "plain_issue_ms": pl["issue_ms"],
+               "library_ms": lb["ms"], "library_issue_ms": lb["issue_ms"]}
         print(f"[row_gather] {name} {op} tab={rows}x{width} {dtype_name} n={n} slots={slots} "
-              f"max_abs_err={err:.3e} tol={tol} kernel_ms={ms:.5f} "
-              f"kernel_ns_per_row={ms * 1e6 / n:.3f} plain_ms={plain_ms:.5f} "
-              f"library_ms={library_ms:.5f} library_ns_per_row={library_ms * 1e6 / n:.3f} "
+              f"max_abs_err={err:.3e} tol={tol} kernel_ms={k['ms']:.5f} "
+              f"kernel_issue_ms={k['issue_ms']:.5f} kernel_ns_per_row={k['ms'] * 1e6 / n:.3f} "
+              f"plain_ms={pl['ms']:.5f} plain_issue_ms={pl['issue_ms']:.5f} "
+              f"library_ms={lb['ms']:.5f} library_issue_ms={lb['issue_ms']:.5f} "
+              f"library_ns_per_row={lb['ms'] * 1e6 / n:.3f} "
               f"card={card!r}", flush=True)
         results.append(res)
     return results

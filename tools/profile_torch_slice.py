@@ -11,7 +11,9 @@ the request shape,
 then traces `--requests` requests with `torch.profiler` and prints: the
 card, host time per request, device busy time per request (the sum of the
 kernels' device time over the traced window), the top ops by device time
-and by host time, and the time by model stage (record_function ranges).
+and by host time, the port's own kernels (device time per launch, as the
+profiler reads it from the card), and the time by model stage
+(record_function ranges).
 """
 
 from __future__ import annotations
@@ -88,6 +90,12 @@ def main() -> int:
           f"{[round(t * 1e3, 2) for t in host]}")
     print(f"device busy ms per request (kernels and copies): {dev_us / 1e3 / args.requests:.3f}, "
           f"of which copies {copy_us / 1e3 / args.requests:.3f}")
+    print("\n== the port's kernels ==")
+    for e in device:
+        if any(name in e.key for name in ("msda_fwd", "masked_attn", "tap_weight", "row_gather")):
+            print(f"{e.key[:70]:70s} launches/request={e.count / args.requests:g} "
+                  f"device_ms/launch={e.self_device_time_total / 1e3 / e.count:.4f} "
+                  f"device_ms/request={e.self_device_time_total / 1e3 / args.requests:.4f}")
     print("\n== by device time ==")
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
     print("\n== stages ==")
