@@ -12,7 +12,10 @@ result line):
    function that does the kernel's folded arithmetic, at the slice's shapes,
    float32 and bfloat16, with locations outside the map;
 4. K3 (masked cross-attention) against its plain version at the decoder's
-   three key lengths, with random masks and fully masked rows;
+   three key lengths, float32 and bfloat16, on the strided head views the
+   decoder hands it and on contiguous copies, with masks shared by the heads
+   and per head, fully masked rows, a batch of two, and against the plain
+   function that repeats the kernel's tiles and 3xTF32 products;
 5. K2 (tap weighting) against its plain version at both call shapes of the
    800x1088 canvas, float32 and bfloat16, and at a ragged small shape;
 6. the row-gather kernels against their plain versions at the shapes of
@@ -67,9 +70,10 @@ REQUESTS = [(480, 640), (640, 480), (427, 640), (640, 427)]
 # bfloat16: the kernel's output is rounded to bfloat16 (8 bits of mantissa).
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # published peaks of one H100 SXM at its full 700 W power limit: HBM bytes/s,
-# float32 FLOP/s outside the tensor cores, dense bfloat16 tensor-core FLOP/s
+# float32 FLOP/s outside the tensor cores, dense TF32 and bfloat16 tensor-core
+# FLOP/s
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 
 
 def log(phase: str, **fields) -> None:
@@ -184,24 +188,47 @@ def phase_k3(torch, card: str) -> dict:
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    B, H, Q, D = 1, 8, 100, 32
+    H, Q, D = 8, 100, 32
+
+    def head_views(B, S, dtype):
+        """q, k, v as `MultiheadAttention` hands them to the kernel: the
+        (B, H, N, D) views of (B, N, H * D) projections, not copies."""
+        return tuple(torch.randn((B, n, H * D), generator=g, device="cuda").to(dtype)
+                     .view(B, n, H, D).transpose(1, 2) for n in (Q, S, S))
+
+    def max_err(got, want):
+        torch.cuda.synchronize()
+        return (got.float() - want.float()).abs().max().item()
+
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         errs, times, bounds = [], [], []
         for S in ATTN_KEYS:
-            q = torch.randn((B, H, Q, D), generator=g, device="cuda").to(dtype)
-            k = torch.randn((B, H, S, D), generator=g, device="cuda").to(dtype)
-            v = torch.randn((B, H, S, D), generator=g, device="cuda").to(dtype)
+            B = 1
+            q, k, v = head_views(B, S, dtype)
             mask = torch.rand((B, Q, S), generator=g, device="cuda") < 0.7
             mask[:, :5] = True  # fully masked rows: uniform over all keys
             mask_h = torch.rand((B, H, Q, S), generator=g, device="cuda") < 0.7
             err = 0.0
             for m in (mask, mask_h):
-                got = mac.masked_attn_fwd(q, k, v, m)
                 want = mac.masked_attention_plain(q.float(), k.float(), v.float(), m)
-                torch.cuda.synchronize()
-                err = max(err, (got.float() - want).abs().max().item())
+                # where the keys lie (strided views) and as contiguous copies
+                err = max(err, max_err(mac.masked_attn_fwd(q, k, v, m), want),
+                          max_err(mac.masked_attn_fwd(q.contiguous(), k.contiguous(),
+                                                      v.contiguous(), m), want))
+            # a batch of two, strided, with a row masked in every chunk but one
+            q2, k2, v2 = head_views(2, S, dtype)
+            mask2 = torch.rand((2, Q, S), generator=g, device="cuda") < 0.7
+            mask2[:, :5] = True
+            mask2[:, 5, 64:] = True
+            got = mac.masked_attn_fwd(q2, k2, v2, mask2)
+            batch_err = max_err(got, mac.masked_attention_plain(q2.float(), k2.float(),
+                                                                v2.float(), mask2))
+            # the same tiles, chunks and 3xTF32 products in plain PyTorch
+            tiled_err = max_err(got, mac.masked_attention_tiled(
+                q2, k2, v2, mask2, sms=torch.cuda.get_device_properties(0).multi_processor_count))
+            del q2, k2, v2, mask2, got
             # the one library call for the same function: an additive -1e9
             # mask, made outside the timed call
             additive = torch.zeros((B, 1, Q, S), dtype=dtype, device="cuda")
@@ -215,15 +242,22 @@ def phase_k3(torch, card: str) -> dict:
             t = timed(lambda: mac.masked_attn_fwd(q, k, v, mask),
                       lambda: mac.masked_attention_plain(q, k, v, mask),
                       lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive))
-            # q k^T and p v: 2 * 2 * Q * S * D per head
-            bnd = bound(nbytes(q, k, v, mask, got), 4.0 * B * H * Q * S * D, name)
-            log("K3", dtype=name, shape=f"B{B}xH{H}xQ{Q}xS{S}xD{D}", max_abs_err=f"{err:.3e}",
-                tol=TOL[name], **fmt_times(t),
+            # q k^T and p v: 2 * 2 * Q * S * D per head. float32 runs them on the
+            # tensor cores as 3xTF32: three times the operations, at the TF32 peak
+            flops = 4.0 * B * H * Q * S * D
+            n_bytes = nbytes(q, k, v, mask) + q.numel() * q.element_size()
+            bnd = (bound(n_bytes, 3 * flops, "tf32") if dtype == torch.float32
+                   else bound(n_bytes, flops, name))
+            log("K3", dtype=name, shape=f"B{B}xH{H}xQ{Q}xS{S}xD{D}", layout="strided head views",
+                max_abs_err=f"{err:.3e}", batch_of_2_max_abs_err=f"{batch_err:.3e}",
+                max_abs_err_vs_tiled=f"{tiled_err:.3e}", tol=TOL[name], **fmt_times(t),
                 bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
                 library="F.scaled_dot_product_attention", card=repr(card))
-            if not err <= TOL[name]:
-                raise AssertionError(f"K3 {name} S={S}: max abs error {err} above {TOL[name]}")
-            errs.append(err)
+            if not max(err, batch_err, tiled_err) <= TOL[name]:
+                raise AssertionError(f"K3 {name} S={S}: max abs error {err} (batch of two "
+                                     f"{batch_err}, against the tiled plain function "
+                                     f"{tiled_err}) above {TOL[name]}")
+            errs.append(max(err, batch_err))
             times.append(t)
             bounds.append(bnd)
         # one decoder cycle visits each level once: report the mean per call

@@ -6,35 +6,71 @@
 //
 //   out = softmax(q k^T / sqrt(D), masked logits set to -1e9) v
 //
-//   q     (B, H, Q, D)      k, v  (B, H, S, D)      D = 32, float32 or bfloat16
-//   mask  1 byte per entry, 1 = blocked, at mask[b * mask_sb + h * mask_sh + q * S + s]:
-//         (B, Q, S) shared by all heads (mask_sh = 0) or (B, H, Q, S)
-//   out   (B, H, Q, D) in the input type; the softmax runs in fp32
+//   q, out  logical (B, H, Q, D)     k, v  logical (B, H, S, D)     D = 32,
+//           float32 or bfloat16, each with its own batch, head and row stride
+//           in elements (the last dimension is contiguous, every row starts on
+//           a 16-byte boundary): the (B, N, H, D) projection of the decoder is
+//           read where it lies, and out is written in that order too
+//   mask    1 byte per entry, 1 = blocked, at mask[b * mask_sb + h * mask_sh +
+//           q * S + s]: (B, Q, S) shared by all heads (mask_sh = 0) or
+//           (B, H, Q, S), contiguous, any alignment
 //
 // A masked logit is exactly -1e9 (not -inf), as in the plain version
 // (mp_former_tpu_torch/ops/masked_attention_cuda.py:masked_attention_plain):
-// a row whose keys are all masked is a uniform average of v, not NaN.
+// a row whose keys are all masked is a uniform average of v, not NaN. The
+// kernel keeps its scores in the base-2 domain (q is scaled by log2(e) /
+// sqrt(D), a masked score is -1e9 * log2(e), the exponential is ex2), which
+// is the same function.
 //
-// Design. The Mask2Former decoder has few queries (Q = 100) and long key
-// sequences (S = 850, 3400, 13600 at the slice's 800x1088 canvas, none of
-// them a multiple of a block size). One thread owns one query row: its q
-// (pre-scaled by 1/sqrt(D)) and its fp32 accumulator stay in registers while
-// tiles of 32 keys and values, and the matching 128 x 32 tile of mask bytes,
-// pass through shared memory; every thread of a warp reads the same key, so
-// the shared-memory reads are broadcasts. The softmax is the online one of
-// flash attention: one rescale per tile. To fill 132 SMs with 8 heads, the
-// keys are split into chunks of kChunk (flash-decoding); each block writes
-// the chunk's (max, sum, accumulator) and a second kernel, one warp per
-// query row with a lane per channel, merges the chunks. Ragged tails of S
-// and Q are masked in the kernel. QK^T and PV are fp32 FMAs.
+// What bounds it on the H100. The decoder has few queries (Q = 100) and long
+// key sequences (S = 850, 3400, 13600 at an 800x1088 canvas, none a multiple
+// of a tile). At S = 13600 K, V and the shared mask are 29 MB (9 us at 3.35
+// TB/s) and the two products 1.4 GFLOP: 21 us on the fp32 CUDA cores, which
+// is what bounded the first design (one thread a query row, scalar FMAs with
+// a shared-memory operand each, loads not overlapped, a serial merge). On the
+// tensor cores the products are 3 x 1.4 GFLOP of TF32 (see below), 8.5 us at
+// 495 TFLOP/s, or 1.4 GFLOP of bf16: the kernel is then bound by the issue of
+// everything around the products (operand splits, mask bytes, exponentials),
+// and at S = 850 by the launch and by how many SMs 8 heads can fill.
 //
-// What bounds it on the H100. Per decoder layer at the 13600-key level, K
-// and V are 13600 * 256 channels * 4 bytes * 2 = 27.9 MB in fp32 and the
-// shared mask 1.36 MB; the products are 2 * 100 * 13600 * 256 * 2 = 1.4
-// GFLOP. Each key is read once per (head, chunk), so device-memory traffic
-// is ~30 MB (9 us at 3.35 TB/s) and the bound is the fp32 FMA rate of the
-// CUDA cores (67 TFLOP/s, 21 us) and the latency of each block's serial
-// walk over its chunk. Tensor-core products (mma/wgmma) are a later step.
+// Design.
+// * A warp owns a 16-row query tile (Q = 100 is 7 tiles) and a block up to 8
+//   of them; all warps of a block share the 64-key tiles of K, V and mask in
+//   shared memory. Both products are mma.sync, the scores stay in the
+//   accumulator fragments and the online softmax (row maximum and sum by quad
+//   shuffles, fp32) runs on them, as in FlashAttention-2, in steps of 32 keys
+//   (half a tile: 16 score registers a lane instead of 32). MMAs that follow
+//   each other go to different accumulators, so none waits for the last.
+// * bfloat16: m16n8k16 with fp32 accumulation; K by ldmatrix, V by
+//   ldmatrix.trans; the score fragment, packed to bf16, is the A fragment of
+//   the second product.
+// * float32: 3xTF32. Plain TF32 keeps 10 bits of mantissa (1e-3 on the
+//   logits). Each operand is split into big = tf32(x) and small = tf32(x -
+//   big), and m16n8k8 accumulates small*big + big*small, then big*big, in
+//   fp32: only the small*small term (2^-22 relative) is left out. The split
+//   (two conversions and a subtraction an element) was a third of the time
+//   when every warp did it for itself: the block splits each K and V tile
+//   once, into (big, small) pairs in shared memory. ldmatrix does not serve
+//   32-bit elements: a fragment entry is one 8-byte load of a pair, with row
+//   pitches (36 pairs for K, 34 for V) that keep both products free of bank
+//   conflicts.
+//   The accumulator holds columns (2t, 2t+1) of a row where the next A
+//   fragment wants (t, t+4): V's rows are taken in that order as the k index,
+//   which costs nothing.
+// * K, V and mask tiles arrive by 16-byte cp.async into a ring of 2 stages,
+//   so a tile's latency hides behind the products of the one before it (a
+//   third stage gains nothing and, in float32, costs an SM its second block).
+//   Rows beyond the ragged end of S are zero-filled (a padded key scores -inf and
+//   weighs 0, and 0 x garbage could be NaN). A mask row starts at any byte:
+//   the tile row is copied from the 16-byte boundary below its first byte, 5
+//   units instead of 4, and read back from its offset.
+// * The keys are split into chunks across blocks so that the grid fills the
+//   card (the wrapper chooses the chunk from S, the heads and the SM count).
+//   One chunk writes out directly. Otherwise each block writes its (max, sum,
+//   accumulator) and a second kernel, a warp a row, merges them: the lanes
+//   take the chunks' maxima and sums in parallel, then a channel each with all
+//   loads independent. A chunk whose keys are all masked has maximum -1e9 and
+//   weighs 0 unless every chunk is so, and then the row is the mean of v.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -43,169 +79,572 @@
 
 namespace {
 
-constexpr int kD = 32;        // channels per head
-constexpr int kKT = 32;       // keys per shared-memory tile
-constexpr int kQT = 128;      // query rows per block (one per thread)
-constexpr int kMaskPitch = 36;  // bytes per mask-tile row: 9 words, conflict-free
-constexpr float kMasked = -1e9f;
+constexpr int kD = 32;          // channels per head
+constexpr int kKT = 64;         // keys per shared-memory tile
+constexpr int kStep = 32;       // keys per step of the online softmax: half a tile, which
+                                // halves the score registers
+constexpr int kJT = kStep / 8;  // 8-key column tiles of the scores per step
+constexpr int kMaxWarps = 8;    // 16-row query tiles per block
+constexpr int kStages = 2;      // ring of tiles in flight
+constexpr int kMaskUnits = 5;   // 16-byte units per mask tile row: 64 bytes from any offset
+constexpr int kMaskPitch = 16 * kMaskUnits;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMasked = -1e9f * kLog2e;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// bytes of one K or V tile row of a stage in shared memory: 36 floats, or 40 bf16
+template <typename T> struct Pitch;
+template <> struct Pitch<float> { static constexpr int bytes = 144; };
+template <> struct Pitch<__nv_bfloat16> { static constexpr int bytes = 80; };
+
+// one stage of the ring: a K tile, a V tile and the block's mask tile
+template <typename T> struct Stage {
+  static constexpr int bytes = 2 * kKT * Pitch<T>::bytes + 16 * kMaxWarps * kMaskPitch;
+};
+
+// float32 only: a tile's K and V as (big, small) TF32 pairs, split once by the
+// whole block instead of by each of its warps. Row pitches in 8-byte pairs: 36
+// for K and 34 for V keep the fragments' 8-byte loads free of bank conflicts.
+constexpr int kSplitKPitch = 36;
+constexpr int kSplitVPitch = 34;
+template <typename T> struct Split { static constexpr int bytes = 0; };
+template <> struct Split<float> {
+  static constexpr int bytes = kKT * (kSplitKPitch + kSplitVPitch) * 8;
+};
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const uint8_t* mask;
+  void* out;
+  float* part;  // (B*H, chunks, Q, D) accumulators, then (B*H, chunks, Q) maxima, then sums
+  long long q_sb, q_sh, q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, o_sb, o_sh, o_sr;
+  long long mask_sb, mask_sh;
+  int H, Q, S, chunk, chunks;
+  float scale_log2;  // log2(e) / sqrt(D)
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// grid (chunks, B * H, ceil(Q / kQT)), block kQT threads.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; `bytes` = 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// big = tf32(x), small = tf32(x - big)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(rest));
+}
+
+// c (16x8) += a (16x8, rows g and g+8, columns t and t+4) b (8x8, rows t and t+4, column g)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The three products of 3xTF32 for four accumulators that share the A
+// operand: the small terms first, then big * big. Each round's four MMAs are
+// independent, so none waits for the one before it. b holds (big, small) pairs.
+__device__ __forceinline__ void mma_3xtf32_x4(float (&c0)[4], float (&c1)[4], float (&c2)[4],
+                                              float (&c3)[4], const uint32_t (&a_big)[4],
+                                              const uint32_t (&a_small)[4],
+                                              const uint2 (&b)[4][2]) {
+  // .x is big, .y is small
+  mma_tf32(c0, a_small, b[0][0].x, b[0][1].x);
+  mma_tf32(c1, a_small, b[1][0].x, b[1][1].x);
+  mma_tf32(c2, a_small, b[2][0].x, b[2][1].x);
+  mma_tf32(c3, a_small, b[3][0].x, b[3][1].x);
+  mma_tf32(c0, a_big, b[0][0].y, b[0][1].y);
+  mma_tf32(c1, a_big, b[1][0].y, b[1][1].y);
+  mma_tf32(c2, a_big, b[2][0].y, b[2][1].y);
+  mma_tf32(c3, a_big, b[3][0].y, b[3][1].y);
+  mma_tf32(c0, a_big, b[0][0].x, b[0][1].x);
+  mma_tf32(c1, a_big, b[1][0].x, b[1][1].x);
+  mma_tf32(c2, a_big, b[2][0].x, b[2][1].x);
+  mma_tf32(c3, a_big, b[3][0].x, b[3][1].x);
+}
+
+// c (16x8) += a (16x16 bf16) b (16x8 bf16)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(row)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(row)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// The query tile of a warp as A fragments. float32: 4 k-steps of 8 channels,
+// scaled, split into big and small. bfloat16: 2 k-steps of 16 channels, as
+// they are (the scores are scaled after the product).
+struct QFragF32 { uint32_t big[4][4], small[4][4]; };
+struct QFragBf16 { uint32_t a[2][4]; };
+
+__device__ __forceinline__ void load_q(QFragF32& f, const float* q_lo, const float* q_hi,
+                                       bool lo_ok, bool hi_ok, int t, float scale) {
+  #pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int col = kk * 8 + t;
+    split_tf32(lo_ok ? q_lo[col] * scale : 0.f, f.big[kk][0], f.small[kk][0]);
+    split_tf32(hi_ok ? q_hi[col] * scale : 0.f, f.big[kk][1], f.small[kk][1]);
+    split_tf32(lo_ok ? q_lo[col + 4] * scale : 0.f, f.big[kk][2], f.small[kk][2]);
+    split_tf32(hi_ok ? q_hi[col + 4] * scale : 0.f, f.big[kk][3], f.small[kk][3]);
+  }
+}
+
+__device__ __forceinline__ void load_q(QFragBf16& f, const __nv_bfloat16* q_lo,
+                                       const __nv_bfloat16* q_hi, bool lo_ok, bool hi_ok, int t,
+                                       float) {
+  #pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const int col = kk * 16 + 2 * t;
+    f.a[kk][0] = lo_ok ? *reinterpret_cast<const uint32_t*>(q_lo + col) : 0u;
+    f.a[kk][1] = hi_ok ? *reinterpret_cast<const uint32_t*>(q_hi + col) : 0u;
+    f.a[kk][2] = lo_ok ? *reinterpret_cast<const uint32_t*>(q_lo + col + 8) : 0u;
+    f.a[kk][3] = hi_ok ? *reinterpret_cast<const uint32_t*>(q_hi + col + 8) : 0u;
+  }
+}
+
+// s (16 rows x 32 keys, 4 column tiles) = q k^T for one step of keys
+__device__ __forceinline__ void scores(float (&s)[kJT][4], const QFragF32& q,
+                                       const unsigned char* ks, int g, int t, float) {
+  const uint2* k2 = reinterpret_cast<const uint2*>(ks);  // the split tile
+  #pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint2 b[4][2];
+    #pragma unroll
+    for (int j = 0; j < kJT; ++j) {
+      const uint2* row = k2 + (j * 8 + g) * kSplitKPitch + kk * 8 + t;  // key j*8+g, channels t, t+4
+      b[j][0] = row[0];
+      b[j][1] = row[4];
+    }
+    mma_3xtf32_x4(s[0], s[1], s[2], s[3], q.big[kk], q.small[kk], b);
+  }
+}
+
+__device__ __forceinline__ void scores(float (&s)[kJT][4], const QFragBf16& q,
+                                       const unsigned char* ks, int, int, float scale) {
+  const int lane = threadIdx.x & 31;
+  #pragma unroll
+  for (int j = 0; j < kJT; ++j) {
+    // matrices: keys j*8 .. j*8+7 by channels 0-7, 8-15, 16-23, 24-31
+    uint32_t b[4];
+    ldmatrix_x4(b, ks + (j * 8 + (lane & 7)) * Pitch<__nv_bfloat16>::bytes + (lane >> 3) * 16);
+    mma_bf16(s[j], q.a[0], b[0], b[1]);
+    mma_bf16(s[j], q.a[1], b[2], b[3]);
+  }
+  #pragma unroll
+  for (int j = 0; j < kJT; ++j)
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+}
+
+// o (16 rows x 32 channels, 4 column tiles) += p v for one step of keys
+__device__ __forceinline__ void weighted_values(float (&o)[4][4], const float (&p)[kJT][4],
+                                                const QFragF32&, const unsigned char* vs, int g,
+                                                int t) {
+  const uint2* v2 = reinterpret_cast<const uint2*>(vs);  // the split tile
+  #pragma unroll
+  for (int j = 0; j < kJT; ++j) {
+    // k index t is key j*8+2t, k index t+4 is key j*8+2t+1: the accumulator's own columns
+    uint32_t big[4], small[4];
+    split_tf32(p[j][0], big[0], small[0]);
+    split_tf32(p[j][2], big[1], small[1]);
+    split_tf32(p[j][1], big[2], small[2]);
+    split_tf32(p[j][3], big[3], small[3]);
+    uint2 b[4][2];
+    #pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const uint2* row = v2 + (j * 8 + 2 * t) * kSplitVPitch + nt * 8 + g;
+      b[nt][0] = row[0];
+      b[nt][1] = row[kSplitVPitch];
+    }
+    mma_3xtf32_x4(o[0], o[1], o[2], o[3], big, small, b);
+  }
+}
+
+__device__ __forceinline__ void weighted_values(float (&o)[4][4], const float (&p)[kJT][4],
+                                                const QFragBf16&, const unsigned char* vs, int,
+                                                int) {
+  const int lane = threadIdx.x & 31;
+  #pragma unroll
+  for (int kk = 0; kk < kJT / 2; ++kk) {  // 16 keys: two column tiles of the scores
+    uint32_t a[4];
+    a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+    a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+    a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+    #pragma unroll
+    for (int pair = 0; pair < 2; ++pair) {
+      // matrices: keys 0-7 and 8-15 of the step by channels of tile 2*pair, then 2*pair+1
+      uint32_t b[4];
+      const int key = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+      const int channel = (2 * pair + (lane >> 4)) * 8;
+      ldmatrix_x4_trans(b, vs + key * Pitch<__nv_bfloat16>::bytes + channel * 2);
+      mma_bf16(o[2 * pair], a, b[0], b[1]);
+      mma_bf16(o[2 * pair + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <typename T> struct Frag;
+template <> struct Frag<float> { using type = QFragF32; };
+template <> struct Frag<__nv_bfloat16> { using type = QFragBf16; };
+
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+}
+
+// grid (chunks, B * H, ceil(Q / 128)), block 32 * min(8, ceil(Q / 16)) threads.
 template <typename T>
-__global__ void __launch_bounds__(kQT)
-masked_attn_partial(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                    float* __restrict__ part_acc, float* __restrict__ part_m,
-                    float* __restrict__ part_l, int H, int Q, int S,
-                    long long mask_sb, long long mask_sh, int chunk, float scale) {
-  __shared__ float ks[kKT][kD];
-  __shared__ float vs[kKT][kD];
-  __shared__ uint8_t ms[kQT][kMaskPitch];
+__global__ void __launch_bounds__(kMaxWarps * 32, 2)
+masked_attn_tiles(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kPitch = Pitch<T>::bytes;
+  constexpr int kUnitsPerRow = kD * (int)sizeof(T) / 16;
+  constexpr int kStage = Stage<T>::bytes;
 
   const int c = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.z * kQT;
-  const int qi = q0 + threadIdx.x;
-  const bool active = qi < Q;
-  const int s_begin = c * chunk;
-  const int s_end = min(S, s_begin + chunk);
-  const T* kb = k + (long long)bh * S * kD;
-  const T* vb = v + (long long)bh * S * kD;
-  const uint8_t* mb = mask + b * mask_sb + h * mask_sh;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.z * (kMaxWarps * 16);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rows_here = min(p.Q - q0, (int)(blockDim.x >> 5) * 16);
+  const int s_begin = c * p.chunk;
+  const int s_end = min(p.S, s_begin + p.chunk);
+  const int tiles = (s_end - s_begin + kKT - 1) / kKT;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const uint8_t* mb = p.mask + b * p.mask_sb + h * p.mask_sh + (long long)q0 * p.S;
 
-  float qr[kD], acc[kD];
-  #pragma unroll
-  for (int d = 0; d < kD; ++d) {
-    qr[d] = active ? to_float(q[((long long)bh * Q + qi) * kD + d]) * scale : 0.f;
-    acc[d] = 0.f;
-  }
-  float m_run = -1e30f, l_run = 0.f;
-
-  for (int t0 = s_begin; t0 < s_end; t0 += kKT) {
+  auto load_tile = [&](int tile) {
+    unsigned char* ks = smem + (tile % kStages) * kStage;
+    unsigned char* vs = ks + kKT * kPitch;
+    unsigned char* ms = vs + kKT * kPitch;
+    const int t0 = s_begin + tile * kKT;
     const int n = min(kKT, s_end - t0);
-    for (int idx = threadIdx.x; idx < kKT * kD; idx += kQT) {
-      const int r = idx / kD, col = idx % kD;
-      const long long off = (long long)(t0 + r) * kD + col;
-      ks[r][col] = r < n ? to_float(kb[off]) : 0.f;
-      vs[r][col] = r < n ? to_float(vb[off]) : 0.f;
+    for (int i = threadIdx.x; i < kKT * kUnitsPerRow; i += blockDim.x) {
+      const int r = i / kUnitsPerRow, u = i % kUnitsPerRow;
+      const long long key = t0 + min(r, n - 1);
+      const int bytes = r < n ? 16 : 0;
+      cp_async16(ks + r * kPitch + u * 16,
+                 reinterpret_cast<const unsigned char*>(kb + key * p.k_sr) + u * 16, bytes);
+      cp_async16(vs + r * kPitch + u * 16,
+                 reinterpret_cast<const unsigned char*>(vb + key * p.v_sr) + u * 16, bytes);
     }
-    for (int idx = threadIdx.x; idx < kQT * kKT; idx += kQT) {
-      const int r = idx / kKT, col = idx % kKT;
-      ms[r][col] = (q0 + r < Q && col < n) ? mb[(long long)(q0 + r) * S + t0 + col] : 1;
+    for (int i = threadIdx.x; i < rows_here * kMaskUnits; i += blockDim.x) {
+      const int r = i / kMaskUnits, u = i % kMaskUnits;
+      const uint8_t* first = mb + (long long)r * p.S + t0;  // the row's first byte of the tile
+      const uint8_t* src =
+          reinterpret_cast<const uint8_t*>(reinterpret_cast<uintptr_t>(first) & ~(uintptr_t)15) +
+          u * 16;
+      // every unit copied holds at least one byte of the row: never off the tensor's pages
+      if (src < first + n) cp_async16(ms + r * kMaskPitch + u * 16, src, 16);
     }
-    __syncthreads();
-    if (active) {
-      float sc[kKT];
-      float tmax = -INFINITY;
-      #pragma unroll
-      for (int j = 0; j < kKT; ++j) {
-        float dot = 0.f;
-        #pragma unroll
-        for (int d = 0; d < kD; ++d) dot = fmaf(qr[d], ks[j][d], dot);
-        const float sj = j < n ? (ms[threadIdx.x][j] ? kMasked : dot) : -INFINITY;
-        sc[j] = sj;
-        tmax = fmaxf(tmax, sj);
-      }
-      const float m_new = fmaxf(m_run, tmax);
-      const float alpha = expf(m_run - m_new);
-      l_run *= alpha;
-      #pragma unroll
-      for (int d = 0; d < kD; ++d) acc[d] *= alpha;
-      #pragma unroll
-      for (int j = 0; j < kKT; ++j) {
-        const float p = expf(sc[j] - m_new);  // 0 for the padded tail
-        l_run += p;
-        #pragma unroll
-        for (int d = 0; d < kD; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
-      }
-      m_run = m_new;
-    }
-    __syncthreads();
+  };
+
+  #pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < tiles) load_tile(s);
+    cp_async_commit();
   }
 
-  if (active) {
-    const long long row = ((long long)bh * gridDim.x + c) * Q + qi;
-    part_m[row] = m_run;
-    part_l[row] = l_run;
+  // rows g and g + 8 of the warp's query tile
+  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
+  const bool warp_active = q0 + warp * 16 < p.Q;
+  const bool lo_ok = row_lo < p.Q, hi_ok = row_hi < p.Q;
+  typename Frag<T>::type qf;
+  float o[4][4];
+  float m_lo = -1e30f, m_hi = -1e30f, l_lo = 0.f, l_hi = 0.f;
+  int off_lo = 0, off_hi = 0;  // where a mask row starts in its 16-byte unit
+  if (warp_active) {
+    const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    load_q(qf, qb + row_lo * p.q_sr, qb + row_hi * p.q_sr, lo_ok, hi_ok, t, p.scale_log2);
     #pragma unroll
-    for (int d = 0; d < kD; ++d) part_acc[row * kD + d] = acc[d];
+    for (int nt = 0; nt < 4; ++nt)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+    // chunk is a multiple of 64, so the offset is the same in every tile
+    off_lo = (int)(reinterpret_cast<uintptr_t>(mb + (long long)(warp * 16 + g) * p.S + s_begin) & 15);
+    off_hi = (int)(reinterpret_cast<uintptr_t>(mb + (long long)(warp * 16 + g + 8) * p.S + s_begin) & 15);
+  }
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // the tile has landed for all, and the stage refilled below is free
+    if (tile + kStages - 1 < tiles) load_tile(tile + kStages - 1);
+    cp_async_commit();
+
+    // what the products read, and the bytes of a row there
+    const unsigned char* ks = smem + (tile % kStages) * kStage;
+    const unsigned char* vs = ks + kKT * kPitch;
+    const unsigned char* ms = vs + kKT * kPitch;
+    int k_row = kPitch, v_row = kPitch;
+    if constexpr (sizeof(T) == 4) {
+      // float32: the block splits the tile's K and V into (big, small) pairs once
+      uint2* split_k = reinterpret_cast<uint2*>(smem + kStages * kStage);
+      uint2* split_v = split_k + kKT * kSplitKPitch;
+      for (int i = threadIdx.x; i < 2 * kKT * 8; i += blockDim.x) {
+        const int is_v = i / (kKT * 8), r = (i / 8) % kKT, unit = i % 8;
+        // the V tile follows the K tile in the stage
+        const float4 x =
+            *reinterpret_cast<const float4*>(ks + (is_v * kKT + r) * kPitch + unit * 16);
+        uint4 lo, hi;
+        split_tf32(x.x, lo.x, lo.y);
+        split_tf32(x.y, lo.z, lo.w);
+        split_tf32(x.z, hi.x, hi.y);
+        split_tf32(x.w, hi.z, hi.w);
+        uint2* dst = (is_v ? split_v + r * kSplitVPitch : split_k + r * kSplitKPitch) + unit * 4;
+        *reinterpret_cast<uint4*>(dst) = lo;
+        *reinterpret_cast<uint4*>(dst + 2) = hi;
+      }
+      __syncthreads();  // the next tile's split waits at the barrier above
+      ks = reinterpret_cast<const unsigned char*>(split_k);
+      vs = reinterpret_cast<const unsigned char*>(split_v);
+      k_row = kSplitKPitch * 8;
+      v_row = kSplitVPitch * 8;
+    }
+    if (!warp_active) continue;
+    const int n_tile = min(kKT, s_end - (s_begin + tile * kKT));
+
+    #pragma unroll 1
+    for (int first = 0; first < n_tile; first += kStep) {  // a step of 32 keys
+      const int n = min(kStep, n_tile - first);
+      float s[kJT][4];
+      #pragma unroll
+      for (int j = 0; j < kJT; ++j)
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      scores(s, qf, ks + first * k_row, g, t, p.scale_log2);
+
+      // masked keys score exactly -1e9 (base 2); rows beyond Q read whatever the
+      // stage holds, which is harmless: their scores stay finite and are not stored
+      const unsigned char* mrow_lo = ms + (warp * 16 + g) * kMaskPitch + off_lo + first + 2 * t;
+      const unsigned char* mrow_hi =
+          ms + (warp * 16 + g + 8) * kMaskPitch + off_hi + first + 2 * t;
+      #pragma unroll
+      for (int j = 0; j < kJT; ++j) {
+        if (mrow_lo[j * 8]) s[j][0] = kMasked;
+        if (mrow_lo[j * 8 + 1]) s[j][1] = kMasked;
+        if (mrow_hi[j * 8]) s[j][2] = kMasked;
+        if (mrow_hi[j * 8 + 1]) s[j][3] = kMasked;
+      }
+      if (n < kStep) {  // keys beyond the end of S: -inf, weight 0
+        #pragma unroll
+        for (int j = 0; j < kJT; ++j) {
+          const int key = j * 8 + 2 * t;
+          if (key >= n) s[j][0] = s[j][2] = -INFINITY;
+          if (key + 1 >= n) s[j][1] = s[j][3] = -INFINITY;
+        }
+      }
+
+      float max_lo = -INFINITY, max_hi = -INFINITY;
+      #pragma unroll
+      for (int j = 0; j < kJT; ++j) {
+        max_lo = fmaxf(max_lo, fmaxf(s[j][0], s[j][1]));
+        max_hi = fmaxf(max_hi, fmaxf(s[j][2], s[j][3]));
+      }
+      max_lo = fmaxf(max_lo, __shfl_xor_sync(kFull, max_lo, 1));
+      max_lo = fmaxf(max_lo, __shfl_xor_sync(kFull, max_lo, 2));
+      max_hi = fmaxf(max_hi, __shfl_xor_sync(kFull, max_hi, 1));
+      max_hi = fmaxf(max_hi, __shfl_xor_sync(kFull, max_hi, 2));
+      const float new_lo = fmaxf(m_lo, max_lo), new_hi = fmaxf(m_hi, max_hi);
+      const float alpha_lo = ex2(m_lo - new_lo), alpha_hi = ex2(m_hi - new_hi);
+      m_lo = new_lo;
+      m_hi = new_hi;
+      l_lo *= alpha_lo;  // a lane's share of the row sum; the quad is summed at the end
+      l_hi *= alpha_hi;
+      #pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        o[nt][0] *= alpha_lo;
+        o[nt][1] *= alpha_lo;
+        o[nt][2] *= alpha_hi;
+        o[nt][3] *= alpha_hi;
+      }
+      #pragma unroll
+      for (int j = 0; j < kJT; ++j) {
+        s[j][0] = ex2(s[j][0] - new_lo);
+        s[j][1] = ex2(s[j][1] - new_lo);
+        s[j][2] = ex2(s[j][2] - new_hi);
+        s[j][3] = ex2(s[j][3] - new_hi);
+        l_lo += s[j][0] + s[j][1];
+        l_hi += s[j][2] + s[j][3];
+      }
+      weighted_values(o, s, qf, vs + first * v_row, g, t);
+    }
+  }
+  cp_async_wait<0>();
+  if (!warp_active) return;
+
+  l_lo += __shfl_xor_sync(kFull, l_lo, 1);
+  l_lo += __shfl_xor_sync(kFull, l_lo, 2);
+  l_hi += __shfl_xor_sync(kFull, l_hi, 1);
+  l_hi += __shfl_xor_sync(kFull, l_hi, 2);
+
+  if (p.chunks == 1) {  // every key seen: normalise and write out where it belongs
+    T* ob = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh;
+    const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;  // a row's largest weight is 1
+    #pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = nt * 8 + 2 * t;
+      if (lo_ok) store2(ob + row_lo * p.o_sr + col, o[nt][0] * inv_lo, o[nt][1] * inv_lo);
+      if (hi_ok) store2(ob + row_hi * p.o_sr + col, o[nt][2] * inv_hi, o[nt][3] * inv_hi);
+    }
+    return;
+  }
+  const long long rows = (long long)gridDim.y * p.chunks * p.Q;
+  const long long base = ((long long)bh * p.chunks + c) * p.Q;
+  float* part_m = p.part + rows * kD;
+  float* part_l = part_m + rows;
+  #pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = nt * 8 + 2 * t;
+    if (lo_ok) store2(p.part + (base + row_lo) * kD + col, o[nt][0], o[nt][1]);
+    if (hi_ok) store2(p.part + (base + row_hi) * kD + col, o[nt][2], o[nt][3]);
+  }
+  if (t == 0) {
+    if (lo_ok) { part_m[base + row_lo] = m_lo; part_l[base + row_lo] = l_lo; }
+    if (hi_ok) { part_m[base + row_hi] = m_hi; part_l[base + row_hi] = l_hi; }
   }
 }
 
-// One warp per (b*h, query) row, lane = channel: merge the chunks' partials.
+// One warp per (b, h, query) row: merge the chunks' partials.
 template <typename T>
-__global__ void masked_attn_combine(const float* __restrict__ part_acc,
-                                    const float* __restrict__ part_m,
-                                    const float* __restrict__ part_l,
-                                    T* __restrict__ out, int BH, int Q, int chunks) {
+__global__ void __launch_bounds__(256)
+masked_attn_merge(const Params p, int BH) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= (long long)BH * Q) return;
-  const long long bh = row / Q, qi = row % Q;
-  float m_all = -1e30f;
-  for (int c = 0; c < chunks; ++c) m_all = fmaxf(m_all, part_m[(bh * chunks + c) * Q + qi]);
-  float l_all = 0.f, a = 0.f;
-  for (int c = 0; c < chunks; ++c) {
-    const long long r = (bh * chunks + c) * Q + qi;
-    const float w = expf(part_m[r] - m_all);
-    l_all += part_l[r] * w;
-    a += part_acc[r * kD + lane] * w;
+  if (row >= (long long)BH * p.Q) return;
+  const long long bh = row / p.Q, qi = row % p.Q;
+  const long long rows = (long long)BH * p.chunks * p.Q;
+  const float* part_m = p.part + rows * kD;
+  const float* part_l = part_m + rows;
+  const long long first = bh * p.chunks * p.Q + qi;  // chunk c is at first + c * Q
+
+  // lanes take the chunks side by side: the maximum, then the sum
+  float m_all = -INFINITY;
+  for (int c = lane; c < p.chunks; c += 32) m_all = fmaxf(m_all, part_m[first + (long long)c * p.Q]);
+  #pragma unroll
+  for (int d = 16; d > 0; d >>= 1) m_all = fmaxf(m_all, __shfl_xor_sync(kFull, m_all, d));
+  float l_all = 0.f;
+  for (int c = lane; c < p.chunks; c += 32) {
+    const long long r = first + (long long)c * p.Q;
+    l_all += part_l[r] * ex2(part_m[r] - m_all);
   }
-  out[row * kD + lane] = from_float<T>(a / fmaxf(l_all, 1e-30f));
+  #pragma unroll
+  for (int d = 16; d > 0; d >>= 1) l_all += __shfl_xor_sync(kFull, l_all, d);
+  // a lane a channel; no load depends on another
+  float a = 0.f;
+  #pragma unroll 4
+  for (int c = 0; c < p.chunks; ++c) {
+    const long long r = first + (long long)c * p.Q;
+    a = fmaf(p.part[r * kD + lane], ex2(part_m[r] - m_all), a);
+  }
+  const int b = (int)(bh / p.H), h = (int)(bh % p.H);
+  T* dst = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh + qi * p.o_sr + lane;
+  if constexpr (sizeof(T) == 4)
+    *dst = a / l_all;
+  else
+    *dst = __float2bfloat16(a / l_all);
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask,
-                   float* part_acc, float* part_m, float* part_l, void* out,
-                   int B, int H, int Q, int S, long long mask_sb, long long mask_sh,
-                   int chunk, cudaStream_t stream) {
-  const int chunks = (S + chunk - 1) / chunk;
-  const int qtiles = (Q + kQT - 1) / kQT;
-  if (B * H == 0 || Q == 0) return cudaSuccess;
-  dim3 grid(chunks, B * H, qtiles);
-  masked_attn_partial<T><<<grid, kQT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), part_acc, part_m, part_l, H, Q, S,
-      mask_sb, mask_sh, chunk, 1.f / sqrtf((float)kD));
-  cudaError_t err = cudaGetLastError();
+cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  const int qtiles = (p.Q + 15) / 16;
+  const int warps = qtiles < kMaxWarps ? qtiles : kMaxWarps;
+  const int qblocks = (qtiles + kMaxWarps - 1) / kMaxWarps;
+  const int BH = B * p.H;
+  if (BH == 0 || p.Q == 0) return cudaSuccess;
+  if (BH > 65535 || qblocks > 65535) return cudaErrorInvalidConfiguration;
+  constexpr int smem = kStages * Stage<T>::bytes + Split<T>::bytes;
+  // more than 48 KB of dynamic shared memory has to be asked for, once a device
+  static bool asked[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  const long long rows = (long long)B * H * Q;
-  const int warps_per_block = 8;
-  masked_attn_combine<T><<<(unsigned)((rows + warps_per_block - 1) / warps_per_block),
-                           warps_per_block * 32, 0, stream>>>(
-      part_acc, part_m, part_l, static_cast<T*>(out), B * H, Q, chunks);
+  if (device < 0 || device >= 64 || !asked[device]) {
+    err = cudaFuncSetAttribute(masked_attn_tiles<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (device >= 0 && device < 64) asked[device] = true;
+  }
+  const dim3 grid(p.chunks, BH, qblocks);
+  masked_attn_tiles<T><<<grid, warps * 32, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.chunks == 1) return err;
+  const long long rows = (long long)BH * p.Q;
+  masked_attn_merge<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, BH);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// part_acc (B*H, chunks, Q, D), part_m / part_l (B*H, chunks, Q) are fp32
-// scratch the caller allocates, chunks = ceil(S / chunk); chunk must be a
-// positive multiple of 32. dtype: 0 = float32, 1 = bfloat16. Returns the
-// first failing launch's cudaError_t (0 = cudaSuccess); both launches are
-// asynchronous on `stream`.
-extern "C" int masked_attn_fwd(const void* q, const void* k, const void* v,
-                               const void* mask, void* part_acc, void* part_m,
-                               void* part_l, void* out, int B, int H, int Q, int S,
-                               int D, long long mask_sb, long long mask_sh, int chunk,
-                               int dtype, void* stream) {
+// The 12 strides are in elements: (batch, head, row) of q, k, v and out. part:
+// fp32 scratch of B * H * chunks * Q * (D + 2) floats with chunks = ceil(S /
+// chunk), unused when chunks is 1; chunk must be a positive multiple of 64.
+// dtype: 0 = float32, 1 = bfloat16. Returns the first failing launch's
+// cudaError_t (0 = cudaSuccess); the launches are asynchronous on `stream`.
+extern "C" int masked_attn_fwd(const void* q, const void* k, const void* v, const void* mask,
+                               void* part, void* out, int B, int H, int Q, int S, int D,
+                               long long q_sb, long long q_sh, long long q_sr,
+                               long long k_sb, long long k_sh, long long k_sr,
+                               long long v_sb, long long v_sh, long long v_sr,
+                               long long o_sb, long long o_sh, long long o_sr,
+                               long long mask_sb, long long mask_sh,
+                               int chunk, int dtype, void* stream) {
   if (D != kD || S <= 0 || chunk <= 0 || chunk % kKT != 0) return (int)cudaErrorInvalidValue;
+  Params p;
+  p.q = q; p.k = k; p.v = v;
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.out = out;
+  p.part = static_cast<float*>(part);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sr = q_sr;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sr = k_sr;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sr = v_sr;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sr = o_sr;
+  p.mask_sb = mask_sb; p.mask_sh = mask_sh;
+  p.H = H; p.Q = Q; p.S = S; p.chunk = chunk;
+  p.chunks = (S + chunk - 1) / chunk;
+  p.scale_log2 = kLog2e / sqrtf((float)kD);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  if (dtype == 0)
-    return (int)launch<float>(q, k, v, mask, pa, pm, pl, out, B, H, Q, S, mask_sb, mask_sh,
-                              chunk, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, mask, pa, pm, pl, out, B, H, Q, S, mask_sb,
-                                      mask_sh, chunk, s);
+  if (dtype == 0) return (int)launch<float>(p, B, s);
+  if (dtype == 1) return (int)launch<__nv_bfloat16>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -102,7 +102,7 @@ class MultiScaleMaskedTransformerDecoderMaskDN(nn.Module):
         """x: the pixel decoder's [1/32, 1/16, 1/8] maps (B, C, h, w);
         mask_features (B, mask_dim, H/4, W/4)."""
         if dn_args is not None:
-            raise NotImplementedError("DN training is ROADMAP slice 2; the port runs inference")
+            raise NotImplementedError("DN training is ROADMAP slice 3; the port runs inference")
         if len(x) != self.num_feature_levels:
             raise ValueError(f"expected {self.num_feature_levels} levels, got {len(x)}")
         B, C = x[0].shape[0], self.hidden_dim

@@ -5,7 +5,10 @@
 (`in_proj_weight`, `in_proj_bias`, `out_proj`) with a batch-first interface.
 With a mask, attention goes through `ops/masked_attention_cuda.py:
 masked_attention`: the hand-written kernel K3 on CUDA, its plain version on
-the CPU; masked logits are -1e9, not -inf. Without a mask (the decoder's
+the CPU; masked logits are -1e9, not -inf. K3 takes q, k and v as the
+(B, H, N, D) views of the (B, N, H, D) projections (last dimension
+contiguous, rows on 16-byte boundaries), so no head is copied, and returns its
+result in (B, Q, H, D) order, so merging the heads is a view too. Without a mask (the decoder's
 100x100 self-attention, which has no TPU kernel either) it is plain einsum +
 softmax. The layers are post-norm, as in every recipe of configs/
 (`PRE_NORM False`); dropout is 0 at inference and is not carried.
@@ -37,10 +40,11 @@ class MultiheadAttention(nn.Module):
         nn.init.zeros_(self.out_proj.bias)
 
     def _heads(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        """Project with the i-th slice of in_proj and split heads: (B, H, N, D)."""
+        """Project with the i-th slice of in_proj and split heads: the
+        (B, N, H, D) projection seen as (B, H, N, D), a view without a copy."""
         C, H = self.embed_dim, self.num_heads
         y = F.linear(x, self.in_proj_weight[i * C:(i + 1) * C], self.in_proj_bias[i * C:(i + 1) * C])
-        return y.view(x.shape[0], x.shape[1], H, C // H).transpose(1, 2).contiguous()
+        return y.view(x.shape[0], x.shape[1], H, C // H).transpose(1, 2)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -49,8 +53,10 @@ class MultiheadAttention(nn.Module):
         B, Q, C = query.shape
         q, k, v = self._heads(query, 0), self._heads(key, 1), self._heads(value, 2)
         if attn_mask is not None:
+            # the kernel takes the strided views and writes (B, Q, H, D) order
             out = masked_attention(q, k, v, attn_mask)
         else:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             logits = torch.einsum("bhqd,bhsd->bhqs", q, k) / math.sqrt(q.shape[-1])
             out = torch.einsum("bhqs,bhsd->bhqd", logits.softmax(dim=-1), v)
         return self.out_proj(out.transpose(1, 2).reshape(B, Q, C))

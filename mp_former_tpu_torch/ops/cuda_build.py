@@ -113,25 +113,33 @@ def library() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.msda_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.msda_fwd.restype = i
-    lib.masked_attn_fwd.argtypes = [p, p, p, p, p, p, p, p,
-                                    i, i, i, i, i, ll, ll, i, i, p]
+    lib.masked_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, *[ll] * 14, i, i, p]
     lib.masked_attn_fwd.restype = i
     lib.tap_weight_fwd.argtypes = [p, p, p, ll, ll, i, i, i, i, i, p]
     lib.tap_weight_fwd.restype = i
     lib.row_gather.argtypes = [p, p, p, ll, ll, i, p]
     lib.row_gather.restype = i
-    lib.row_gather_sum.argtypes = [p, p, p, ll, i, i, i, p]
+    lib.row_gather_sum.argtypes = [p, p, p, ll, i, i, i, i, p]
     lib.row_gather_sum.restype = i
     return lib
 
 
-def check_inputs(name: str, typed, dtypes, others=(), align: int = 1) -> torch.device:
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of device `index` (asked once per device)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_inputs(name: str, typed, dtypes, others=(), align: int = 1,
+                 strided: int = 0) -> torch.device:
     """The checks that guard every kernel, in one pass: `typed` and `others`
-    are CUDA tensors on one device, contiguous, forward-only and start on a
-    multiple of `align` bytes (for a kernel that reads 16 bytes a thread
-    whatever it is given: a contiguous view with a storage offset can start
-    elsewhere); the `typed` ones all have one type out of `dtypes`. Returns
-    the device."""
+    are CUDA tensors on one device, contiguous and forward-only; the `typed`
+    ones all have one type out of `dtypes` and start on a multiple of `align`
+    bytes (for a kernel that reads 16 bytes a thread whatever it is given: a
+    contiguous view with a storage offset can start elsewhere). The first
+    `strided` of `typed` go to a kernel that takes their strides: only their
+    last dimension must be contiguous, and every other stride a multiple of
+    `align` bytes. Returns the device."""
     first = typed[0]
     device = first.device
     for n, t in enumerate((*typed, *others)):
@@ -144,9 +152,17 @@ def check_inputs(name: str, typed, dtypes, others=(), align: int = 1) -> torch.d
         if t.requires_grad:
             raise RuntimeError(f"{name} is forward-only: run it under torch.no_grad() "
                                "(the backward kernel is not ported yet)")
-        if not t.is_contiguous():
+        if n < strided:
+            strides, size, bad = t.stride(), t.element_size(), False
+            for st, extent in zip(strides[:-1], t.shape):  # a stride of an extent of 1 is never used
+                bad |= extent > 1 and st * size % align != 0
+            if bad or (strides[-1] != 1 and t.shape[-1] > 1):
+                raise ValueError(f"{name}: the last dimension must be contiguous and every "
+                                 f"other stride a multiple of {align} bytes, got strides "
+                                 f"{strides}")
+        elif not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-        if t.data_ptr() % align:
+        if n < len(typed) and t.data_ptr() % align:
             raise ValueError(f"{name}: inputs must start on a {align}-byte boundary (a view with "
                              "a storage offset may not: pass a copy)")
     return device

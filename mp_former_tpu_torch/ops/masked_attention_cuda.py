@@ -1,11 +1,13 @@
-"""Masked cross-attention: the CUDA kernel K3 and its plain version.
+"""Masked cross-attention: the CUDA kernel K3 and its plain versions.
 
 `masked_attn_fwd` launches `csrc/masked_attn_fwd.cu` (the port of the TPU
 kernel `mp_former_tpu/ops/fused_masked_attention.py:masked_attention`);
 `masked_attention_plain` is the same function in plain PyTorch, the XLA path
 of `mp_former_tpu/models/transformer_decoder/primitives.py:72-80`.
 `masked_attention` dispatches: CUDA tensors to the kernel, CPU tensors to the
-plain version.
+plain version. `masked_attention_tiled` repeats the kernel's arithmetic (its
+tiles, its split over the keys, its 3xTF32 products) in plain PyTorch, for the
+tests and `chip_smoke.py` only.
 
     softmax(q kᵀ / √D, masked logits = -1e9) v
 
@@ -13,6 +15,13 @@ q (B, H, Q, D); k, v (B, H, S, D); mask bool (True = blocked), either
 (B, Q, S) shared by all heads (the decoder's masks are identical across
 heads, `mask2former_decoder.py:327-328`) or (B, H, Q, S). A masked logit is
 -1e9, not -inf, so a row with every key masked is uniform, not NaN.
+
+Layouts the kernel takes: q, k and v are logical (B, H, N, D) with any batch,
+head and row stride, as long as the last dimension is contiguous and every
+row starts on a 16-byte boundary, so the (B, N, H, D) projection of
+`MultiheadAttention` goes in as a transposed view, without a copy. The mask
+is contiguous, at any alignment. The result is logical (B, H, Q, D) and lies
+in memory as (B, Q, H, D): `out.transpose(1, 2).reshape(B, Q, H * D)` is a view.
 """
 
 from __future__ import annotations
@@ -21,13 +30,19 @@ import math
 
 import torch
 
-from .cuda_build import DTYPE_CODES, check_inputs, launch
+from .cuda_build import DTYPE_CODES, check_inputs, launch, sm_count
 
-# launches of the kernel since the last reset (one per call: the partial
-# and the merge kernel together)
+# launches of the kernel since the last reset (one per call: the tile kernel
+# and, where the keys are split, the merge kernel together)
 LAUNCHES = 0
 
 _NEG_INF = -1e9
+_LOG2E = 1.4426950408889634
+QUERY_TILE = 16       # query rows of a warp
+KEY_TILE = 64         # keys of a shared-memory tile; a chunk is whole tiles
+KEY_STEP = 32         # keys of one step of the online softmax: half a tile
+BLOCK_QUERIES = 128   # query rows of a block: 8 warps
+BLOCKS_PER_SM = 2     # what the split over the keys aims for
 
 
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -39,24 +54,116 @@ def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqs,bhsd->bhqd", attn, v)
 
 
-def _chunk_size(S: int, parallel_blocks: int, device: torch.device) -> int:
+def _chunk_size(S: int, parallel_blocks: int, sms: int) -> int:
     """Keys per block: split S so that, with `parallel_blocks` blocks per
-    key chunk (one per head and query tile), the grid holds about two
-    blocks per SM; whole 32-key tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chunks = max(1, -(-2 * sms // parallel_blocks))
-    per_chunk = -(-S // chunks)
-    return -(-per_chunk // 32) * 32
+    key chunk (one per batch entry, head and 128 query rows), the grid holds
+    about BLOCKS_PER_SM blocks per SM; whole 64-key tiles, at least one."""
+    tiles = -(-S // KEY_TILE)
+    chunks = min(tiles, max(1, -(-BLOCKS_PER_SM * sms // parallel_blocks)))
+    return -(-tiles // chunks) * KEY_TILE
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32's 10 bits of mantissa, to nearest, ties away
+    from zero (`cvt.rna.tf32.f32`)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _product_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum(eq, a, b) as the kernel's tensor cores do it in float32: each
+    operand split into big = tf32(x) and small = tf32(x - big), the products
+    small x big and big x small added first, then big x big, in float32; the
+    small x small term (2^-22 relative) is left out."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return ((torch.einsum(eq, a_small, b_big) + torch.einsum(eq, a_big, b_small))
+            + torch.einsum(eq, a_big, b_big))
+
+
+def masked_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: torch.Tensor, chunk: int | None = None,
+                           sms: int = 132) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: query rows padded to 16-row
+    tiles, the keys split into chunks of `chunk` (by default the wrapper's
+    choice for a card of `sms` SMs), each chunk walked in 32-key steps with an
+    online softmax in the base-2 domain (a masked key scores -1e9 log2 e, a
+    key beyond the end of S -inf and its value row is zero), float32 products
+    as 3xTF32 and bfloat16 products with the weights rounded to bfloat16, and
+    the chunks merged by their maxima. Not on any main path: the tests hold it
+    against the plain version and the JAX function, `chip_smoke.py` holds the
+    kernel against it."""
+    B, H, Q, D = q.shape
+    S = k.shape[2]
+    if chunk is None:
+        chunk = _chunk_size(S, B * H * -(-Q // BLOCK_QUERIES), sms)
+    if chunk <= 0 or chunk % KEY_TILE:
+        raise ValueError(f"masked_attention_tiled: chunk {chunk} is no multiple of {KEY_TILE}")
+    single = q.dtype == torch.float32
+    scale = _LOG2E / math.sqrt(D)
+    masked = _NEG_INF * _LOG2E
+    rows = -(-Q // QUERY_TILE) * QUERY_TILE
+    qp = q.new_zeros((B, H, rows, D))
+    qp[:, :, :Q] = q
+    blocked = torch.zeros((B, H, rows, S), dtype=torch.bool, device=q.device)
+    blocked[:, :, :Q] = (mask[:, None] if mask.dim() == 3 else mask).bool()
+    qp = qp * scale if single else qp.float()
+
+    def tile_of(x, t0, n):
+        tile = x.new_zeros((B, H, KEY_STEP, D))
+        tile[:, :, :n] = x[:, :, t0:t0 + n]
+        return tile if single else tile.float()
+
+    parts = []
+    for s0 in range(0, S, chunk):
+        s1 = min(S, s0 + chunk)
+        m = q.new_full((B, H, rows), -1e30, dtype=torch.float32)
+        l = torch.zeros_like(m)
+        o = q.new_zeros((B, H, rows, D), dtype=torch.float32)
+        for t0 in range(s0, s1, KEY_STEP):
+            n = min(KEY_STEP, s1 - t0)
+            kt, vt = tile_of(k, t0, n), tile_of(v, t0, n)
+            if single:
+                s = _product_3xtf32("bhqd,bhsd->bhqs", qp, kt)
+            else:
+                s = torch.einsum("bhqd,bhsd->bhqs", qp, kt) * scale
+            s[..., :n] = s[..., :n].masked_fill(blocked[..., t0:t0 + n], masked)
+            s[..., n:] = -math.inf
+            new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - new)
+            p = torch.exp2(s - new[..., None])
+            l = l * alpha + p.sum(-1)
+            if single:
+                pv = _product_3xtf32("bhqs,bhsd->bhqd", p, vt)
+            else:
+                pv = torch.einsum("bhqs,bhsd->bhqd", p.bfloat16().float(), vt)
+            o = o * alpha[..., None] + pv
+            m = new
+        parts.append((m, l, o))
+    if len(parts) == 1:
+        out = o / l[..., None]
+    else:
+        m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+        weights = [torch.exp2(m - m_all) for m, _, _ in parts]
+        l_all = sum(l * w for (_, l, _), w in zip(parts, weights))
+        out = sum(o * w[..., None] for (_, _, o), w in zip(parts, weights)) / l_all[..., None]
+    return out[:, :, :Q].to(q.dtype)
 
 
 def masked_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
     """Launch K3 on CUDA tensors (forward only); raises on anything it does
-    not take, and if a launch fails."""
+    not take, and if a launch fails. `chunk` is the number of keys a block
+    walks, a multiple of 64; by default chosen from the shape and the card's
+    SM count."""
     global LAUNCHES
     if mask.dtype not in (torch.bool, torch.uint8):
         raise TypeError(f"masked_attn_fwd: mask must be bool or uint8, got {mask.dtype}")
-    device = check_inputs("masked_attn_fwd", (q, k, v), tuple(DTYPE_CODES), others=(mask,))
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"masked_attn_fwd: q and k must be (B, H, N, D), got {tuple(q.shape)} "
+                         f"and {tuple(k.shape)}")
+    device = check_inputs("masked_attn_fwd", (q, k, v), tuple(DTYPE_CODES), others=(mask,),
+                          align=16, strided=3)
     B, H, Q, D = q.shape
     S = k.shape[2]
     if D != 32:
@@ -73,16 +180,22 @@ def masked_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{(B, Q, S)} nor {(B, H, Q, S)}")
     if S == 0:
         raise ValueError("masked_attn_fwd: no keys")
-    chunk = _chunk_size(S, B * H * -(-Q // 128), q.device)
+    if chunk is None:
+        chunk = _chunk_size(S, B * H * -(-Q // BLOCK_QUERIES), sm_count(device.index))
+    elif chunk <= 0 or chunk % KEY_TILE:
+        raise ValueError(f"masked_attn_fwd: chunk {chunk} is no multiple of {KEY_TILE}")
     chunks = -(-S // chunk)
-    part_acc = torch.empty((B * H, chunks, Q, D), dtype=torch.float32, device=q.device)
-    part_m = torch.empty((B * H, chunks, Q), dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    out = torch.empty_like(q)
+    # (B, Q, H, D) in memory, so the caller's merge of the heads is a view
+    out = torch.empty_strided((B, H, Q, D), (Q * H * D, D, H * D, 1), dtype=q.dtype,
+                              device=device)
+    # the chunks' accumulators, maxima and sums, in one piece
+    part = (torch.empty((B * H * chunks * Q * (D + 2),), dtype=torch.float32, device=device)
+            if chunks > 1 else None)
     launch("masked_attn_fwd", device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-           part_acc.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(),
-           B, H, Q, S, D, mask_sb, mask_sh, chunk, DTYPE_CODES[q.dtype])
+           None if part is None else part.data_ptr(), out.data_ptr(),
+           B, H, Q, S, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+           Q * H * D, D, H * D, mask_sb, mask_sh, chunk, DTYPE_CODES[q.dtype])
     LAUNCHES += 1
     return out
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import check_inputs, launch
+from .cuda_build import check_inputs, launch, sm_count
 
 GATHER_DTYPES = (torch.float32, torch.bfloat16)
 INDEX_DTYPES = (torch.int32, torch.int64)
@@ -23,6 +23,11 @@ INDEX_DTYPES = (torch.int32, torch.int64)
 # launches of each kernel since the last reset
 GATHER_LAUNCHES = 0
 SUM_LAUNCHES = 0
+
+# row_gather_sum: the blocks an SM should hold, and the most rows whose
+# indices a block stages in shared memory
+SUM_BLOCKS_PER_SM = 2
+SUM_MAX_STAGED_ROWS = 2048
 
 
 def row_gather_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -60,16 +65,34 @@ def row_gather_fwd(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def row_gather_sum_fwd(tab: torch.Tensor, idx: torch.Tensor, slots: int) -> torch.Tensor:
+def _sum_rows_per_block(n: int, slots: int, sms: int) -> int:
+    """Rows a block of row_gather_sum owns: a multiple of `slots`, so that the
+    grid is about SUM_BLOCKS_PER_SM blocks an SM (more blocks mean more atomic
+    additions per output), and no more than a block can stage, where that
+    leaves each slot a row."""
+    per_block = max(1, -(-n // (SUM_BLOCKS_PER_SM * sms * slots))) * slots
+    staged = SUM_MAX_STAGED_ROWS // slots * slots
+    return min(per_block, staged) if staged else per_block
+
+
+def row_gather_sum_fwd(tab: torch.Tensor, idx: torch.Tensor, slots: int,
+                       rows_per_block: int | None = None) -> torch.Tensor:
     """Launch the gather-sum kernel on CUDA tensors (float32 tables); raises
-    on anything it does not take, and if the launch fails."""
+    on anything it does not take, and if the launch fails. `rows_per_block`
+    (a multiple of `slots`) is by default chosen from N and the card's SM
+    count."""
     global SUM_LAUNCHES
     _check("row_gather_sum", tab, idx, slots)
     device = check_inputs("row_gather_sum", (tab,), (torch.float32,), others=(idx,))
     n, width = idx.shape[0], tab.shape[1]
+    if rows_per_block is None:
+        rows_per_block = _sum_rows_per_block(n, slots, sm_count(device.index))
+    elif rows_per_block <= 0 or rows_per_block % slots:
+        raise ValueError(f"row_gather_sum: rows_per_block={rows_per_block} is not a multiple "
+                         f"of slots={slots}")
     out = torch.zeros((slots, width), dtype=torch.float32, device=device)
     launch("row_gather_sum", device, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, width,
-           slots, int(idx.dtype == torch.int64))
+           slots, rows_per_block, int(idx.dtype == torch.int64))
     SUM_LAUNCHES += 1
     return out
 

@@ -122,6 +122,87 @@ def test_masked_attention_kernel_matches_plain(cuda, dtype, tol, Q, S):
         assert (got.float() - want).abs().max().item() <= tol
 
 
+def _head_views(device, B, H, Q, S, dtype, seed):
+    """q, k, v as `MultiheadAttention._heads` hands them over: (B, H, N, 32)
+    views of (B, N, H * 32) projections, not contiguous."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn((B, n, H * 32), generator=g, device=device).to(dtype)
+                 .view(B, n, H, 32).transpose(1, 2) for n in (Q, S, S))
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("Q", [1, 7, 100, 130])
+@pytest.mark.parametrize("S", [1, 31, 33, 77, 850, 3400, 13600])
+def test_masked_attention_kernel_takes_strided_views_at_every_shape(cuda, dtype, tol, Q, S):
+    """B = 2, the strided head views, both mask ranks, bool and uint8, against
+    the plain version and (float32) against the plain function that repeats
+    the kernel's tiles, chunks and 3xTF32 products."""
+    B, H = 2, 8
+    q, k, v = _head_views(cuda, B, H, Q, S, dtype, seed=Q * 100003 + S)
+    assert S == 1 or not k.is_contiguous()
+    g = torch.Generator(device=cuda).manual_seed(S)
+    shared = torch.rand((B, Q, S), generator=g, device=cuda) < 0.7
+    shared[:, :1] = True  # a fully masked row
+    per_head = (torch.rand((B, H, Q, S), generator=g, device=cuda) < 0.5).to(torch.uint8)
+    for m in (shared, per_head):
+        got = mac.masked_attention(q, k, v, m)
+        want = mac.masked_attention_plain(q.float(), k.float(), v.float(), m.bool())
+        assert got.dtype == dtype and got.shape == (B, H, Q, 32)
+        # the heads merge without a copy
+        assert got.transpose(1, 2).is_contiguous()
+        assert (got.float() - want).abs().max().item() <= tol
+        if dtype == torch.float32:
+            tiled = mac.masked_attention_tiled(q, k, v, m.bool())
+            # the same arithmetic but for ex2.approx (2^-22) and summation order
+            assert (got - tiled).abs().max().item() <= 1e-5
+    assert torch.equal(mac.masked_attention(q, k, v, shared),
+                       mac.masked_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            shared))
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("chunk", [None, 64, 128, 448, 1024])
+def test_masked_attention_kernel_with_fully_masked_rows_and_chunks(cuda, dtype, tol, chunk):
+    """Row 0: every key masked (the mean of v, through every chunk). Row 1:
+    only the first 64 keys visible (every other chunk fully masked). Row 2:
+    only the last key visible. Row 3: only the ragged last tile masked."""
+    B, H, Q, S = 2, 8, 21, 850
+    q, k, v = _head_views(cuda, B, H, Q, S, dtype, seed=7)
+    mask = torch.rand((B, Q, S), device=cuda) < 0.6
+    mask[:, 0] = True
+    mask[:, 1, :64], mask[:, 1, 64:] = False, True
+    mask[:, 2, :-1], mask[:, 2, -1] = True, False
+    mask[:, 3, :832], mask[:, 3, 832:] = False, True
+    got = mac.masked_attn_fwd(q, k, v, mask, chunk=chunk).float()
+    want = mac.masked_attention_plain(q.float(), k.float(), v.float(), mask)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= tol
+    mean = v.float().mean(2, keepdim=True).expand(-1, -1, 1, -1)
+    assert (got[:, :, :1] - mean).abs().max().item() <= tol
+    assert (got[:, :, 2] - v.float()[:, :, -1]).abs().max().item() <= tol
+
+
+def test_masked_attention_replays_twice_to_the_eager_result(cuda):
+    """Captured with the keys split into chunks (scratch and merge kernel in
+    the graph): two replays on changed inputs both give the eager result."""
+    q, k, v = _head_views(cuda, 2, 8, 100, 3400, torch.float32, seed=9)
+    mask = torch.rand((2, 100, 3400), device=cuda) < 0.7
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mac.masked_attn_fwd(q, k, v, mask)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = mac.masked_attn_fwd(q, k, v, mask)
+    for _ in range(2):
+        k.copy_(k.flip(2))
+        mask.copy_(mask.flip(1))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, mac.masked_attn_fwd(q, k, v, mask))
+
+
 def test_masked_attention_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, mask = _attn_inputs(cuda, 1, 2, 4, 40, 32)
     with pytest.raises(RuntimeError, match="forward-only"):
@@ -130,6 +211,25 @@ def test_masked_attention_kernel_refuses_what_it_does_not_take(cuda):
         mac.masked_attn_fwd(q, k, v, mask[:, :2])
     with pytest.raises(TypeError, match="mask"):
         mac.masked_attn_fwd(q, k, v, mask.float())
+    with pytest.raises(ValueError, match="last dimension must be contiguous"):
+        mac.masked_attn_fwd(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, mask)
+    # rows of 33 floats: every other row starts off a 16-byte boundary
+    wide = torch.randn((1, 2, 40, 33), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        mac.masked_attn_fwd(q, wide[..., :32], v, mask)
+    with pytest.raises(ValueError, match="32 channels"):
+        mac.masked_attn_fwd(q[..., :16].contiguous(), k[..., :16].contiguous(),
+                            v[..., :16].contiguous(), mask)
+    with pytest.raises(ValueError, match="do not match"):
+        mac.masked_attn_fwd(q, k, v[:, :, :39], mask)
+    with pytest.raises(ValueError, match="one device"):
+        mac.masked_attn_fwd(q, k.cpu(), v, mask)
+    with pytest.raises(ValueError, match="one device"):
+        mac.masked_attn_fwd(q, k, v, mask.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        mac.masked_attn_fwd(q, k, v, mask.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        mac.masked_attn_fwd(q, k, v, mask, chunk=96)
 
 
 def _tap_inputs(device, b, q, n_points, n_heads, d, dtype, seed=2):
@@ -286,18 +386,49 @@ def test_device_time_by_graph_replay_is_below_the_eager_reading(cuda):
     assert device < 0.01  # a 32 KB copy: microseconds on the card
 
 
-@pytest.mark.parametrize("rows,width,n,slots", [(16641, 128, 65536, 8), (9, 3, 35, 5)])
-def test_row_gather_sum_kernel_matches_plain(cuda, rows, width, n, slots):
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("rows,width,n,slots", [
+    (16641, 128, 65536, 8),   # the probe's shape: a warp a row, a team a slot
+    (9, 3, 35, 5),            # 4-byte units, teams of 4 lanes, many more teams than slots
+    (50, 128, 8, 8),          # N = slots: one row a slot
+    (50, 128, 4096, 1),       # one slot: all the teams of a block share it
+    (300, 126, 3000, 3),      # W no multiple of 4: the 4-byte path, 4 units a lane
+    (300, 1000, 640, 64),     # more slots than teams; 250 units of 16 bytes: 8 a lane
+    (40, 8, 70000, 7),        # short rows, teams of 2 lanes, slots and teams coprime
+    (300, 128, 1000000, 8),   # blocks at the staging limit of 2048 rows
+])
+def test_row_gather_sum_kernel_matches_plain(cuda, rows, width, n, slots, idx_dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
     tab = torch.randn((rows, width), generator=g, device=cuda)
-    idx = torch.randint(0, rows, (n,), generator=g, device=cuda, dtype=torch.int32)
+    idx = torch.randint(0, rows, (n,), generator=g, device=cuda).to(idx_dtype)
     before = rg.SUM_LAUNCHES
     got = rg.row_gather_sum(tab, idx, slots)
     want = rg.row_gather_sum_plain(tab.double(), idx, slots)
     assert rg.SUM_LAUNCHES == before + 1
     assert got.shape == (slots, width) and got.dtype == torch.float32
     # float32 sums of n / slots terms in an order that changes from run to run
+    # (the blocks' atomic additions land as they come)
     assert (got.double() - want).abs().max().item() <= 1e-6 * n / slots + 1e-5
+
+
+@pytest.mark.parametrize("rows_per_block", [8, 64, 2048, 4096])
+def test_row_gather_sum_kernel_at_any_rows_per_block(cuda, rows_per_block):
+    """4096 rows a block is above what a block stages: indices from global memory."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    tab = torch.randn((500, 128), generator=g, device=cuda)
+    idx = torch.randint(0, 500, (20000,), generator=g, device=cuda, dtype=torch.int32)
+    got = rg.row_gather_sum_fwd(tab, idx, 8, rows_per_block=rows_per_block)
+    want = rg.row_gather_sum_plain(tab.double(), idx, 8)
+    assert (got.double() - want).abs().max().item() <= 1e-6 * 20000 / 8 + 1e-5
+
+
+def test_row_gather_sum_kernel_takes_a_misaligned_table(cuda):
+    """A view 4 bytes into its storage: the kernel falls to 4-byte units."""
+    tab = torch.randn(33 * 16 + 1, device=cuda)[1:].view(33, 16)
+    idx = torch.arange(32, -1, -1, device=cuda, dtype=torch.int64).repeat(4)
+    assert tab.data_ptr() % 16 != 0
+    got = rg.row_gather_sum(tab, idx, 3)
+    assert (got - rg.row_gather_sum_plain(tab, idx, 3)).abs().max().item() <= 1e-4
 
 
 def test_row_gather_kernels_refuse_what_they_do_not_take(cuda):

@@ -16,6 +16,7 @@ from mp_former_tpu.models.transformer_decoder.primitives import (
     MultiheadAttention as JaxMultiheadAttention)
 from mp_former_tpu.ops.fused_masked_attention import masked_attention as jax_masked_attention
 
+from mp_former_tpu_torch.models.transformer_decoder import primitives
 from mp_former_tpu_torch.models.transformer_decoder.primitives import MultiheadAttention
 from mp_former_tpu_torch.ops import masked_attention_cuda as mac
 
@@ -56,7 +57,8 @@ def test_fully_masked_rows_are_uniform():
                                rtol=0, atol=TOL)
 
 
-@pytest.mark.parametrize("S,masked", [(850, True), (77, True), (64, False)])
+@pytest.mark.parametrize("S,masked", [(850, True), (77, True), (64, False), (3400, True),
+                                      (33, True), (1, True), (77, False)])
 def test_module_matches_jax_xla_path(S, masked):
     """MultiheadAttention with the same weights: the port's masked path (K3's
     plain version) and unmasked path against primitives.MultiheadAttention."""
@@ -94,3 +96,50 @@ def test_cpu_tensors_take_the_plain_version():
     assert mac.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
         mac.masked_attn_fwd(*(torch.from_numpy(a) for a in (q, k, v, mask)))
+
+
+@pytest.mark.parametrize("shared_mask", [True, False])
+@pytest.mark.parametrize("B,Q,S", [(2, 10, 77), (1, 100, 850), (3, 1, 1)])
+def test_plain_on_transposed_views_equals_the_contiguous_call(B, Q, S, shared_mask):
+    """The (B, H, N, D) views of (B, N, H, D) projections, as MultiheadAttention
+    hands them over, give what their contiguous copies give."""
+    H, D = 4, 32
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rng.randn(B, n, H, D).astype(np.float32)).transpose(1, 2)
+               for n in (Q, S, S))
+    mask = torch.from_numpy(rng.rand(*((B, Q, S) if shared_mask else (B, H, Q, S))) < 0.6)
+    assert S == 1 or not k.is_contiguous()
+    got = mac.masked_attention(q, k, v, mask)
+    want = mac.masked_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=TOL)
+
+
+def test_module_hands_the_head_views_over_without_a_copy(monkeypatch):
+    """The masked path gets q, k and v as strided views of the projections
+    (last dimension contiguous, rows of 32 floats); the result equals the one
+    from contiguous copies."""
+    B, Q, S, C, H = 2, 6, 45, 64, 2
+    seen = {}
+    real = mac.masked_attention
+
+    def spy(q, k, v, mask):
+        seen.update(q=q, k=k, v=v)
+        return real(q, k, v, mask)
+
+    monkeypatch.setattr(primitives, "masked_attention", spy)
+    torch.manual_seed(1)
+    mod = MultiheadAttention(C, H)
+    rng = np.random.RandomState(6)
+    query, key, value = (torch.from_numpy(rng.randn(B, n, C).astype(np.float32))
+                         for n in (Q, S, S))
+    mask = torch.from_numpy(rng.rand(B, Q, S) < 0.5)
+    with torch.no_grad():
+        got = mod(query, key, value, mask)
+        for name, n in (("q", Q), ("k", S), ("v", S)):
+            t = seen[name]
+            assert t.shape == (B, H, n, C // H) and t.stride() == (n * C, C // H, C, 1)
+        monkeypatch.setattr(primitives, "masked_attention",
+                            lambda q, k, v, m: real(q.contiguous(), k.contiguous(),
+                                                    v.contiguous(), m))
+        want = mod(query, key, value, mask)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=TOL)

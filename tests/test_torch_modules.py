@@ -141,7 +141,7 @@ def test_decoder_refuses_dn_training():
     dec = MultiScaleMaskedTransformerDecoderMaskDN(8, num_classes=3, hidden_dim=8,
                                                    num_queries=2, nheads=2, dec_layers=1,
                                                    mask_dim=8)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="slice 3"):
         dec([torch.zeros(1, 8, 2, 2)] * 3, torch.zeros(1, 8, 4, 4), dn_args=object())
 
 

@@ -92,19 +92,42 @@ def run_probes(card: str, seed: int = 0, iters: int = 50):
     return results
 
 
+def sweep_sum_blocks(card: str, seed: int = 0) -> None:
+    """Device time of `row_gather_sum` at P2's shape for each number of rows a
+    block owns (fewer rows: more blocks and more atomic additions per output)."""
+    import torch
+
+    from mp_former_tpu_torch.ops import row_gather as rg
+    from mp_former_tpu_torch.utils.cuda_timing import device_ms
+
+    rows, width, n, _, slots = PROBES["P2"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tab = torch.randn((rows, width), generator=g, device="cuda")
+    idx = torch.randint(0, rows, (n,), generator=g, device="cuda", dtype=torch.int32)
+    times = {per_block: device_ms(lambda: rg.row_gather_sum_fwd(tab, idx, slots, per_block))
+             for per_block in (64, 128, 256, 512, 1024, 2048)}
+    print("[row_gather] P2 row_gather_sum rows_per_block sweep "
+          + " ".join(f"{k}:{v:.5f}ms" for k, v in times.items()) + f" card={card!r}", flush=True)
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time row_gather_sum at P2 over the rows a block owns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("probe_torch_row_gather: needs a CUDA card")
     sys.path.insert(0, REPO)
     from mp_former_tpu_torch.utils.cuda_timing import card_string
 
-    run_probes(card_string(), args.seed, args.iters)
+    card = card_string()
+    run_probes(card, args.seed, args.iters)
+    if args.sweep:
+        sweep_sum_blocks(card, args.seed)
     return 0
 
 

@@ -12,8 +12,9 @@ then traces `--requests` requests with `torch.profiler` and prints: the
 card, host time per request, device busy time per request (the sum of the
 kernels' device time over the traced window), the top ops by device time
 and by host time, the port's own kernels (device time per launch, as the
-profiler reads it from the card), and the time by model stage
-(record_function ranges).
+profiler reads it from the card; K3 is two kernels where the keys are split,
+`masked_attn_tiles` and `masked_attn_merge`), the number of strided-to-contiguous
+copy kernels per request, and the time by model stage (record_function ranges).
 """
 
 from __future__ import annotations
@@ -96,6 +97,12 @@ def main() -> int:
             print(f"{e.key[:70]:70s} launches/request={e.count / args.requests:g} "
                   f"device_ms/launch={e.self_device_time_total / 1e3 / e.count:.4f} "
                   f"device_ms/request={e.self_device_time_total / 1e3 / args.requests:.4f}")
+    # strided-to-contiguous copies (`.contiguous()`, `.to`, `copy_`) run as
+    # direct_copy kernels; K3 reads the head views where they lie, so the
+    # decoder's 18 copies of K and V per request are not among them
+    copies = [e for e in device if "direct_copy_kernel" in e.key]
+    print(f"\ndirect_copy kernels: launches/request={sum(e.count for e in copies) / args.requests:g} "
+          f"device_ms/request={sum(e.self_device_time_total for e in copies) / 1e3 / args.requests:.4f}")
     print("\n== by device time ==")
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
     print("\n== stages ==")
