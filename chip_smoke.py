@@ -31,7 +31,24 @@ result line):
    (`TPU.PALLAS_TAP_WEIGHTING True`) with slice 1's weights: one request, K2
    18 launches, K1 none; its outputs against slice 1's K1 route;
 10. evaluation: `inference_on_dataset` over 8 in-memory records on the
-    slice-2 model, segm AP through the kernels and through the plain ops.
+    slice-2 model, segm AP through the kernels and through the plain ops;
+11. K1's backward kernel against `ms_deform_attn_backward_plain` and against
+    autograd of the plain forward, at the 800x1088 canvas and at the training
+    shape (B = 8, 512x512), model-like locations with some off the map,
+    float32 and bfloat16; the forward kernel at the same shapes against its
+    plain version;
+12. K3's backward kernel against `masked_attention_backward_plain` and
+    autograd of the plain forward at the training shapes (B = 8, Q = 120, S =
+    256 / 1024 / 4096) and at B = 1, Q = 100, S = 13600: per-head masks with a
+    DN block, a fully blocked row, strided views; the forward that writes the
+    row statistics against the plain version, its output and the statistics;
+13. slice 3, training: the released training recipe (DN `points`, NUM_DN 1,
+    noise 0, ALL_LY_DN, label noise 0.2) at full width and depth, B = 8 images
+    of 512x512 from the seeded generator: step 0's losses and gradients through
+    the kernels against the same step through autograd of the plain ops, then
+    1 warm and 3 timed steps through `Trainer`; checks the 61 loss keys, the
+    launches per step (K1 6, K1 backward 6, K3 9, K3 backward 9, K2 0) and
+    that the parameters moved.
 
 Each kernel phase also computes the kernel's bound (the least time the card
 could take: bytes over the memory rate or operations over the peak rate,
@@ -48,7 +65,9 @@ and power limit, and last the result line `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
+import math
 import os
 import sys
 import time
@@ -69,6 +88,35 @@ REQUESTS = [(480, 640), (640, 480), (427, 640), (640, 427)]
 # grid_sample's ((2loc-1)+1)*W/2-0.5), a few ulp of outputs of magnitude ~1.
 # bfloat16: the kernel's output is rounded to bfloat16 (8 bits of mantissa).
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the backward kernels against their plain versions, relative to each
+# gradient's largest entry. float32: other summation orders (atomics in K1's
+# grad_value and K3's dq), and in K3 the forward's 3xTF32 row statistics
+# against float32 recomputation (~1e-6). bfloat16: outputs rounded to 8 bits.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# against autograd of the plain forward: grid_sample rounds the sampling
+# coordinate differently (see TOL), which moves a point across a pixel border
+# now and then; there grad_loc, the slope of the bilinear surface, jumps. So
+# grad_loc may miss on one entry in 100000.
+AUTOGRAD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+TRAIN_SHAPES = [(16, 16), (32, 32), (64, 64)]   # res5, res4, res3 of a 512x512 image
+TRAIN_BATCH, TRAIN_SIZE, TRAIN_MAX_INSTANCES = 8, 512, 20
+# the released training recipe, as run_50ep_no_noise_all_ly.sh sets it
+TRAIN_OVERRIDES = ["MODEL.MASK_FORMER.DN_MODE", "points", "MODEL.DN.NUM_DN", "1",
+                   "MODEL.DN.NOISE_SCALE", "0.0", "MODEL.MASK_FORMER.ALL_LY_DN", "True",
+                   "MODEL.MASK_FORMER.LB_NOISE_RATIO", "0.2", "SOLVER.IMS_PER_BATCH", "8",
+                   "SEED", "0"]
+# step 0 through the kernels against the same step through autograd of the
+# plain ops (same weights, batch, draws and assignments): each loss relative to
+# its value; each parameter's gradient relative to the largest gradient entry
+# of that parameter. The attention masks are thresholds (sigmoid < 0.5 of
+# resized logits), so a forward difference of 1e-4 flips a pixel now and then,
+# which shows in the gradients of the layers behind it: 5e-3 there, three
+# times the worst such run read (1.7e-3, an FFN behind the first thresholded
+# mask). The parameters next to K1 and K3 (the deformable attention's and the
+# cross-attention's projections) are held to 1e-3.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_KERNEL_GRAD_TOL = 1e-3, 5e-3, 1e-3
+TRAIN_KERNEL_LEAVES = ("sampling_offsets", "attention_weights", "value_proj", "output_proj",
+                       "transformer_cross_attention_layers")
 # published peaks of one H100 SXM at its full 700 W power limit: HBM bytes/s,
 # float32 FLOP/s outside the tensor cores, dense TF32 and bfloat16 tensor-core
 # FLOP/s
@@ -97,11 +145,14 @@ def mean(values) -> float:
     return sum(values) / len(values)
 
 
-def timed(kernel, plain, library=None, calls: int = 20) -> dict:
-    """Both clocks of a kernel, its plain version and the library call."""
+def timed(kernel, plain, library=None, calls: int = 20, plain_calls: int = 0) -> dict:
+    """Both clocks of a kernel, its plain version and the library call
+    (`plain_calls`: fewer calls a graph for a plain version with large
+    intermediates)."""
     from mp_former_tpu_torch.utils.cuda_timing import two_clocks
 
-    k, pl = two_clocks(kernel, calls), two_clocks(plain, calls)
+    k = two_clocks(kernel, calls)
+    pl = two_clocks(plain, plain_calls or calls, iters=10 if plain_calls else 50)
     lb = two_clocks(library, calls) if library is not None else {}
     return {"ms": k["ms"], "issue_ms": k["issue_ms"],
             "plain_ms": pl["ms"], "plain_issue_ms": pl["issue_ms"],
@@ -384,13 +435,18 @@ def seeded_model(torch, cfg):
         return build_model(cfg)  # reference inits, seeded
 
 
-def kernel_counts() -> dict:
+def kernel_counts(backward: bool = False) -> dict:
+    """The launch counts of the model's kernels; with `backward` also those of
+    the two backward kernels (the serving phases compare the forward ones)."""
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
     from mp_former_tpu_torch.ops import msda_cuda
     from mp_former_tpu_torch.ops import tap_weighting as tw
 
-    return {"msda_fwd": msda_cuda.LAUNCHES, "tap_weight_fwd": tw.LAUNCHES,
-            "masked_attn_fwd": mac.LAUNCHES}
+    counts = {"msda_fwd": msda_cuda.LAUNCHES, "tap_weight_fwd": tw.LAUNCHES,
+              "masked_attn_fwd": mac.LAUNCHES}
+    if backward:
+        counts.update(msda_bwd=msda_cuda.BWD_LAUNCHES, masked_attn_bwd=mac.BWD_LAUNCHES)
+    return counts
 
 
 def reset_kernel_counts() -> None:
@@ -399,24 +455,29 @@ def reset_kernel_counts() -> None:
     from mp_former_tpu_torch.ops import tap_weighting as tw
 
     msda_cuda.LAUNCHES = tw.LAUNCHES = mac.LAUNCHES = 0
+    msda_cuda.BWD_LAUNCHES = mac.BWD_LAUNCHES = 0
 
 
 @contextlib.contextmanager
 def plain_ops():
-    """Every kernel of the model replaced by its plain version; fails if a
-    kernel is launched all the same."""
+    """Every kernel of the model replaced by its plain version, and the two
+    autograd Functions by autograd of the plain versions; fails if a kernel is
+    launched all the same."""
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
     from mp_former_tpu_torch.ops import ms_deform_attn as msda_mod
     from mp_former_tpu_torch.ops import msda_cuda
     from mp_former_tpu_torch.ops import tap_weighting as tw
 
-    before = kernel_counts()
+    before = kernel_counts(backward=True)
     with mock.patch.object(msda_mod, "msda_fwd", msda_cuda.ms_deform_attn_plain), \
+            mock.patch.object(msda_cuda.MSDeformAttnFunction, "apply",
+                              msda_cuda.ms_deform_attn_plain), \
             mock.patch.object(tw, "tap_weight_fwd", tw.weight_taps_plain), \
-            mock.patch.object(mac, "masked_attn_fwd", mac.masked_attention_plain):
+            mock.patch.object(mac, "masked_attn_fwd", mac.masked_attention_plain), \
+            mock.patch.object(mac.MaskedAttentionFunction, "apply", mac.masked_attention_plain):
         yield
-    if kernel_counts() != before:
-        raise AssertionError("the plain-op forward launched a kernel")
+    if kernel_counts(backward=True) != before:
+        raise AssertionError("the plain-op path launched a kernel")
 
 
 def check_instances(cfg, requests, outs) -> None:
@@ -526,7 +587,7 @@ def phase_tap_weighting_route(torch, card: str, slice1_predictor, image, canvas,
     load_weights(model, slice1_predictor.model.state_dict())
     predictor = Predictor(cfg, model=model, device="cuda")
     launches = serve(torch, "tap_weighting_route", cfg, predictor, [image], REQUESTS[:1],
-                     {"msda_fwd": 0, "tap_weight_fwd": 18, "masked_attn_fwd": 9}, card, 3)
+                     {"msda_fwd": 0, "tap_weight_fwd": 18, "masked_attn_fwd": 9}, card, 1)
     with torch.inference_mode():
         out = predictor.model(canvas)
     compare_outputs(torch, "tap_weighting_route", "patch-table gather + K2 vs K1", cfg, canvas,
@@ -577,6 +638,338 @@ def phase_eval(torch, card: str, cfg, predictor) -> dict:
     return {"kernel": kernel, "plain": plain}
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| relative to want's largest entry."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+def model_like_locations(torch, g, B, shapes, M, P):
+    """Sampling locations as the pixel decoder makes them: every token of every
+    level is a query at its pixel centre, each point a few pixels off it
+    (queries near an edge sample off the map), and 2% of the points far off."""
+    refs = []
+    for h, w in shapes:
+        ry = (torch.arange(h, device="cuda", dtype=torch.float32) + 0.5) / h
+        rx = (torch.arange(w, device="cuda", dtype=torch.float32) + 0.5) / w
+        gy, gx = torch.meshgrid(ry, rx, indexing="ij")
+        refs.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], -1))
+    ref = torch.cat(refs, 0)                                       # (Q, 2)
+    Q, L = ref.shape[0], len(shapes)
+    sizes = torch.tensor([[w, h] for h, w in shapes], device="cuda",
+                         dtype=torch.float32).view(1, 1, 1, L, 1, 2)
+    offsets = torch.randn((B, Q, M, L, P, 2), generator=g, device="cuda") * 3.0
+    loc = ref.view(1, Q, 1, 1, 1, 2) + offsets / sizes
+    far = torch.rand((B, Q, M, L, P, 1), generator=g, device="cuda") < 0.02
+    return torch.where(far, loc + 2.0, loc)
+
+
+def phase_k1_bwd(torch, card: str) -> dict:
+    from mp_former_tpu_torch.ops import msda_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    M, D, P = 8, 32, 4
+    res = {}
+    for case, B, shapes in (("canvas", 1, MSDA_SHAPES), ("train", TRAIN_BATCH, TRAIN_SHAPES)):
+        L = len(shapes)
+        S = sum(h * w for h, w in shapes)
+        value = torch.randn((B, S, M, D), generator=g, device="cuda")
+        loc = model_like_locations(torch, g, B, shapes, M, P)
+        attn = torch.randn((B, S, M, L * P), generator=g, device="cuda").softmax(-1)
+        attn = attn.view(B, S, M, L, P)
+        grad_out = torch.randn((B, S, M * D), generator=g, device="cuda")
+        sizes = torch.tensor([[w, h] for h, w in shapes], device="cuda").view(1, 1, 1, L, 1, 2)
+        base = (loc * sizes - 0.5).floor()
+        on_map = ((base >= -1) & (base <= sizes - 1)).all(-1).sum().item()
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            go, v, lo, a = (t.to(dtype).contiguous() for t in (grad_out, value, loc, attn))
+            # the forward at this shape too (phase K1 holds it at B = 1 only)
+            fwd_err = (msda_cuda.msda_fwd(v, shapes, lo, a).float()
+                       - msda_cuda.ms_deform_attn_plain(v.float(), shapes, lo.float(),
+                                                        a.float())).abs().max().item()
+            got = msda_cuda.msda_bwd(go, v, shapes, lo, a)
+            torch.cuda.synchronize()
+            want = msda_cuda.ms_deform_attn_backward_plain(go.float(), v.float(), shapes,
+                                                           lo.float(), a.float())
+            errs = [rel_err(x, w) for x, w in zip(got, want)]
+            abs_err = max((x.float() - w).abs().max().item() for x, w in zip(got, want))
+            # autograd of the plain forward
+            leaves = [t.float().clone().requires_grad_() for t in (v, lo, a)]
+            out = msda_cuda.ms_deform_attn_plain(leaves[0], shapes, leaves[1], leaves[2])
+            auto = torch.autograd.grad(out, leaves, go.float())
+            auto_errs = [rel_err(got[0], auto[0]), rel_err(got[2], auto[2])]
+            loc_miss = ((got[1].float() - auto[1]).abs()
+                        > AUTOGRAD_TOL[name] * auto[1].abs().max()).float().mean().item()
+            del want, auto, out, leaves
+            times = timed(lambda: msda_cuda.msda_bwd(go, v, shapes, lo, a),
+                          lambda: msda_cuda.ms_deform_attn_backward_plain(go, v, shapes, lo, a),
+                          plain_calls=2)
+            # per tap on the map: the dot product with g and the add of w * g
+            bnd = bound(nbytes(go, v, lo, a, got[1], got[2]) + v.numel() * 4,
+                        on_map * 4 * 4 * D, name)
+            log("K1_bwd", case=case, dtype=name, shape=f"B{B}xQ{S}xM{M}xD{D}xL{L}xP{P}",
+                rel_err_value_loc_attn=[f"{e:.2e}" for e in errs], tol=BWD_TOL[name],
+                max_abs_err=f"{abs_err:.3e}", forward_max_abs_err=f"{fwd_err:.3e}",
+                forward_tol=TOL[name], rel_err_vs_autograd_value_attn=[f"{e:.2e}" for e in auto_errs],
+                grad_loc_share_off_vs_autograd=f"{loc_miss:.2e}", autograd_tol=AUTOGRAD_TOL[name],
+                **fmt_times(times), bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
+                points_on_map=f"{on_map}/{B * S * M * L * P}", card=repr(card))
+            if not fwd_err <= TOL[name]:
+                raise AssertionError(f"K1 forward {case} {name}: max abs error {fwd_err} against "
+                                     f"the plain version, above {TOL[name]}")
+            if not max(errs) <= BWD_TOL[name]:
+                raise AssertionError(f"K1 backward {case} {name}: relative errors {errs} "
+                                     f"against the plain backward, above {BWD_TOL[name]}")
+            if not (max(auto_errs) <= AUTOGRAD_TOL[name] and loc_miss <= 1e-5):
+                raise AssertionError(f"K1 backward {case} {name}: against autograd of the plain "
+                                     f"forward {auto_errs}, grad_loc off on {loc_miss} of entries")
+            res[(case, name)] = {"max_abs_err": abs_err, **times, **bnd}
+            del got, go, v, lo, a
+    return res
+
+
+def phase_k3_bwd(torch, card: str) -> dict:
+    import torch.nn.functional as F
+
+    from mp_former_tpu_torch.ops import masked_attention_cuda as mac
+    from mp_former_tpu_torch.utils.cuda_timing import two_clocks
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    H, D, DN = 8, 32, 20
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        per_shape = []
+        for B, Q, S in ((8, 120, 256), (8, 120, 1024), (8, 120, 4096), (1, 100, 13600)):
+            # strided head views of (B, N, H * D) projections, as the decoder's
+            q, k, v = (torch.randn((B, n, H * D), generator=g, device="cuda").to(dtype)
+                       .view(B, n, H, D).transpose(1, 2) for n in (Q, S, S))
+            go = torch.randn((B, Q, H, D), generator=g, device="cuda").to(dtype).transpose(1, 2)
+            # the learnable queries' rows are shared by the heads; the DN block in
+            # front is per head; row 0 is blocked everywhere
+            shared = torch.rand((B, 1, Q, S), generator=g, device="cuda") < 0.7
+            mask = shared.expand(B, H, Q, S).clone()
+            mask[:, :, :DN] = torch.rand((B, H, DN, S), generator=g, device="cuda") < 0.9
+            mask[:, :, 0] = True
+            out, stats = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+            # the forward that writes the statistics is an instantiation of its
+            # own: its output against the plain version, and the statistics
+            # against the plain logits' row maximum (base 2, relative: a row
+            # blocked everywhere has -1e9 log2 e) and log2 of the row's sum
+            fwd_err = (out.float() - mac.masked_attention_plain(
+                q.float(), k.float(), v.float(), mask)).abs().max().item()
+            logits = (torch.einsum("bhqd,bhsd->bhqs", q.float(), k.float()) / math.sqrt(D)
+                      ).masked_fill_(mask, -1e9)
+            row_max = logits.amax(-1)
+            log2_sum = (logits - row_max[..., None]).exp_().sum(-1).log2()
+            row_max = row_max * math.log2(math.e)
+            max_err = ((stats[..., 0] - row_max).abs() / row_max.abs().clamp(min=1.0)).max().item()
+            sum_err = (stats[..., 1].log2() - log2_sum).abs().max().item()
+            del logits, row_max, log2_sum
+            got = mac.masked_attn_bwd(go, q, k, v, mask, out, stats)
+            torch.cuda.synchronize()
+            want = mac.masked_attention_backward_plain(go.float(), q.float(), k.float(),
+                                                       v.float(), mask)
+            errs = [rel_err(x, w) for x, w in zip(got, want)]
+            abs_err = max((x.float() - w).abs().max().item() for x, w in zip(got, want))
+            blocked_row_dq = got[0][:, :, 0].abs().max().item()
+            # through the Function, against autograd of the plain forward
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            mac.masked_attention(*leaves, mask).backward(go)
+            plain_leaves = [t.detach().float().clone().requires_grad_() for t in (q, k, v)]
+            auto = torch.autograd.grad(mac.masked_attention_plain(*plain_leaves, mask),
+                                       plain_leaves, go.float())
+            auto_errs = [rel_err(leaf.grad, w) for leaf, w in zip(leaves, auto)]
+            del want, auto, leaves, plain_leaves
+            # the one library call for the same function: the backward of SDPA with
+            # an additive -1e9 mask. On a row blocked everywhere SDPA's backward
+            # computes something else (its forward does not), so the library gets
+            # the same mask with one key of that row open, and is held against
+            # the plain backward on that mask
+            lib_mask = mask.clone()
+            lib_mask[:, :, 0, 0] = False
+            additive = torch.zeros((B, H, Q, S), dtype=dtype, device="cuda")
+            additive.masked_fill_(lib_mask, -1e9)
+            lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=additive)
+            lib_grads = torch.autograd.grad(lib_out, lib_leaves, go, retain_graph=True)
+            lib_want = mac.masked_attention_backward_plain(go.float(), q.float(), k.float(),
+                                                           v.float(), lib_mask)
+            lib_err = max(rel_err(x, w) for x, w in zip(lib_grads, lib_want))
+            del lib_grads, lib_want, lib_mask
+            if not lib_err <= AUTOGRAD_TOL[name]:
+                raise AssertionError(f"K3 backward {name} S={S}: the library call computes "
+                                     f"another function (relative error {lib_err})")
+            t = timed(lambda: mac.masked_attn_bwd(go, q, k, v, mask, out, stats),
+                      lambda: mac.masked_attention_backward_plain(go, q, k, v, mask),
+                      calls=10, plain_calls=2)
+            # a backward cannot be captured apart from its forward (the engine ties
+            # it to the forward's stream): the library's time is forward and
+            # backward together less the forward alone, each by graph replay
+
+            def lib_forward(backward=False):
+                # fresh leaves: autograd ties a leaf to the stream it was made on
+                leaves = [t.detach().requires_grad_(backward) for t in (q, k, v)]
+                lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=additive)
+                return torch.autograd.grad(lib_out, leaves, go) if backward else lib_out
+
+            both = two_clocks(lambda: lib_forward(backward=True), 10)
+            alone = two_clocks(lib_forward, 10)
+            t["library_ms"] = both["ms"] - alone["ms"]
+            t["library_issue_ms"] = both["issue_ms"] - alone["issue_ms"]
+            # five products of 2 Q S D operations per head; as in the forward's
+            # bound, float32 accuracy on the tensor cores is 3xTF32: three times
+            # the operations at the TF32 peak
+            flops = 5 * 2.0 * B * H * Q * S * D
+            n_bytes = nbytes(q, k, v, out, go, mask, stats, *got)
+            bnd = (bound(n_bytes, 3 * flops, "tf32") if dtype == torch.float32
+                   else bound(n_bytes, flops, name))
+            log("K3_bwd", dtype=name, shape=f"B{B}xH{H}xQ{Q}xS{S}xD{D}",
+                layout="strided head views, per-head mask with a DN block",
+                rel_err_dq_dk_dv=[f"{e:.2e}" for e in errs], tol=BWD_TOL[name],
+                max_abs_err=f"{abs_err:.3e}", blocked_row_max_abs_dq=blocked_row_dq,
+                forward_max_abs_err=f"{fwd_err:.3e}", stats_max_rel_err=f"{max_err:.3e}",
+                stats_log2_sum_abs_err=f"{sum_err:.3e}", forward_tol=TOL[name],
+                rel_err_vs_autograd=[f"{e:.2e}" for e in auto_errs],
+                autograd_tol=AUTOGRAD_TOL[name], **fmt_times(t),
+                bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
+                library="backward of F.scaled_dot_product_attention (forward and backward "
+                        "less the forward)", card=repr(card))
+            if not max(fwd_err, max_err, sum_err) <= TOL[name]:
+                raise AssertionError(f"K3 forward with statistics {name} S={S}: output "
+                                     f"{fwd_err}, row maximum {max_err}, log2 of the row sum "
+                                     f"{sum_err} against the plain version, above {TOL[name]}")
+            if not (max(errs) <= BWD_TOL[name] and blocked_row_dq == 0.0):
+                raise AssertionError(f"K3 backward {name} S={S}: relative errors {errs} against "
+                                     f"the plain backward above {BWD_TOL[name]}, or a gradient "
+                                     f"{blocked_row_dq} to the q of a row blocked everywhere")
+            if not max(auto_errs) <= AUTOGRAD_TOL[name]:
+                raise AssertionError(f"K3 backward {name} S={S}: {auto_errs} against autograd "
+                                     "of the plain forward")
+            per_shape.append({"max_abs_err": abs_err, **t, **bnd})
+            del q, k, v, go, mask, shared, additive, out, stats, got, lib_leaves, lib_out
+        # a training step visits each of the three training lengths three times:
+        # report their mean per call (the S = 13600 shape is checked, not averaged)
+        train = per_shape[:3]
+        res[name] = {"max_abs_err": max(r["max_abs_err"] for r in per_shape),
+                     **{key: mean([r[key] for r in train])
+                        for key in ("ms", "issue_ms", "plain_ms", "plain_issue_ms", "library_ms",
+                                    "library_issue_ms", "bound_ms")},
+                     "bound_by": train[-1]["bound_by"]}
+    return res
+
+
+TRAIN_EXPECTED = {"msda_fwd": 6, "tap_weight_fwd": 0, "masked_attn_fwd": 9, "msda_bwd": 6,
+                  "masked_attn_bwd": 9}
+
+
+def loss_and_gradients(torch, model, criterion, batch, assignments=None):
+    """Step 0 without the update: (losses, {name: gradient}, assignments). The
+    draws come from a generator seeded anew, and the matcher's points are drawn
+    whether or not `assignments` are given, so two calls see the same noise."""
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    model.zero_grad(set_to_none=True)
+    outputs = model(batch.images, batch.targets, generator=generator)
+    costs = criterion.layer_costs(outputs, batch.targets, generator)
+    if assignments is None:
+        assignments = criterion.assign(costs)
+    losses = criterion(outputs, batch.targets, generator, assignments=assignments)
+    criterion.weighted_total(losses).backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return {k: v.item() for k, v in losses.items()}, grads, assignments
+
+
+def phase_train(torch, card: str) -> dict:
+    """Slice 3: the released training recipe at full width and depth."""
+    import shutil
+
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.engine.trainer import Trainer
+
+    out_dir = os.path.join(REPO, "output", "chip_smoke_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "OUTPUT_DIR", out_dir])
+    batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                TRAIN_MAX_INSTANCES, seed=SEED)
+    trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
+    model, criterion = trainer.model, trainer.criterion
+    first = next(batches).to("cuda")
+
+    # step 0 through the kernels and through autograd of the plain ops
+    reset_kernel_counts()
+    k_losses, k_grads, assignments = loss_and_gradients(torch, model, criterion, first)
+    launches = kernel_counts(backward=True)
+    if launches != TRAIN_EXPECTED:
+        raise AssertionError(f"train: kernel launches of one step {launches}, expected "
+                             f"{TRAIN_EXPECTED}")
+    with plain_ops():
+        p_losses, p_grads, _ = loss_and_gradients(torch, model, criterion, first, assignments)
+    loss_err = max(abs(k_losses[k] - p_losses[k]) / max(abs(p_losses[k]), 1e-6) for k in p_losses)
+    if k_grads.keys() != p_grads.keys():
+        raise AssertionError("train: the two paths give gradients to different parameters")
+    grad_errs = sorted(((rel_err(k_grads[n], p_grads[n]), n) for n in p_grads), reverse=True)
+    within = sum(e <= 1e-3 for e, _ in grad_errs)
+    kernel_errs = [(e, n) for e, n in grad_errs if any(s in n for s in TRAIN_KERNEL_LEAVES)]
+    log("train", compare="step 0, kernels vs autograd of the plain ops", losses=len(k_losses),
+        loss_max_rel_err=f"{loss_err:.3e}", loss_tol=TRAIN_LOSS_TOL,
+        gradients=len(grad_errs), grad_max_rel_err=f"{grad_errs[0][0]:.3e}",
+        grad_tol=TRAIN_GRAD_TOL, gradients_within_1e_3=within,
+        gradients_next_to_kernels=len(kernel_errs),
+        kernel_grad_max_rel_err=f"{kernel_errs[0][0]:.3e}", kernel_grad_tol=TRAIN_KERNEL_GRAD_TOL,
+        worst=[(n, f"{e:.2e}") for e, n in grad_errs[:3]])
+    if not (loss_err <= TRAIN_LOSS_TOL and grad_errs[0][0] <= TRAIN_GRAD_TOL
+            and kernel_errs and kernel_errs[0][0] <= TRAIN_KERNEL_GRAD_TOL):
+        raise AssertionError(f"train: step 0 through the kernels and through the plain ops "
+                             f"disagree: losses {loss_err}, gradients {grad_errs[:3]}, next "
+                             f"to the kernels {kernel_errs[:3]}")
+    if not all(torch.isfinite(g).all() for g in k_grads.values()):
+        raise AssertionError("train: non-finite gradients")
+    del k_grads, p_grads
+    model.zero_grad(set_to_none=True)
+
+    # the main path: 1 warm step and 3 timed steps through the trainer
+    watched = {n: p.detach().clone() for n, p in model.named_parameters()
+               if p.requires_grad and n.endswith(("query_feat.weight", "res5.2.conv3.weight",
+                                                  "value_proj.weight", "in_proj_weight"))}
+    reset_kernel_counts()
+    criterion.matcher_host_seconds = 0.0
+    torch.cuda.synchronize()
+    seconds, metrics = [], None
+    for step, batch in zip(range(4), itertools.chain([first], batches)):
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = trainer.run_step(batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = kernel_counts(backward=True)
+    expected = {k: 4 * v for k, v in TRAIN_EXPECTED.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {k: float(v) for k, v in metrics.items()}
+    log("train", steps=4, launches=launches, expected=expected)
+    log("train", warm_step_s=f"{seconds[0]:.3f}", timed_steps_s=[f"{t:.4f}" for t in seconds[1:]],
+        peak_memory_allocated_GiB=f"{peak_gb:.2f}",
+        matcher_host_s_per_step=f"{criterion.matcher_host_seconds / 4:.4f}",
+        total_loss=f"{metrics['total_loss']:.3f}", lr=trainer.scheduler.get_last_lr()[-1],
+        batch=f"{TRAIN_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}", card=repr(card))
+    if launches != expected:
+        raise AssertionError(f"train: kernel launches {launches}, expected {expected}")
+    keys = [k + d + s for k in ("loss_ce", "loss_mask", "loss_dice") for d in ("", "_dn")
+            for s in ("", *(f"_{i}" for i in range(cfg.MODEL.MASK_FORMER.DEC_LAYERS - 1)))]
+    missing = [k for k in (*keys, "total_loss") if k not in metrics]
+    if missing or len(metrics) != 61 or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"train: {len(metrics)} loss keys, missing {missing}, or a "
+                             "non-finite loss")
+    moved = {n: (p.detach() - watched[n]).abs().max().item()
+             for n, p in model.named_parameters() if n in watched}
+    if not moved or not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"train: parameters did not move: {moved}")
+    log("train", parameters_watched=len(moved), all_moved=True, ok=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -596,10 +989,15 @@ def main() -> int:
     cfg2 = slice2_cfg()
     s2, predictor2, _, _, _ = phase_slice(
         torch, card, "slice2", cfg2,
-        {"msda_fwd": 0, "tap_weight_fwd": 18, "masked_attn_fwd": 9}, warm_passes=2)
+        {"msda_fwd": 0, "tap_weight_fwd": 18, "masked_attn_fwd": 9}, warm_passes=1)
     route = phase_tap_weighting_route(torch, card, predictor1, images[0], canvas, k1_out)
     phase_eval(torch, card, cfg2, predictor2)
-    by_path = {"slice": s1, "slice2": s2, "tap_weighting_route": route}
+    del predictor1, predictor2, k1_out
+    torch.cuda.empty_cache()
+    k1_bwd = phase_k1_bwd(torch, card)
+    k3_bwd = phase_k3_bwd(torch, card)
+    train = phase_train(torch, card)
+    by_path = {"slice": s1, "slice2": s2, "tap_weighting_route": route, "train": train}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",
@@ -617,6 +1015,15 @@ def main() -> int:
         {"name": "row_gather_sum", "route": "cuda", "source": csrc + "row_gather.cu",
          "replaces": "tools/bench_sampling_engines.py:279",
          "launches": gather["launches"]["row_gather_sum"], **gather["P2"]},
+        {"name": "msda_bwd", "route": "cuda", "source": csrc + "msda_bwd.cu",
+         "replaces": "mp_former_tpu/ops/msda_pallas.py:249 (the VJP of the kernel at :134, "
+                     "a recompute through XLA)",
+         "launches": train["msda_bwd"], **k1_bwd[("train", "float32")]},
+        {"name": "masked_attn_bwd", "route": "cuda", "source": csrc + "masked_attn_bwd.cu",
+         "replaces": "mp_former_tpu/ops/fused_masked_attention.py:63 (no VJP: training takes "
+                     "the einsum branch, mp_former_tpu/models/transformer_decoder/"
+                     "primitives.py:72)",
+         "launches": train["masked_attn_bwd"], **k3_bwd["float32"]},
     ]
     for kern in kernels:
         kern["launches_by_path"] = {p: c[kern["name"]] for p, c in by_path.items()

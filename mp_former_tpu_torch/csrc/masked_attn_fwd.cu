@@ -119,6 +119,7 @@ struct Params {
   const uint8_t* mask;
   void* out;
   float* part;  // (B*H, chunks, Q, D) accumulators, then (B*H, chunks, Q) maxima, then sums
+  float* stats;  // (B*H, Q, 2): each row's maximum (base 2) and sum, for the backward; or null
   long long q_sb, q_sh, q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, o_sb, o_sh, o_sr;
   long long mask_sb, mask_sh;
   int H, Q, S, chunk, chunks;
@@ -333,7 +334,10 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
 }
 
 // grid (chunks, B * H, ceil(Q / 128)), block 32 * min(8, ceil(Q / 16)) threads.
-template <typename T>
+// kStats: also write each row's maximum and sum (p.stats), for the backward; a
+// template parameter, so that the serving instantiation carries none of it
+// (as a run-time branch on p.stats it cost the forward 5-25% on an H100).
+template <typename T, bool kStats>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 masked_attn_tiles(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -527,6 +531,13 @@ masked_attn_tiles(const Params p) {
       if (lo_ok) store2(ob + row_lo * p.o_sr + col, o[nt][0] * inv_lo, o[nt][1] * inv_lo);
       if (hi_ok) store2(ob + row_hi * p.o_sr + col, o[nt][2] * inv_hi, o[nt][3] * inv_hi);
     }
+    if constexpr (kStats) {
+      if (t == 0) {
+        float2* st = reinterpret_cast<float2*>(p.stats) + (long long)bh * p.Q;
+        if (lo_ok) st[row_lo] = make_float2(m_lo, l_lo);
+        if (hi_ok) st[row_hi] = make_float2(m_hi, l_hi);
+      }
+    }
     return;
   }
   const long long rows = (long long)gridDim.y * p.chunks * p.Q;
@@ -546,7 +557,7 @@ masked_attn_tiles(const Params p) {
 }
 
 // One warp per (b, h, query) row: merge the chunks' partials.
-template <typename T>
+template <typename T, bool kStats>
 __global__ void __launch_bounds__(256)
 masked_attn_merge(const Params p, int BH) {
   const int lane = threadIdx.x & 31;
@@ -577,6 +588,9 @@ masked_attn_merge(const Params p, int BH) {
     const long long r = first + (long long)c * p.Q;
     a = fmaf(p.part[r * kD + lane], ex2(part_m[r] - m_all), a);
   }
+  if constexpr (kStats) {
+    if (lane == 0) reinterpret_cast<float2*>(p.stats)[row] = make_float2(m_all, l_all);
+  }
   const int b = (int)(bh / p.H), h = (int)(bh % p.H);
   T* dst = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh + qi * p.o_sr + lane;
   if constexpr (sizeof(T) == 4)
@@ -585,7 +599,7 @@ masked_attn_merge(const Params p, int BH) {
     *dst = __float2bfloat16(a / l_all);
 }
 
-template <typename T>
+template <typename T, bool kStats>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const int qtiles = (p.Q + 15) / 16;
   const int warps = qtiles < kMaxWarps ? qtiles : kMaxWarps;
@@ -600,17 +614,17 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device < 0 || device >= 64 || !asked[device]) {
-    err = cudaFuncSetAttribute(masked_attn_tiles<T>,
+    err = cudaFuncSetAttribute(masked_attn_tiles<T, kStats>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     if (device >= 0 && device < 64) asked[device] = true;
   }
   const dim3 grid(p.chunks, BH, qblocks);
-  masked_attn_tiles<T><<<grid, warps * 32, smem, stream>>>(p);
+  masked_attn_tiles<T, kStats><<<grid, warps * 32, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.chunks == 1) return err;
   const long long rows = (long long)BH * p.Q;
-  masked_attn_merge<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, BH);
+  masked_attn_merge<T, kStats><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p, BH);
   return cudaGetLastError();
 }
 
@@ -619,10 +633,16 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 // The 12 strides are in elements: (batch, head, row) of q, k, v and out. part:
 // fp32 scratch of B * H * chunks * Q * (D + 2) floats with chunks = ceil(S /
 // chunk), unused when chunks is 1; chunk must be a positive multiple of 64.
-// dtype: 0 = float32, 1 = bfloat16. Returns the first failing launch's
+// stats: null, or B * H * Q * 2 floats that receive each row's maximum score
+// (base 2, as the kernel keeps it) and the sum of its weights relative to that
+// maximum, which the backward kernel (masked_attn_bwd.cu) recomputes the
+// softmax from. (One log-sum-exp would not do: a row whose keys are all masked
+// has maximum -1e9 log2 e, where float32 steps by 128 and log2 of the sum is
+// lost.) dtype: 0 = float32, 1 = bfloat16. Returns the first failing launch's
 // cudaError_t (0 = cudaSuccess); the launches are asynchronous on `stream`.
 extern "C" int masked_attn_fwd(const void* q, const void* k, const void* v, const void* mask,
-                               void* part, void* out, int B, int H, int Q, int S, int D,
+                               void* part, void* out, void* stats, int B, int H, int Q, int S,
+                               int D,
                                long long q_sb, long long q_sh, long long q_sr,
                                long long k_sb, long long k_sh, long long k_sr,
                                long long v_sb, long long v_sh, long long v_sr,
@@ -635,6 +655,7 @@ extern "C" int masked_attn_fwd(const void* q, const void* k, const void* v, cons
   p.mask = static_cast<const uint8_t*>(mask);
   p.out = out;
   p.part = static_cast<float*>(part);
+  p.stats = static_cast<float*>(stats);
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_sr = q_sr;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_sr = k_sr;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_sr = v_sr;
@@ -644,7 +665,11 @@ extern "C" int masked_attn_fwd(const void* q, const void* k, const void* v, cons
   p.chunks = (S + chunk - 1) / chunk;
   p.scale_log2 = kLog2e / sqrtf((float)kD);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(p, B, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(p, B, s);
+  const bool with_stats = stats != nullptr;
+  if (dtype == 0)
+    return (int)(with_stats ? launch<float, true>(p, B, s) : launch<float, false>(p, B, s));
+  if (dtype == 1)
+    return (int)(with_stats ? launch<__nv_bfloat16, true>(p, B, s)
+                            : launch<__nv_bfloat16, false>(p, B, s));
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,8 @@ q/k/v projections concatenated into `in_proj_*`, LayerNorm/GroupNorm
 needed) and returns the port's state dict, with the reference's names. A
 tree trained with `TPU.SAMPLING_ENGINE headshare` converts the same way: only
 the shape of `sampling_offsets` differs, and `load_weights` says so when such
-weights meet a model built for the other engine.
+weights meet a model built for the other engine. `named_gradients_from_jax`
+carries a gradient tree across the same way, for the training tests.
 """
 
 from __future__ import annotations
@@ -136,6 +137,18 @@ def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Ten
     _pixel_decoder(sd, head["pixel_decoder"])
     _predictor(sd, head["predictor"])
     return sd
+
+
+def named_gradients_from_jax(grads: Mapping[str, Any],
+                             model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree (the shape of the params tree) -> {parameter name:
+    gradient} for `model`'s parameters. `state_dict_from_jax_params` is a
+    renaming with transposes and concatenations, so it is linear and carries
+    gradients, and parameter updates, exactly as it carries parameters. The
+    JAX tree also holds gradients for the FrozenBN statistics, which are
+    buffers here: they are dropped."""
+    sd = state_dict_from_jax_params(grads)
+    return {name: sd[name] for name, _ in model.named_parameters()}
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,115 @@
+"""A minimal trainer (`mp_former_tpu/engine/trainer.py:60-250`): builds model,
+criterion, optimizer and schedule from a cfg, takes an iterator of batches,
+loops `train_step`, writes `metrics.json` lines with the reference's loss keys,
+saves and resumes with `torch.save`. It runs on `cuda` unless the caller passes
+`device="cpu"`, and raises when asked for `cuda` and there is none. The dataset
+loader, the mappers and periodic evaluation are not ported yet: batches come
+from the caller (e.g. `data/synthetic.py`).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+from typing import Dict, Iterable, Optional, Union
+
+import torch
+
+from ..models import build_model
+from ..models.criterion import build_criterion
+from ..structures import Batch
+from .convert import load_state_dict_file, load_weights
+from .optimizer import build_gradient_clipper, build_optimizer
+from .train_step import train_step
+
+logger = logging.getLogger(__name__)
+
+
+class Trainer:
+    def __init__(self, cfg, train_loader: Iterable[Batch], model: Optional[torch.nn.Module] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Trainer(device='cuda'): torch finds no CUDA device; pass "
+                               "device='cpu' to train on the CPU with the kernels' plain versions")
+        self.model = (model if model is not None else build_model(cfg)).to(self.device)
+        self.criterion = build_criterion(cfg)
+        self.optimizer, self.scheduler = build_optimizer(cfg, self.model)
+        self.clip_gradients = build_gradient_clipper(cfg)
+        self.dn_group_bucket = int(cfg.TPU.DN_GROUP_BUCKET)
+        self.train_loader = train_loader
+        self.max_iter = cfg.SOLVER.MAX_ITER
+        self.checkpoint_period = cfg.SOLVER.CHECKPOINT_PERIOD
+        self.output_dir = cfg.OUTPUT_DIR
+        self.generator = torch.Generator(device=self.device).manual_seed(max(cfg.SEED, 0))
+        self.iteration = 0
+
+    # -- checkpoints -------------------------------------------------------
+    def _checkpoint_dir(self) -> str:
+        return os.path.join(self.output_dir, "checkpoints")
+
+    def save(self, step: int) -> str:
+        os.makedirs(self._checkpoint_dir(), exist_ok=True)
+        path = os.path.join(self._checkpoint_dir(), f"model_{step:07d}.pth")
+        torch.save({"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                    "scheduler": self.scheduler.state_dict(), "iteration": step,
+                    "generator": self.generator.get_state()}, path)
+        with open(os.path.join(self._checkpoint_dir(), "last_checkpoint"), "w") as f:
+            f.write(os.path.basename(path))
+        return path
+
+    def resume_or_load(self, resume: bool = True) -> int:
+        """d2's resume_or_load: continue from the last checkpoint under
+        OUTPUT_DIR where there is one, else load `MODEL.WEIGHTS` (a reference
+        `.pth`); returns the iteration to start from."""
+        last = os.path.join(self._checkpoint_dir(), "last_checkpoint")
+        if resume and os.path.isfile(last):
+            with open(last) as f:
+                path = os.path.join(self._checkpoint_dir(), f.read().strip())
+            state = torch.load(path, map_location=self.device, weights_only=True)
+            self.model.load_state_dict(state["model"])
+            self.optimizer.load_state_dict(state["optimizer"])
+            self.scheduler.load_state_dict(state["scheduler"])
+            self.generator.set_state(state["generator"].cpu())
+            self.iteration = int(state["iteration"])
+            logger.info("resumed from %s", path)
+        elif self.cfg.MODEL.WEIGHTS:
+            load_weights(self.model, load_state_dict_file(self.cfg.MODEL.WEIGHTS))
+            logger.info("loaded weights from %s", self.cfg.MODEL.WEIGHTS)
+        return self.iteration
+
+    # -- the loop ------------------------------------------------------------
+    def run_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        metrics = train_step(self.model, self.criterion, self.optimizer, self.scheduler,
+                             batch.to(self.device), self.generator,
+                             clip_gradients=self.clip_gradients,
+                             dn_group_bucket=self.dn_group_bucket)
+        self.iteration += 1
+        return metrics
+
+    def train(self, start_iter: Optional[int] = None) -> None:
+        """Steps `start_iter` (by default where the trainer stands) to
+        SOLVER.MAX_ITER; a metrics line every 20 steps and at the end, a
+        checkpoint every SOLVER.CHECKPOINT_PERIOD steps and at the end."""
+        if start_iter is not None:
+            self.iteration = start_iter
+        os.makedirs(self.output_dir, exist_ok=True)
+        metrics_path = os.path.join(self.output_dir, "metrics.json")
+        batches = iter(self.train_loader)
+        while self.iteration < self.max_iter:
+            step = self.iteration
+            metrics = self.run_step(next(batches))
+            if step % 20 == 0 or step == self.max_iter - 1:
+                line = {k: float(v) for k, v in metrics.items()}
+                line["iteration"] = step
+                line["lr"] = self.scheduler.get_last_lr()[-1]
+                logger.info("iter %d total_loss %.4f loss_ce %.4f loss_mask %.4f loss_dice %.4f",
+                            step, line["total_loss"], line.get("loss_ce", 0.0),
+                            line.get("loss_mask", 0.0), line.get("loss_dice", 0.0))
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps(line) + "\n")
+            if (step + 1) % self.checkpoint_period == 0 and step + 1 < self.max_iter:
+                self.save(step + 1)
+        self.save(self.max_iter)

@@ -10,6 +10,7 @@ from ..utils.registry import META_ARCH_REGISTRY
 
 
 def build_model(cfg):
-    """Registry-driven model construction (d2 build_model equivalent), in
-    eval mode: the port runs inference only."""
+    """Registry-driven model construction (d2 build_model equivalent). The
+    model has no layer that behaves differently in training (FrozenBN, no
+    dropout): training is selected by passing targets to its forward."""
     return META_ARCH_REGISTRY.get(cfg.MODEL.META_ARCHITECTURE).from_config(cfg).eval()

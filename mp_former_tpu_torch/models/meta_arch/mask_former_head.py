@@ -5,11 +5,12 @@ modeling/meta_arch/mask_former_head.py:18-132,
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from ...structures import DNArgs
 from ...utils.registry import PIXEL_DECODER_REGISTRY, SEM_SEG_HEADS_REGISTRY
 from ...utils.shape_spec import ShapeSpec
 from ..transformer_decoder.mask2former_decoder import build_transformer_decoder
@@ -38,6 +39,9 @@ class MaskFormerHead(nn.Module):
         return cls(build_pixel_decoder(cfg, input_shape),
                    build_transformer_decoder(cfg, cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM))
 
-    def forward(self, features: Dict[str, torch.Tensor]) -> Dict:
+    def forward(self, features: Dict[str, torch.Tensor], dn_args: Optional[DNArgs] = None,
+                generator: Optional[torch.Generator] = None) -> Dict:
         mask_features, _, multi_scale = self.pixel_decoder.forward_features(features)
-        return self.predictor(multi_scale, mask_features)
+        if dn_args is None:
+            return self.predictor(multi_scale, mask_features)
+        return self.predictor(multi_scale, mask_features, dn_args, generator)

@@ -3,15 +3,19 @@
 
 `MultiheadAttention` keeps `nn.MultiheadAttention`'s state-dict names
 (`in_proj_weight`, `in_proj_bias`, `out_proj`) with a batch-first interface.
-With a mask, attention goes through `ops/masked_attention_cuda.py:
-masked_attention`: the hand-written kernel K3 on CUDA, its plain version on
-the CPU; masked logits are -1e9, not -inf. K3 takes q, k and v as the
-(B, H, N, D) views of the (B, N, H, D) projections (last dimension
+Cross-attention (`fused=True`; the JAX package's `fused_attn` marks the same layers) with
+a mask goes through `ops/masked_attention_cuda.py:masked_attention`: the
+hand-written kernel K3 on CUDA (with its backward kernel in training), its
+plain version on the CPU; masked logits are -1e9, not -inf. K3 takes q, k and
+v as the (B, H, N, D) views of the (B, N, H, D) projections (last dimension
 contiguous, rows on 16-byte boundaries), so no head is copied, and returns its
-result in (B, Q, H, D) order, so merging the heads is a view too. Without a mask (the decoder's
-100x100 self-attention, which has no TPU kernel either) it is plain einsum +
-softmax. The layers are post-norm, as in every recipe of configs/
-(`PRE_NORM False`); dropout is 0 at inference and is not carried.
+result in (B, Q, H, D) order, so merging the heads is a view too.
+Self-attention is plain einsum + softmax, as in the JAX package, which sends
+only cross-attention to its kernel: without a mask at inference, and in DN
+training with the (Q, Q) mask that separates the DN groups, blocked logits set
+to -1e9. The layers are post-norm, as in every recipe of configs/ (`PRE_NORM
+False`). The recipes train with `DROPOUT 0.0` and the JAX decoder hard-codes
+0.0; the port carries no dropout.
 """
 
 from __future__ import annotations
@@ -25,13 +29,15 @@ from torch import nn
 
 from ...ops.masked_attention_cuda import masked_attention
 
+_NEG_INF = -1e9
+
 
 class MultiheadAttention(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, fused: bool = True):
         super().__init__()
         if embed_dim % num_heads != 0:
             raise ValueError(f"embed_dim {embed_dim} is not divisible by num_heads {num_heads}")
-        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.embed_dim, self.num_heads, self.fused = embed_dim, num_heads, fused
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
@@ -48,16 +54,20 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """query (B, Q, C), key/value (B, S, C); attn_mask bool, True = blocked,
-        (B, Q, S) shared by the heads or (B, H, Q, S)."""
+        """query (B, Q, C), key/value (B, S, C); attn_mask bool, True = blocked:
+        (B, Q, S) shared by the heads or (B, H, Q, S), and for the plain route
+        also (Q, S) shared by the batch."""
         B, Q, C = query.shape
         q, k, v = self._heads(query, 0), self._heads(key, 1), self._heads(value, 2)
-        if attn_mask is not None:
+        if self.fused and attn_mask is not None:
             # the kernel takes the strided views and writes (B, Q, H, D) order
             out = masked_attention(q, k, v, attn_mask)
         else:
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             logits = torch.einsum("bhqd,bhsd->bhqs", q, k) / math.sqrt(q.shape[-1])
+            if attn_mask is not None:
+                m = attn_mask[:, None] if attn_mask.dim() == 3 else attn_mask
+                logits = logits.masked_fill(m, _NEG_INF)
             out = torch.einsum("bhqs,bhsd->bhqd", logits.softmax(dim=-1), v)
         return self.out_proj(out.transpose(1, 2).reshape(B, Q, C))
 
@@ -71,12 +81,12 @@ def _xavier_matrices(module: nn.Module) -> None:
 class SelfAttentionLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nhead)
+        self.self_attn = MultiheadAttention(d_model, nhead, fused=False)
         self.norm = nn.LayerNorm(d_model)
         _xavier_matrices(self)
 
-    def forward(self, tgt):
-        return self.norm(tgt + self.self_attn(tgt, tgt, tgt))
+    def forward(self, tgt, tgt_mask: Optional[torch.Tensor] = None):
+        return self.norm(tgt + self.self_attn(tgt, tgt, tgt, attn_mask=tgt_mask))
 
 
 class CrossAttentionLayer(nn.Module):

@@ -113,8 +113,12 @@ def library() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.msda_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.msda_fwd.restype = i
-    lib.masked_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, *[ll] * 14, i, i, p]
+    lib.msda_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.msda_bwd.restype = i
+    lib.masked_attn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, *[ll] * 14, i, i, p]
     lib.masked_attn_fwd.restype = i
+    lib.masked_attn_bwd.argtypes = [*[p] * 11, i, i, i, i, i, *[ll] * 17, i, p]
+    lib.masked_attn_bwd.restype = i
     lib.tap_weight_fwd.argtypes = [p, p, p, ll, ll, i, i, i, i, i, p]
     lib.tap_weight_fwd.restype = i
     lib.row_gather.argtypes = [p, p, p, ll, ll, i, p]
@@ -133,7 +137,9 @@ def sm_count(index: int) -> int:
 def check_inputs(name: str, typed, dtypes, others=(), align: int = 1,
                  strided: int = 0) -> torch.device:
     """The checks that guard every kernel, in one pass: `typed` and `others`
-    are CUDA tensors on one device, contiguous and forward-only; the `typed`
+    are CUDA tensors on one device, contiguous and detached from autograd (the
+    kernels with a backward are joined to it by their `torch.autograd.Function`,
+    which calls the raw wrappers on detached tensors); the `typed`
     ones all have one type out of `dtypes` and start on a multiple of `align`
     bytes (for a kernel that reads 16 bytes a thread whatever it is given: a
     contiguous view with a storage offset can start elsewhere). The first
@@ -150,8 +156,12 @@ def check_inputs(name: str, typed, dtypes, others=(), align: int = 1,
                             f"{' or '.join(str(d).split('.')[1] for d in dtypes)}, got "
                             f"{[str(u.dtype) for u in typed]}")
         if t.requires_grad:
-            raise RuntimeError(f"{name} is forward-only: run it under torch.no_grad() "
-                               "(the backward kernel is not ported yet)")
+            raise RuntimeError(
+                f"{name} is forward-only and takes no tensor that requires a gradient: run it "
+                "under torch.no_grad(). Gradients of K1 and K3 go through ops.ms_deform_attn."
+                "ms_deform_attn and ops.masked_attention_cuda.masked_attention; the backward of "
+                "K2 (tap weighting) is not ported yet, it belongs to the slice that trains the "
+                "TPU recipe, and the row gathers have none")
         if n < strided:
             strides, size, bad = t.stride(), t.element_size(), False
             for st, extent in zip(strides[:-1], t.shape):  # a stride of an extent of 1 is never used

@@ -4,10 +4,15 @@
 kernel `mp_former_tpu/ops/fused_masked_attention.py:masked_attention`);
 `masked_attention_plain` is the same function in plain PyTorch, the XLA path
 of `mp_former_tpu/models/transformer_decoder/primitives.py:72-80`.
-`masked_attention` dispatches: CUDA tensors to the kernel, CPU tensors to the
-plain version. `masked_attention_tiled` repeats the kernel's arithmetic (its
-tiles, its split over the keys, its 3xTF32 products) in plain PyTorch, for the
-tests and `chip_smoke.py` only.
+`masked_attn_bwd` launches `csrc/masked_attn_bwd.cu`, the gradients with
+respect to q, k and v recomputed flash-style from the row statistics the
+forward writes on request (the TPU kernel has no gradient: the JAX package
+trains through the einsum form); `masked_attention_backward_plain` is the same
+on tensors, without autograd. `MaskedAttentionFunction` joins the two kernels
+for autograd. `masked_attention` dispatches: CUDA tensors to the kernels, CPU
+tensors to the plain version. `masked_attention_tiled` repeats the kernel's
+arithmetic (its tiles, its split over the keys, its 3xTF32 products) in plain
+PyTorch, for the tests and `chip_smoke.py` only.
 
     softmax(q kᵀ / √D, masked logits = -1e9) v
 
@@ -32,9 +37,11 @@ import torch
 
 from .cuda_build import DTYPE_CODES, check_inputs, launch, sm_count
 
-# launches of the kernel since the last reset (one per call: the tile kernel
-# and, where the keys are split, the merge kernel together)
+# launches of the forward since the last reset (one per call: the tile kernel
+# and, where the keys are split, the merge kernel together), and of the
+# backward (one per call: its delta kernel and its key kernel together)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _NEG_INF = -1e9
 _LOG2E = 1.4426950408889634
@@ -52,6 +59,30 @@ def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = mask[:, None] if mask.dim() == 3 else mask
     attn = logits.masked_fill(m, _NEG_INF).softmax(dim=-1)
     return torch.einsum("bhqs,bhsd->bhqd", attn, v)
+
+
+def masked_attention_backward_plain(grad_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, mask: torch.Tensor):
+    """The gradients of `masked_attention_plain` with respect to q, k and v,
+    written out on tensors (no autograd), in the backward kernel's arithmetic:
+    p = softmax of the logits with the blocked ones REPLACED by -1e9, delta =
+    rowsum(dO * O), dV = p^T dO, dS = p * (dO v^T - delta) and 0 where the mask
+    blocks (the -1e9 is a constant), dQ = dS k / sqrt(D), dK = dS^T q /
+    sqrt(D). A row blocked everywhere is uniform over all keys: dV gets dO / S
+    from it, dQ and dK nothing."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    m = mask[:, None] if mask.dim() == 3 else mask
+    m = m.bool()
+    logits = torch.einsum("bhqd,bhsd->bhqs", q, k) * scale
+    p = logits.masked_fill(m, _NEG_INF).softmax(dim=-1)
+    out = torch.einsum("bhqs,bhsd->bhqd", p, v)
+    delta = (grad_out * out).sum(-1, keepdim=True)
+    d_v = torch.einsum("bhqs,bhqd->bhsd", p, grad_out)
+    d_p = torch.einsum("bhqd,bhsd->bhqs", grad_out, v)
+    d_s = (p * (d_p - delta)).masked_fill(m, 0.0)
+    d_q = torch.einsum("bhqs,bhsd->bhqd", d_s, k) * scale
+    d_k = torch.einsum("bhqs,bhqd->bhsd", d_s, q) * scale
+    return d_q, d_k, d_v
 
 
 def _chunk_size(S: int, parallel_blocks: int, sms: int) -> int:
@@ -150,36 +181,51 @@ def masked_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :, :Q].to(q.dtype)
 
 
-def masked_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
-    """Launch K3 on CUDA tensors (forward only); raises on anything it does
-    not take, and if a launch fails. `chunk` is the number of keys a block
-    walks, a multiple of 64; by default chosen from the shape and the card's
-    SM count."""
-    global LAUNCHES
+def _check_attention(name: str, q, k, v, mask, more=()):
+    """The rules both kernels share for q, k, v (and `more` tensors shaped like
+    q) and the mask; returns the device, (B, H, Q, S, D) and the mask's batch
+    and head strides."""
     if mask.dtype not in (torch.bool, torch.uint8):
-        raise TypeError(f"masked_attn_fwd: mask must be bool or uint8, got {mask.dtype}")
+        raise TypeError(f"{name}: mask must be bool or uint8, got {mask.dtype}")
     if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"masked_attn_fwd: q and k must be (B, H, N, D), got {tuple(q.shape)} "
+        raise ValueError(f"{name}: q and k must be (B, H, N, D), got {tuple(q.shape)} "
                          f"and {tuple(k.shape)}")
-    device = check_inputs("masked_attn_fwd", (q, k, v), tuple(DTYPE_CODES), others=(mask,),
-                          align=16, strided=3)
+    device = check_inputs(name, (q, k, v, *more), tuple(DTYPE_CODES), others=(mask,),
+                          align=16, strided=3 + len(more))
     B, H, Q, D = q.shape
     S = k.shape[2]
     if D != 32:
-        raise ValueError(f"masked_attn_fwd: the kernel takes 32 channels per head, got {D}")
+        raise ValueError(f"{name}: the kernel takes 32 channels per head, got {D}")
     if k.shape != (B, H, S, D) or v.shape != k.shape:
-        raise ValueError(f"masked_attn_fwd: k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+        raise ValueError(f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
+    for t in more:
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: a tensor of shape {tuple(t.shape)} where q's "
+                             f"{tuple(q.shape)} is expected")
     if mask.shape == (B, Q, S):
         mask_sb, mask_sh = Q * S, 0
     elif mask.shape == (B, H, Q, S):
         mask_sb, mask_sh = H * Q * S, Q * S
     else:
-        raise ValueError(f"masked_attn_fwd: mask {tuple(mask.shape)} is neither "
+        raise ValueError(f"{name}: mask {tuple(mask.shape)} is neither "
                          f"{(B, Q, S)} nor {(B, H, Q, S)}")
     if S == 0:
-        raise ValueError("masked_attn_fwd: no keys")
+        raise ValueError(f"{name}: no keys")
+    return device, (B, H, Q, S, D), (mask_sb, mask_sh)
+
+
+def masked_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor, chunk: int | None = None, with_stats: bool = False):
+    """Launch K3 on CUDA tensors (forward only); raises on anything it does
+    not take, and if a launch fails. `chunk` is the number of keys a block
+    walks, a multiple of 64; by default chosen from the shape and the card's
+    SM count. `with_stats` also returns the (B, H, Q, 2) float32 row statistics
+    the backward kernel needs (each row's maximum score in the kernel's base-2
+    domain and the sum of its weights relative to it); serving does not ask."""
+    global LAUNCHES
+    device, (B, H, Q, S, D), (mask_sb, mask_sh) = _check_attention("masked_attn_fwd", q, k, v,
+                                                                   mask)
     if chunk is None:
         chunk = _chunk_size(S, B * H * -(-Q // BLOCK_QUERIES), sm_count(device.index))
     elif chunk <= 0 or chunk % KEY_TILE:
@@ -191,18 +237,76 @@ def masked_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the chunks' accumulators, maxima and sums, in one piece
     part = (torch.empty((B * H * chunks * Q * (D + 2),), dtype=torch.float32, device=device)
             if chunks > 1 else None)
+    stats = (torch.empty((B, H, Q, 2), dtype=torch.float32, device=device)
+             if with_stats else None)
     launch("masked_attn_fwd", device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
            None if part is None else part.data_ptr(), out.data_ptr(),
+           None if stats is None else stats.data_ptr(),
            B, H, Q, S, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
            Q * H * D, D, H * D, mask_sb, mask_sh, chunk, DTYPE_CODES[q.dtype])
     LAUNCHES += 1
-    return out
+    return (out, stats) if with_stats else out
+
+
+def masked_attn_bwd(grad_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor, out: torch.Tensor, stats: torch.Tensor):
+    """Launch K3's backward on CUDA tensors: (dq, dk, dv) for the `out` and
+    `stats` that `masked_attn_fwd(..., with_stats=True)` returned on the same
+    q, k, v and mask. The gradients are logical (B, H, N, D) and lie in memory
+    as (B, N, H, D), like the projections they belong to. dq is summed over the
+    key blocks with float32 atomics, so its last bits vary from run to run.
+    Raises on anything the kernel does not take, and if a launch fails."""
+    global BWD_LAUNCHES
+    strides = grad_out.stride()
+    if strides[-1] != 1 or any(st * grad_out.element_size() % 16 for st in strides[:-1]):
+        grad_out = grad_out.contiguous()
+    device, (B, H, Q, S, D), (mask_sb, mask_sh) = _check_attention(
+        "masked_attn_bwd", q, k, v, mask, more=(out, grad_out))
+    if stats.shape != (B, H, Q, 2) or stats.dtype != torch.float32 or not stats.is_contiguous() \
+            or stats.device != device:
+        raise ValueError(f"masked_attn_bwd: stats must be the forward's contiguous float32 "
+                         f"{(B, H, Q, 2)} on {device}, got {tuple(stats.shape)} {stats.dtype}")
+    dq32 = torch.zeros((B, Q, H, D), dtype=torch.float32, device=device)
+    dk = torch.empty((B, S, H, D), dtype=q.dtype, device=device)
+    dv = torch.empty((B, S, H, D), dtype=q.dtype, device=device)
+    delta = torch.empty((B * H * Q,), dtype=torch.float32, device=device)
+    launch("masked_attn_bwd", device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
+           mask.data_ptr(), stats.data_ptr(), delta.data_ptr(), dq32.data_ptr(), dk.data_ptr(),
+           dv.data_ptr(), B, H, Q, S, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+           *out.stride()[:3], *grad_out.stride()[:3], mask_sb, mask_sh, DTYPE_CODES[q.dtype])
+    BWD_LAUNCHES += 1
+    return dq32.to(q.dtype).transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+class MaskedAttentionFunction(torch.autograd.Function):
+    """K3 with its gradient: `masked_attn_fwd` forward (with the row
+    statistics), `masked_attn_bwd` backward, on CUDA tensors.
+    apply(q, k, v, mask)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        q, k, v = q.detach(), k.detach(), v.detach()
+        out, stats = masked_attn_fwd(q, k, v, mask, with_stats=True)
+        ctx.save_for_backward(q, k, v, mask, out, stats)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        q, k, v, mask, out, stats = ctx.saved_tensors
+        # the saved output is the graph's own tensor: the kernel takes it detached
+        dq, dk, dv = masked_attn_bwd(grad_out, q, k, v, mask, out.detach(), stats)
+        return dq, dk, dv, None
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
-    """K3 for CUDA tensors, the plain version for CPU tensors."""
+    """K3 for CUDA tensors (with its backward kernel where a gradient is asked
+    for), the plain version for CPU tensors."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return MaskedAttentionFunction.apply(q, k, v, mask)
         return masked_attn_fwd(q, k, v, mask)
     return masked_attention_plain(q, k, v, mask)

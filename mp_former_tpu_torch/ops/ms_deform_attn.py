@@ -1,8 +1,9 @@
 """Multi-scale deformable attention (`mp_former_tpu/ops/ms_deform_attn.py`).
 
 `ms_deform_attn` is the core with per-head sampling locations: CUDA tensors go
-to the hand-written kernel K1 (`ops/msda_cuda.py:msda_fwd`), CPU tensors to its
-plain version. With `pallas_weighting=True` it takes the JAX package's split
+to the hand-written kernel K1 (`ops/msda_cuda.py:msda_fwd`, and through
+`MSDeformAttnFunction` with its backward kernel where a gradient is asked for),
+CPU tensors to its plain version. With `pallas_weighting=True` it takes the JAX package's split
 form instead: a 2x2 patch table, one gathered row per (head, point, query) and
 the tap-weighting kernel K2 (`ops/tap_weighting.py:weight_taps`), batched over
 the B*M head tables. The two routes compute the same function.
@@ -26,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .msda_cuda import ms_deform_attn_plain, msda_fwd
+from .msda_cuda import MSDeformAttnFunction, ms_deform_attn_plain, msda_fwd
 from .tap_weighting import weight_taps
 
 SAMPLING_ENGINES = ("packed2x2", "pallas", "headshare")
@@ -105,6 +106,10 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
         return _ms_deform_attn_tap_weighting(value, spatial_shapes, sampling_locations,
                                              attention_weights)
     if value.is_cuda:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (value, sampling_locations, attention_weights)):
+            return MSDeformAttnFunction.apply(value, spatial_shapes, sampling_locations,
+                                              attention_weights)
         return msda_fwd(value, spatial_shapes, sampling_locations, attention_weights)
     return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights)
 

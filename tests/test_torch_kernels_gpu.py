@@ -446,3 +446,206 @@ def test_row_gather_kernels_refuse_what_they_do_not_take(cuda):
         rg.row_gather_sum(tab, idx, 5)
     with pytest.raises(ValueError, match="one device"):
         rg.row_gather(tab, idx.cpu())
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels (K1 backward: csrc/msda_bwd.cu; K3 backward:
+# csrc/masked_attn_bwd.cu) against their plain versions, relative to each
+# gradient's largest entry. float32: other summation orders (atomics), and in
+# K3 the forward's 3xTF32 statistics against float32 recomputation. bfloat16:
+# gradients rounded to 8 bits of mantissa.
+BWD_TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)]
+
+
+def _rel(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype,tol", BWD_TOLS)
+@pytest.mark.parametrize("B,Q,M,shapes,P", [
+    (2, 1275, 8, [(25, 34), (13, 17), (7, 9)], 4),   # the model's layout, small
+    (1, 37, 3, [(9, 7), (4, 5)], 4),                 # the last warp is not full
+    (2, 5, 1, [(6, 6), (3, 3), (1, 1)], 4),          # M = 1, fewer pairs than one block
+    (1, 130, 8, [(11, 13)], 4),                      # L = 1
+    (3, 33, 2, [(8, 8), (4, 4)], 1),                 # P = 1
+    (1, 21, 4, [(5, 5), (3, 3), (2, 2)], 7),         # L*P = 21: three rounds, the last ragged
+])
+def test_msda_backward_kernel_matches_plain(cuda, dtype, tol, B, Q, M, shapes, P):
+    value, loc, attn = (t.to(dtype).contiguous()
+                        for t in _msda_inputs(cuda, B, Q, M, 32, shapes, P, seed=3))
+    grad_out = torch.randn((B, Q, M * 32), device=cuda).to(dtype)
+    before = msda_cuda.BWD_LAUNCHES
+    got = msda_cuda.msda_bwd(grad_out, value, shapes, loc, attn)
+    assert msda_cuda.BWD_LAUNCHES == before + 1
+    want = msda_cuda.ms_deform_attn_backward_plain(grad_out.float(), value.float(), shapes,
+                                                   loc.float(), attn.float())
+    for name, g, w, like in zip(("value", "loc", "attn"), got, want, (value, loc, attn)):
+        assert g.dtype == dtype and g.shape == like.shape, name
+        assert _rel(g, w) <= tol, name
+
+
+def test_msda_function_passes_gradients_and_counts_launches(cuda):
+    """Through the dispatcher: a tensor that requires a gradient goes through
+    MSDeformAttnFunction (one forward and one backward launch); the gradients
+    equal autograd of the plain version away from pixel borders."""
+    shapes = [(12, 9), (6, 5)]
+    B, Q, M, P = 2, 50, 4, 3
+    value, loc, attn = _msda_inputs(cuda, B, Q, M, 32, shapes, P, seed=4)
+    sizes = torch.tensor([[w, h] for h, w in shapes], device=cuda).view(1, 1, 1, 2, 1, 2)
+    pix = loc * sizes - 0.5
+    loc = (pix.floor() + (pix - pix.floor()).clamp(1e-2, 1 - 1e-2) + 0.5) / sizes
+    grad_out = torch.randn((B, Q, M * 32), device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (value, loc, attn)]
+    fwd, bwd = msda_cuda.LAUNCHES, msda_cuda.BWD_LAUNCHES
+    ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2]).backward(grad_out)
+    assert (msda_cuda.LAUNCHES, msda_cuda.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    plain = [t.clone().requires_grad_() for t in (value, loc, attn)]
+    want = torch.autograd.grad(msda_cuda.ms_deform_attn_plain(plain[0], shapes, plain[1],
+                                                              plain[2]), plain, grad_out)
+    for leaf, w in zip(leaves, want):
+        assert _rel(leaf.grad, w) <= 1e-4
+    # without a gradient asked for, the forward kernel alone
+    ms_deform_attn(value, shapes, loc, attn)
+    assert (msda_cuda.LAUNCHES, msda_cuda.BWD_LAUNCHES) == (fwd + 2, bwd + 1)
+
+
+def test_msda_backward_kernel_against_finite_differences(cuda):
+    """Directional derivatives of the kernel forward, float32: the function is
+    linear in value and attention weights and bilinear in the locations, so a
+    central difference is exact up to rounding (1e-2 relative at these sizes)."""
+    shapes = [(8, 7), (4, 4)]
+    B, Q, M, P = 1, 16, 2, 2
+    value, loc, attn = _msda_inputs(cuda, B, Q, M, 32, shapes, P, seed=5)
+    sizes = torch.tensor([[w, h] for h, w in shapes], device=cuda).view(1, 1, 1, 2, 1, 2)
+    pix = loc * sizes - 0.5
+    loc = (pix.floor() + (pix - pix.floor()).clamp(0.2, 0.8) + 0.5) / sizes
+    grad_out = torch.randn((B, Q, M * 32), device=cuda)
+    grads = msda_cuda.msda_bwd(grad_out, value, shapes, loc, attn)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for i, (x, eps) in enumerate(((value, 1e-1), (loc, 1e-3), (attn, 1e-1))):
+        direction = torch.randn(x.shape, generator=g, device=cuda)
+        args_hi, args_lo = [value, loc, attn], [value, loc, attn]
+        args_hi[i], args_lo[i] = x + eps * direction, x - eps * direction
+        hi = msda_cuda.msda_fwd(args_hi[0], shapes, args_hi[1], args_hi[2]).double()
+        lo = msda_cuda.msda_fwd(args_lo[0], shapes, args_lo[1], args_lo[2]).double()
+        numeric = ((hi - lo) * grad_out.double()).sum().item() / (2 * eps)
+        analytic = (grads[i].double() * direction.double()).sum().item()
+        assert abs(numeric - analytic) <= 1e-2 * max(abs(analytic), 1.0), i
+
+
+def test_msda_backward_kernel_gives_nothing_off_the_map(cuda):
+    shapes = [(6, 5), (3, 2)]
+    value, loc, attn = _msda_inputs(cuda, 1, 12, 2, 32, shapes, 2)
+    loc[0, 0] = float("nan")
+    loc[0, 1] = float("inf")
+    loc[0, 2] = -7.0
+    loc[0, 3] = 1e30
+    grad_out = torch.randn((1, 12, 64), device=cuda)
+    gv, gl, ga = msda_cuda.msda_bwd(grad_out, value, shapes, loc, attn)
+    want = msda_cuda.ms_deform_attn_backward_plain(grad_out, value, shapes, loc, attn)
+    assert torch.isfinite(gv).all() and torch.isfinite(gl).all() and torch.isfinite(ga).all()
+    assert gl[0, :4].abs().max().item() == 0 and ga[0, :4].abs().max().item() == 0
+    for g, w in zip((gv, gl, ga), want):
+        assert _rel(g, w) <= 1e-4
+
+
+def test_msda_backward_kernel_refuses_what_it_does_not_take(cuda):
+    shapes = [(4, 4)]
+    value, loc, attn = _msda_inputs(cuda, 1, 16, 2, 32, shapes, 2)
+    grad_out = torch.randn((1, 16, 64), device=cuda)
+    with pytest.raises(ValueError, match="grad_out"):
+        msda_cuda.msda_bwd(grad_out[:, :8].contiguous(), value, shapes, loc, attn)
+    with pytest.raises(ValueError, match="contiguous"):
+        msda_cuda.msda_bwd(grad_out.transpose(1, 2), value, shapes, loc, attn)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        msda_cuda.msda_bwd(grad_out.double(), value.double(), shapes, loc.double(),
+                           attn.double())
+
+
+@pytest.mark.parametrize("dtype,tol", BWD_TOLS)
+@pytest.mark.parametrize("per_head,as_uint8", [(False, False), (True, False), (True, True)])
+@pytest.mark.parametrize("B,Q,S", [(8, 120, 256), (2, 100, 850), (1, 7, 33), (2, 130, 129),
+                                   (3, 1, 1), (1, 17, 3400)])
+def test_masked_attention_backward_kernel_matches_plain(cuda, dtype, tol, per_head, as_uint8,
+                                                        B, Q, S):
+    """The strided head views the decoder hands over and contiguous copies;
+    masks shared by the heads and per head, bool and uint8; rows blocked
+    everywhere; key counts that are no multiple of the 128-key block."""
+    H = 8
+    q, k, v = _head_views(cuda, B, H, Q, S, dtype, seed=7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    grad_out = torch.randn((B, Q, H, 32), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    mask = torch.rand((B, H, Q, S) if per_head else (B, Q, S), generator=g, device=cuda) < 0.7
+    mask[..., 0, :] = True
+    want = mac.masked_attention_backward_plain(grad_out.float(), q.float(), k.float(), v.float(),
+                                               mask)
+    m = mask.to(torch.uint8) if as_uint8 else mask
+    for views in ((q, k, v, grad_out), tuple(t.contiguous() for t in (q, k, v, grad_out))):
+        out, stats = mac.masked_attn_fwd(*views[:3], m, with_stats=True)
+        before = mac.BWD_LAUNCHES
+        got = mac.masked_attn_bwd(views[3], *views[:3], m, out, stats)
+        assert mac.BWD_LAUNCHES == before + 1
+        for name, x, w in zip("qkv", got, want):
+            assert x.dtype == dtype and x.shape == w.shape, name
+            assert _rel(x, w) <= tol, name
+        assert got[0][:, :, 0].abs().max().item() == 0  # nothing to the q of a blocked row
+
+
+def test_masked_attention_function_passes_gradients_and_counts_launches(cuda):
+    B, H, Q, S = 2, 8, 20, 300
+    q, k, v = _head_views(cuda, B, H, Q, S, torch.float32, seed=9)
+    mask = torch.rand((B, H, Q, S), device=cuda) < 0.6
+    mask[:, :, 0] = True
+    grad_out = torch.randn((B, H, Q, 32), device=cuda)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = mac.LAUNCHES, mac.BWD_LAUNCHES
+    mac.masked_attention(*leaves, mask).backward(grad_out)
+    assert (mac.LAUNCHES, mac.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(mac.masked_attention_plain(*plain, mask), plain, grad_out)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.shape == w.shape and _rel(leaf.grad, w) <= 1e-4
+    # serving: no gradient asked for, the forward alone and no statistics
+    out = mac.masked_attention(q, k, v, mask)
+    assert isinstance(out, torch.Tensor) and not out.requires_grad
+    assert (mac.LAUNCHES, mac.BWD_LAUNCHES) == (fwd + 2, bwd + 1)
+
+
+def test_masked_attention_backward_kernel_against_finite_differences(cuda):
+    """Directional derivatives of the kernel forward in float32 (3xTF32
+    products, ~1e-6 relative): central differences with a step of 1e-2 agree
+    with the backward kernel to 2e-2 relative."""
+    B, H, Q, S = 1, 2, 9, 70
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (torch.randn((B, H, n, 32), generator=g, device=cuda) for n in (Q, S, S))
+    mask = torch.rand((B, H, Q, S), generator=g, device=cuda) < 0.5
+    mask[:, :, 0] = True
+    grad_out = torch.randn((B, H, Q, 32), generator=g, device=cuda)
+    out, stats = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+    grads = mac.masked_attn_bwd(grad_out, q, k, v, mask, out, stats)
+    eps = 1e-2
+    for i in range(3):
+        direction = torch.randn(grads[i].shape, generator=g, device=cuda)
+        args_hi, args_lo = [q, k, v], [q, k, v]
+        args_hi[i], args_lo[i] = args_hi[i] + eps * direction, args_lo[i] - eps * direction
+        hi = mac.masked_attn_fwd(*args_hi, mask).double()
+        lo = mac.masked_attn_fwd(*args_lo, mask).double()
+        numeric = ((hi - lo) * grad_out.double()).sum().item() / (2 * eps)
+        analytic = (grads[i].double() * direction.double()).sum().item()
+        assert abs(numeric - analytic) <= 2e-2 * max(abs(analytic), 1.0), i
+
+
+def test_masked_attention_backward_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, mask = _attn_inputs(cuda, 1, 2, 5, 40, 32)
+    out, stats = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+    grad_out = torch.randn_like(out)
+    with pytest.raises(ValueError, match="stats"):
+        mac.masked_attn_bwd(grad_out, q, k, v, mask, out, stats[:, :, :3].contiguous())
+    with pytest.raises(ValueError, match="expected"):
+        mac.masked_attn_bwd(grad_out[:, :, :3], q, k, v, mask, out, stats)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        mac.masked_attn_bwd(grad_out, q.clone().requires_grad_(), k, v, mask, out, stats)
+    # the stats of a row blocked everywhere: the maximum is -1e9 log2(e), the sum S
+    assert stats[0, 0, 0, 1].item() == 40.0
+    assert stats[0, 0, 0, 0].item() == pytest.approx(-1e9 * 1.4426950408889634, rel=1e-6)

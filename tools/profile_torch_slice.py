@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's serving path on one CUDA card.
+"""Profile the PyTorch port's serving path, or its training step, on one CUDA card.
 
     python3 tools/profile_torch_slice.py [--recipe released|tpu] [--requests 3]
                                          [--height 480 --width 640]
+    python3 tools/profile_torch_slice.py --train [--requests 3]
 
 Builds the released R50 COCO instance recipe (K1 and K3), or with `--recipe
 tpu` the TPU recipe in float32 (head-shared sampling through K2, and K3), at
@@ -15,6 +16,15 @@ and by host time, the port's own kernels (device time per launch, as the
 profiler reads it from the card; K3 is two kernels where the keys are split,
 `masked_attn_tiles` and `masked_attn_merge`), the number of strided-to-contiguous
 copy kernels per request, and the time by model stage (record_function ranges).
+
+`--train` profiles the training step of `chip_smoke.py`'s train phase instead
+(the released training recipe at full width and depth, B = 8 images of 512x512
+from the seeded generator, float32, TF32 off): after 2 warm steps it times
+`--requests` steps stage by stage on the host clock with a synchronise after
+each stage (forward, matcher costs, the host's assignment solve, losses,
+backward, clipping and optimizer), then traces as many steps with
+`torch.profiler` and prints device busy time per step, the port's four kernels
+per launch and the top ops by device time.
 """
 
 from __future__ import annotations
@@ -30,11 +40,126 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+STAGES = ("forward", "matcher_costs", "matcher_host", "losses", "backward", "optimizer")
+
+
+def train_step_in_stages(torch, trainer, batch, between):
+    """`engine/train_step.py:train_step` with `between(stage)` called as a
+    context around each stage."""
+    model, criterion = trainer.model, trainer.criterion
+    targets = batch.targets
+    num_masks = targets.valid.sum().float().clamp(min=1.0)
+    with between("forward"):
+        outputs = model(batch.images, targets, generator=trainer.generator)
+    with between("matcher_costs"):
+        costs = criterion.layer_costs(outputs, targets, trainer.generator)
+        costs = costs.cpu()
+    with between("matcher_host"):
+        assignments = criterion.assign(costs).to(batch.images.device)
+    with between("losses"):
+        losses = criterion(outputs, targets, trainer.generator, num_masks=num_masks,
+                           assignments=assignments)
+        total = criterion.weighted_total(losses)
+    with between("backward"):
+        trainer.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+    with between("optimizer"):
+        if trainer.clip_gradients is not None:
+            trainer.clip_gradients([p for g in trainer.optimizer.param_groups
+                                    for p in g["params"]])
+        trainer.optimizer.step()
+        trainer.scheduler.step()
+    return total
+
+
+def profile_training(torch, card: str, steps: int) -> int:
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from chip_smoke import (CONFIG, SEED, TRAIN_BATCH, TRAIN_MAX_INSTANCES, TRAIN_OVERRIDES,
+                            TRAIN_SIZE, load_cfg, seeded_model)
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.engine.trainer import Trainer
+
+    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "OUTPUT_DIR",
+                            os.path.join(REPO, "output", "profile_train")])
+    batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                TRAIN_MAX_INSTANCES, seed=SEED)
+    trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
+    for _ in range(2):
+        trainer.run_step(next(batches))
+    torch.cuda.synchronize()
+
+    seconds = {s: [] for s in STAGES}
+
+    @contextlib.contextmanager
+    def synchronised(stage):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        seconds[stage].append(time.perf_counter() - t0)
+
+    whole = []
+    for _ in range(steps):
+        batch = next(batches).to("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step_in_stages(torch, trainer, batch, synchronised)
+        whole.append(time.perf_counter() - t0)
+    plain = []
+    for _ in range(steps):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run_step(batch)
+        torch.cuda.synchronize()
+        plain.append(time.perf_counter() - t0)
+    print(f"card: {card}  training step, B={TRAIN_BATCH} at {TRAIN_SIZE}x{TRAIN_SIZE}, float32, "
+          "TF32 off")
+    print(f"step seconds, Trainer.run_step (batch copy included): {[round(t, 4) for t in plain]}")
+    print(f"step seconds with a synchronise after every stage: {[round(t, 4) for t in whole]}")
+    for stage in STAGES:
+        mean = sum(seconds[stage]) / steps
+        print(f"  {stage:14s} {mean * 1e3:8.2f} ms  "
+              f"({100 * mean * steps / sum(whole):4.1f}% of the synchronised step)")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            batch = next(batches).to("cuda")
+            with record_function("step"):
+                train_step_in_stages(torch, trainer, batch,
+                                     lambda stage: record_function(f"stage::{stage}"))
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ranges = ("step", "stage::")
+    device = [e for e in events if e.device_type.name == "CUDA" and not e.key.startswith(ranges)]
+    dev_us = sum(e.self_device_time_total for e in device)
+    print(f"\ndevice busy ms per step (kernels and copies): {dev_us / 1e3 / steps:.2f}")
+    print("\n== the port's kernels ==")
+    for e in device:
+        if any(name in e.key for name in ("msda_fwd", "msda_bwd", "masked_attn", "tap_weight")):
+            print(f"{e.key[:70]:70s} launches/step={e.count / steps:g} "
+                  f"device_ms/launch={e.self_device_time_total / 1e3 / e.count:.4f} "
+                  f"device_ms/step={e.self_device_time_total / 1e3 / steps:.4f}")
+    print("\n== by device time ==")
+    print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
+    print("\n== stages (host time to issue, device span) ==")
+    for e in events:
+        if e.key.startswith(ranges):
+            print(f"{e.key:24s} host_ms/call={e.cpu_time_total / 1e3 / e.count:.3f} "
+                  f"device_span_ms/call={e.device_time_total / 1e3 / e.count:.3f} calls={e.count}")
+    return 0
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--train", action="store_true",
+                    help="profile the training step instead of serving")
     ap.add_argument("--recipe", choices=("released", "tpu"), default="released")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--height", type=int, default=480)
@@ -51,6 +176,8 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.train:
+        return profile_training(torch, card, args.requests)
     cfg = slice2_cfg() if args.recipe == "tpu" else slice_cfg()
     torch.manual_seed(SEED)
     model = build_model(cfg)
