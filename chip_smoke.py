@@ -37,11 +37,13 @@ result line):
     shape (B = 8, 512x512), model-like locations with some off the map,
     float32 and bfloat16; the forward kernel at the same shapes against its
     plain version;
-12. K3's backward kernel against `masked_attention_backward_plain` and
-    autograd of the plain forward at the training shapes (B = 8, Q = 120, S =
-    256 / 1024 / 4096) and at B = 1, Q = 100, S = 13600: per-head masks with a
-    DN block, a fully blocked row, strided views; the forward that writes the
-    row statistics against the plain version, its output and the statistics;
+12. K3's backward kernel against `masked_attention_backward_plain`, against
+    autograd of the plain forward and against the plain function that repeats
+    its tiled arithmetic, at the training shapes (B = 8, Q = 120, S = 256 /
+    1024 / 4096) and at B = 1, Q = 100, S = 13600: per-head masks with a DN
+    block, a fully blocked row, strided views; two calls give equal bits; the
+    forward that writes the row statistics against the plain version, its
+    output and the statistics;
 13. slice 3, training: the released training recipe (DN `points`, NUM_DN 1,
     noise 0, ALL_LY_DN, label noise 0.2) at full width and depth, B = 8 images
     of 512x512 from the seeded generator: step 0's losses and gradients through
@@ -713,6 +715,7 @@ def phase_k1_bwd(torch, card: str) -> dict:
                 max_abs_err=f"{abs_err:.3e}", forward_max_abs_err=f"{fwd_err:.3e}",
                 forward_tol=TOL[name], rel_err_vs_autograd_value_attn=[f"{e:.2e}" for e in auto_errs],
                 grad_loc_share_off_vs_autograd=f"{loc_miss:.2e}", autograd_tol=AUTOGRAD_TOL[name],
+                grad_value_reproducible="to rounding only (float32 atomics, in no fixed order)",
                 **fmt_times(times), bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
                 points_on_map=f"{on_map}/{B * S * M * L * P}", card=repr(card))
             if not fwd_err <= TOL[name]:
@@ -774,6 +777,12 @@ def phase_k3_bwd(torch, card: str) -> dict:
             errs = [rel_err(x, w) for x, w in zip(got, want)]
             abs_err = max((x.float() - w).abs().max().item() for x, w in zip(got, want))
             blocked_row_dq = got[0][:, :, 0].abs().max().item()
+            # dq is summed over the key chunks in a fixed order: two calls, equal bits
+            again = mac.masked_attn_bwd(go, q, k, v, mask, out, stats)
+            reproducible = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
+            tiled_errs = [rel_err(x, w) for x, w in zip(
+                got, mac.masked_attention_backward_tiled(go, q, k, v, mask, out, stats))]
             # through the Function, against autograd of the plain forward
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             mac.masked_attention(*leaves, mask).backward(go)
@@ -832,7 +841,9 @@ def phase_k3_bwd(torch, card: str) -> dict:
                 forward_max_abs_err=f"{fwd_err:.3e}", stats_max_rel_err=f"{max_err:.3e}",
                 stats_log2_sum_abs_err=f"{sum_err:.3e}", forward_tol=TOL[name],
                 rel_err_vs_autograd=[f"{e:.2e}" for e in auto_errs],
-                autograd_tol=AUTOGRAD_TOL[name], **fmt_times(t),
+                autograd_tol=AUTOGRAD_TOL[name],
+                rel_err_vs_tiled_arithmetic=[f"{e:.2e}" for e in tiled_errs],
+                bitwise_reproducible=reproducible, **fmt_times(t),
                 bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
                 library="backward of F.scaled_dot_product_attention (forward and backward "
                         "less the forward)", card=repr(card))
@@ -840,6 +851,10 @@ def phase_k3_bwd(torch, card: str) -> dict:
                 raise AssertionError(f"K3 forward with statistics {name} S={S}: output "
                                      f"{fwd_err}, row maximum {max_err}, log2 of the row sum "
                                      f"{sum_err} against the plain version, above {TOL[name]}")
+            if not (reproducible and max(tiled_errs) <= BWD_TOL[name]):
+                raise AssertionError(f"K3 backward {name} S={S}: two calls differ "
+                                     f"({reproducible=}), or {tiled_errs} against the kernel's "
+                                     "tiled arithmetic")
             if not (max(errs) <= BWD_TOL[name] and blocked_row_dq == 0.0):
                 raise AssertionError(f"K3 backward {name} S={S}: relative errors {errs} against "
                                      f"the plain backward above {BWD_TOL[name]}, or a gradient "

@@ -53,8 +53,14 @@
 // - grad_value is accumulated in float32 whatever the input type; the wrapper
 //   casts it. The order of the atomic adds varies from run to run, so
 //   grad_value is reproducible to rounding only.
-// Later redesign: stage a block's adds in shared memory (its 16 queries touch
-// few lines) or sort the taps by pixel, so that one add a line goes to the L2.
+// What the adds cost, and what did not help (tools/probe_torch_msda_bwd_bound.py
+// on an H100 at the training shape): without any add to grad_value the kernel
+// takes about a third of its time, and with plain stores instead of atomics
+// ~90%: the bytes written into the L2, not the atomics, bound it. Blocks that
+// own 2-D tiles of tokens, and taps binned by pixel in shared memory with one
+// add a pixel and block (tools/probe_torch_msda_bwd_binned.cu), measured no
+// faster and slower than this design: the binning's bookkeeping costs about
+// what the adds it saves cost.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -1,5 +1,7 @@
-"""Weights into the port: from the JAX package's params, or from a reference
-`.pth`.
+"""Weights into the port: from the JAX package's params, from a reference
+`.pth`, or from a backbone's ImageNet `.pkl` (`resolve_checkpoint_path`,
+`read_checkpoint`, `load_state_dict_file`, `load_weights`: the JAX package's
+`engine/checkpoint_import.py` loading rules, in the port's own copy).
 
 `state_dict_from_jax_params` is the inverse of the JAX package's
 `engine/checkpoint_import.py:convert_maskformer_state_dict` (:260-276) for the
@@ -16,12 +18,17 @@ carries a gradient tree across the same way, for the training tests.
 
 from __future__ import annotations
 
+import logging
+import os
+import pickle
 import re
 from collections import OrderedDict
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 
 def _put(sd, key: str, a) -> None:
@@ -151,14 +158,76 @@ def named_gradients_from_jax(grads: Mapping[str, Any],
     return {name: sd[name] for name, _ in model.named_parameters()}
 
 
+def resolve_checkpoint_path(path: str) -> Optional[str]:
+    """A `MODEL.WEIGHTS` string -> a local file, or None (the JAX package's
+    `engine/checkpoint_import.py:resolve_checkpoint_path`). The detectron2 zoo
+    scheme of the reference's Base configs (`detectron2://ImageNetPretrained/
+    torchvision/R-50.pkl`) is looked up in the iopath cache (`$FVCORE_CACHE`,
+    else `~/.torch/iopath_cache`, under `detectron2/`), then as
+    `checkpoints/<basename>` and `<basename>`; a plain path passes through when
+    it exists."""
+    if not path.startswith("detectron2://"):
+        return path if os.path.exists(path) else None
+    rel = path[len("detectron2://"):]
+    cache = os.environ.get("FVCORE_CACHE", os.path.expanduser("~/.torch/iopath_cache"))
+    for cand in (os.path.join(cache, "detectron2", rel),
+                 os.path.join("checkpoints", os.path.basename(rel)), os.path.basename(rel)):
+        if os.path.exists(cand):
+            return cand
+    return None
+
+
+def read_checkpoint(path: str) -> Dict[str, Any]:
+    """The raw weights of a checkpoint file, under their own names. A
+    detectron2 `.pkl` is a latin-1 pickle of numpy arrays (under 'model' or at
+    the top), whose `*_momentum` entries are the optimizer's and are dropped
+    (`checkpoint_import.py:23-29`); a `.pth` is read with `weights_only=True`,
+    and only a file that this refuses is read again in full, with a log line.
+    Entries that are not arrays (a pickle's '__author__' and the like) are
+    left out."""
+    if path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            data = pickle.load(f, encoding="latin1")
+    else:
+        try:
+            data = torch.load(path, map_location="cpu", weights_only=True)
+        except pickle.UnpicklingError as err:
+            logger.warning("%s holds objects that torch.load(weights_only=True) refuses (%s); "
+                           "reading it with weights_only=False", path, str(err).splitlines()[0])
+            data = torch.load(path, map_location="cpu", weights_only=False)
+    sd = data.get("model", data) if isinstance(data, dict) else data
+    return {k: v for k, v in sd.items()
+            if isinstance(v, (torch.Tensor, np.ndarray)) and not k.endswith("_momentum")}
+
+
+# torchvision's ResNet names -> detectron2's, as the JAX package's
+# `engine/convert.py:resnet_params_from_torchvision` maps them
+_TORCHVISION_RENAMES = ((re.compile(r"^conv1\."), "stem.conv1."),
+                        (re.compile(r"^bn1\."), "stem.conv1.norm."),
+                        (re.compile(r"^layer(\d)\."), lambda m: f"res{int(m.group(1)) + 1}."),
+                        (re.compile(r"\.bn(\d)\."), r".conv\1.norm."),
+                        (re.compile(r"\.downsample\.0\."), ".shortcut."),
+                        (re.compile(r"\.downsample\.1\."), ".shortcut.norm."))
+
+
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """A reference checkpoint (`model_final.pth`, detectron2 format: the
-    weights under 'model') -> the port's state dict. Applies the reference's
-    own renames (`static_query` -> `query_feat`, mask2former decoder
-    :214-235; head `layer_4` -> `adapter_1`, mask_former_head.py:23-45) and
-    drops the training-only `criterion.*` buffers."""
-    data = torch.load(path, map_location="cpu", weights_only=True)
-    sd = data.get("model", data)
+    """A checkpoint file -> the port's state dict: a reference checkpoint
+    (`model_final.pth`, detectron2 format: the weights under 'model') with the
+    reference's own renames (`static_query` -> `query_feat`, mask2former
+    decoder :214-235; head `layer_4` -> `adapter_1`, mask_former_head.py:23-45)
+    and without the training-only `criterion.*` buffers; or a backbone alone
+    (an ImageNet `.pkl` of the detectron2 zoo, or torchvision's names), which
+    gets the `backbone.` prefix (`checkpoint_import.py:390-392`)."""
+    sd = read_checkpoint(path)
+    if not any(k.startswith(("backbone.", "sem_seg_head.")) for k in sd):
+        if "conv1.weight" in sd:
+            renamed = {}
+            for k, v in sd.items():
+                for pattern, repl in _TORCHVISION_RENAMES:
+                    k = pattern.sub(repl, k)
+                renamed[k] = v
+            sd = renamed
+        sd = {f"backbone.{k}": v for k, v in sd.items()}
     out: Dict[str, torch.Tensor] = OrderedDict()
     for k, v in sd.items():
         if k.startswith("criterion."):
@@ -169,10 +238,30 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_weights(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
-    """Strict load. Weights of the head-shared sampling engine and of the
-    per-head engines do not interconvert: name the setting instead of leaving
-    it at torch's size-mismatch list."""
+def locate_weights(weights: str) -> Optional[str]:
+    """`MODEL.WEIGHTS` -> a local file, or None where nothing is found. A
+    directory raises: it is one of the JAX package's Orbax checkpoints, which
+    the port cannot read (its machines have no orbax)."""
+    if os.path.isdir(weights):
+        raise ValueError(
+            f"MODEL.WEIGHTS {weights} is a directory, i.e. an Orbax checkpoint of the JAX "
+            "package; the port reads .pth and .pkl files only. Convert it where JAX is "
+            "installed: restore its params with mp_former_tpu.engine.checkpoint_import."
+            "_load_orbax_params, then torch.save({'model': mp_former_tpu_torch.engine.convert."
+            "state_dict_from_jax_params(params)}, 'model.pth') and point MODEL.WEIGHTS at it")
+    return resolve_checkpoint_path(weights)
+
+
+def load_weights(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor],
+                 strict: bool = True) -> Dict[str, int]:
+    """Load `state_dict` into `model`. Weights of the head-shared sampling
+    engine and of the per-head engines do not interconvert: name the setting
+    instead of leaving it at torch's size-mismatch list. strict: every key of
+    both sides, with equal shapes. Otherwise as detectron2's checkpointer loads
+    for training (`checkpoint_import.py:343-432`): the keys present in both
+    with equal shapes are loaded, the missing, unexpected and shape-mismatched
+    ones are counted and logged, and a file that matches no key raises. Returns
+    the four counts."""
     own = model.state_dict()
     for key, tensor in state_dict.items():
         if key.endswith("self_attn.sampling_offsets.weight") and key in own \
@@ -185,4 +274,20 @@ def load_weights(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor])
                 f"{own[key].shape[0]}: the weights were trained with {kind[not model_shared]} "
                 f"sampling locations and the model was built with {kind[model_shared]}; "
                 "the two do not interconvert, set TPU.SAMPLING_ENGINE to match the weights")
-    model.load_state_dict(state_dict, strict=True)
+    matched = {k: v for k, v in state_dict.items() if k in own and own[k].shape == v.shape}
+    counts = {"loaded": len(matched), "missing": len(own.keys() - state_dict.keys()),
+              "unexpected": len(state_dict.keys() - own.keys()),
+              "mismatched": len(state_dict.keys() & own.keys()) - len(matched)}
+    if strict:
+        model.load_state_dict(state_dict, strict=True)
+        return counts
+    if not matched:
+        raise ValueError(f"no key of the checkpoint matches the model: unexpected "
+                         f"{sorted(state_dict)[:10]}")
+    model.load_state_dict(matched, strict=False)
+    if counts["loaded"] < len(own) or counts["unexpected"] or counts["mismatched"]:
+        logger.warning("partial checkpoint load: %d loaded, %d missing (e.g. %s), %d unexpected, "
+                       "%d shape-mismatched", counts["loaded"], counts["missing"],
+                       sorted(own.keys() - state_dict.keys())[:3], counts["unexpected"],
+                       counts["mismatched"])
+    return counts

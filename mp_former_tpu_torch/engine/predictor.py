@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from ..inference import InstanceOutput, instance_inference, sem_seg_postprocess, upsample_masks
 from ..models import build_model
-from .convert import load_state_dict_file, load_weights
+from .convert import load_state_dict_file, load_weights, locate_weights
 
 
 def preprocess_image(cfg, image_bgr: np.ndarray,
@@ -69,7 +69,12 @@ class Predictor:
         if model is None:
             model = build_model(cfg)
             if cfg.MODEL.WEIGHTS:
-                load_weights(model, load_state_dict_file(cfg.MODEL.WEIGHTS))
+                # a fresh model would report near-zero AP without a word: raise
+                local = locate_weights(cfg.MODEL.WEIGHTS)
+                if local is None:
+                    raise FileNotFoundError(f"MODEL.WEIGHTS {cfg.MODEL.WEIGHTS} not found locally "
+                                            "(download it or point MODEL.WEIGHTS at a file)")
+                load_weights(model, load_state_dict_file(local))
         self.model = model.to(self.device).eval()
 
     def preprocess(self, image_bgr: np.ndarray):

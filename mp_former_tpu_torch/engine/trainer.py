@@ -19,7 +19,7 @@ import torch
 from ..models import build_model
 from ..models.criterion import build_criterion
 from ..structures import Batch
-from .convert import load_state_dict_file, load_weights
+from .convert import load_state_dict_file, load_weights, locate_weights
 from .optimizer import build_gradient_clipper, build_optimizer
 from .train_step import train_step
 
@@ -63,7 +63,9 @@ class Trainer:
     def resume_or_load(self, resume: bool = True) -> int:
         """d2's resume_or_load: continue from the last checkpoint under
         OUTPUT_DIR where there is one, else load `MODEL.WEIGHTS` (a reference
-        `.pth`); returns the iteration to start from."""
+        `.pth`, or a backbone's `.pkl`, partially, with the counts logged), or
+        keep the fresh initialization with a warning where the weights are not
+        found locally; returns the iteration to start from."""
         last = os.path.join(self._checkpoint_dir(), "last_checkpoint")
         if resume and os.path.isfile(last):
             with open(last) as f:
@@ -76,8 +78,17 @@ class Trainer:
             self.iteration = int(state["iteration"])
             logger.info("resumed from %s", path)
         elif self.cfg.MODEL.WEIGHTS:
-            load_weights(self.model, load_state_dict_file(self.cfg.MODEL.WEIGHTS))
-            logger.info("loaded weights from %s", self.cfg.MODEL.WEIGHTS)
+            weights = self.cfg.MODEL.WEIGHTS
+            local = locate_weights(weights)
+            if local is None:
+                # the JAX trainer's allow_fresh_init=True: training from scratch is
+                # a meaningful run, evaluating a fresh model is not (Predictor raises)
+                logger.warning("MODEL.WEIGHTS %s not found locally (download it or point "
+                               "MODEL.WEIGHTS at a file); keeping the fresh initialization",
+                               weights)
+            else:
+                counts = load_weights(self.model, load_state_dict_file(local), strict=False)
+                logger.info("loaded weights from %s: %s", local, counts)
         return self.iteration
 
     # -- the loop ------------------------------------------------------------

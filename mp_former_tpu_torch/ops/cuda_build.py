@@ -51,25 +51,26 @@ def _find_nvcc() -> str:
 
 
 def _digest(sources) -> str:
+    """Of the flags, the sources and the headers beside them."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *sorted(CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
 def compile_library(sources, out_dir: Path, lib_name: str = LIB_NAME) -> Path:
-    """Compile `sources` with nvcc (one process per source, side by side) and
-    link them into `out_dir/lib_name`; the log (ptxas register and shared
-    memory use) is kept beside it as `build.log`. Raises if nvcc is missing
-    or fails."""
+    """Compile `sources` with nvcc (one process per source, side by side; the
+    port's headers under `csrc/` on the include path) and link them into
+    `out_dir/lib_name`; the log (ptxas register and shared memory use) is kept
+    beside it as `build.log`. Raises if nvcc is missing or fails."""
     lib = out_dir / lib_name
     nvcc = _find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as obj_dir:
         objects = [os.path.join(obj_dir, src.stem + ".o") for src in sources]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
                 for src, obj in zip(sources, objects)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True) for cmd in cmds]
@@ -117,7 +118,7 @@ def library() -> ctypes.CDLL:
     lib.msda_bwd.restype = i
     lib.masked_attn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, *[ll] * 14, i, i, p]
     lib.masked_attn_fwd.restype = i
-    lib.masked_attn_bwd.argtypes = [*[p] * 11, i, i, i, i, i, *[ll] * 17, i, p]
+    lib.masked_attn_bwd.argtypes = [*[p] * 11, i, i, i, i, i, *[ll] * 17, i, i, p]
     lib.masked_attn_bwd.restype = i
     lib.tap_weight_fwd.argtypes = [p, p, p, ll, ll, i, i, i, i, i, p]
     lib.tap_weight_fwd.restype = i

@@ -10,9 +10,10 @@ forward writes on request (the TPU kernel has no gradient: the JAX package
 trains through the einsum form); `masked_attention_backward_plain` is the same
 on tensors, without autograd. `MaskedAttentionFunction` joins the two kernels
 for autograd. `masked_attention` dispatches: CUDA tensors to the kernels, CPU
-tensors to the plain version. `masked_attention_tiled` repeats the kernel's
-arithmetic (its tiles, its split over the keys, its 3xTF32 products) in plain
-PyTorch, for the tests and `chip_smoke.py` only.
+tensors to the plain version. `masked_attention_tiled` and
+`masked_attention_backward_tiled` repeat the two kernels' arithmetic (their
+tiles, their split over the keys, their 3xTF32 products and bfloat16
+roundings) in plain PyTorch, for the tests and `chip_smoke.py` only.
 
     softmax(q kᵀ / √D, masked logits = -1e9) v
 
@@ -50,6 +51,10 @@ KEY_TILE = 64         # keys of a shared-memory tile; a chunk is whole tiles
 KEY_STEP = 32         # keys of one step of the online softmax: half a tile
 BLOCK_QUERIES = 128   # query rows of a block: 8 warps
 BLOCKS_PER_SM = 2     # what the split over the keys aims for
+BWD_KEY_TILE = 64     # keys of a backward block's tile: 16 a warp
+BWD_QUERY_TILE = 32   # query rows of a backward step
+BWD_MAX_ROWS = 256    # query rows of a backward block
+BWD_BLOCKS_PER_SM = 2
 
 
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,16 +119,17 @@ def _product_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def masked_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            mask: torch.Tensor, chunk: int | None = None,
-                           sms: int = 132) -> torch.Tensor:
+                           sms: int = 132, with_stats: bool = False):
     """The kernel's arithmetic in plain PyTorch: query rows padded to 16-row
     tiles, the keys split into chunks of `chunk` (by default the wrapper's
     choice for a card of `sms` SMs), each chunk walked in 32-key steps with an
     online softmax in the base-2 domain (a masked key scores -1e9 log2 e, a
     key beyond the end of S -inf and its value row is zero), float32 products
     as 3xTF32 and bfloat16 products with the weights rounded to bfloat16, and
-    the chunks merged by their maxima. Not on any main path: the tests hold it
-    against the plain version and the JAX function, `chip_smoke.py` holds the
-    kernel against it."""
+    the chunks merged by their maxima. `with_stats` also returns the (B, H, Q,
+    2) row statistics the kernel writes for the backward. Not on any main path:
+    the tests hold it against the plain version and the JAX function,
+    `chip_smoke.py` holds the kernel against it."""
     B, H, Q, D = q.shape
     S = k.shape[2]
     if chunk is None:
@@ -172,13 +178,104 @@ def masked_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m = new
         parts.append((m, l, o))
     if len(parts) == 1:
+        m_all, l_all = m, l
         out = o / l[..., None]
     else:
         m_all = torch.stack([m for m, _, _ in parts]).amax(0)
         weights = [torch.exp2(m - m_all) for m, _, _ in parts]
         l_all = sum(l * w for (_, l, _), w in zip(parts, weights))
         out = sum(o * w[..., None] for (_, _, o), w in zip(parts, weights)) / l_all[..., None]
-    return out[:, :, :Q].to(q.dtype)
+    out = out[:, :, :Q].to(q.dtype)
+    if with_stats:
+        return out, torch.stack([m_all, l_all], -1)[:, :, :Q].contiguous()
+    return out
+
+
+def masked_attention_backward_tiled(grad_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, mask: torch.Tensor, out: torch.Tensor,
+                                    stats: torch.Tensor, chunk: int | None = None,
+                                    sms: int = 132):
+    """The backward kernel's arithmetic in plain PyTorch, for the (out, stats)
+    of the forward: per chunk of keys (by default the wrapper's choice for a
+    card of `sms` SMs) and 64-key tile, the queries in 32-row tiles; delta =
+    dO . O in float32; S^T = (k log2(e) / sqrt(D)) q^T and dP^T = v dO^T, P = 2^(S
+    - max) / sum (a blocked score is -1e9 log2 e, a key beyond S weighs 0), dS =
+    P (dP - delta) and 0 where blocked; float32 products as 3xTF32, bfloat16
+    products with P and dS rounded to bfloat16; dV += P^T dO and dK += dS^T q
+    per tile; dQ summed over a chunk's tiles, then over the chunks in order,
+    and scaled by 1 / sqrt(D) last. Returns (dq, dk, dv) in the input type,
+    logical (B, H, N, D). Not on any main path: the tests hold it against the
+    plain backward and the JAX function's vjp, `chip_smoke.py` holds the kernel
+    against it."""
+    B, H, Q, D = q.shape
+    S = k.shape[2]
+    if chunk is None:
+        chunk = _bwd_chunk_size(S, B * H * -(-Q // BWD_MAX_ROWS), sms)
+    if chunk <= 0 or chunk % BWD_KEY_TILE:
+        raise ValueError(f"masked_attention_backward_tiled: chunk {chunk} is no multiple of "
+                         f"{BWD_KEY_TILE}")
+    single = q.dtype == torch.float32
+    scale = 1.0 / math.sqrt(D)
+    rows = -(-Q // BWD_QUERY_TILE) * BWD_QUERY_TILE
+
+    def padded(x, n):
+        y = x.new_zeros((B, H, n, D))
+        y[:, :, :x.shape[2]] = x
+        return y.float()
+
+    def product(eq, a, b):
+        if single:
+            return _product_3xtf32(eq, a, b)
+        return torch.einsum(eq, a.bfloat16().float(), b.bfloat16().float())
+
+    qp, gp = padded(q, rows), padded(grad_out, rows)
+    delta = (padded(out, rows) * gp).sum(-1)                          # (B, H, rows)
+    m = q.new_zeros((B, H, rows), dtype=torch.float32)
+    inv_l = torch.zeros_like(m)
+    m[:, :, :Q] = stats[..., 0]
+    inv_l[:, :, :Q] = 1.0 / stats[..., 1]
+    blocked = torch.zeros((B, H, rows, S), dtype=torch.bool, device=q.device)
+    blocked[:, :, :Q] = (mask[:, None] if mask.dim() == 3 else mask).bool()
+    dq_parts = []
+    dk = torch.zeros((B, H, S, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for s0 in range(0, S, chunk):
+        dq_chunk = torch.zeros((B, H, rows, D), dtype=torch.float32, device=q.device)
+        for t0 in range(s0, min(S, s0 + chunk), BWD_KEY_TILE):
+            n = min(BWD_KEY_TILE, S - t0, s0 + chunk - t0)
+            kt, vt = padded(k[:, :, t0:t0 + n], BWD_KEY_TILE), padded(v[:, :, t0:t0 + n],
+                                                                       BWD_KEY_TILE)
+            ks = kt * (_LOG2E * scale) if single else kt
+            for r0 in range(0, rows, BWD_QUERY_TILE):
+                r1 = r0 + BWD_QUERY_TILE
+                s = product("bkd,bqd->bkq", ks.flatten(0, 1), qp[:, :, r0:r1].flatten(0, 1))
+                s = s.view(B, H, BWD_KEY_TILE, BWD_QUERY_TILE)
+                if not single:
+                    s = s * (_LOG2E * scale)
+                dp = product("bkd,bqd->bkq", vt.flatten(0, 1), gp[:, :, r0:r1].flatten(0, 1))
+                dp = dp.view(B, H, BWD_KEY_TILE, BWD_QUERY_TILE)
+                blk = torch.zeros((B, H, BWD_KEY_TILE, BWD_QUERY_TILE), dtype=torch.bool,
+                                  device=q.device)
+                blk[:, :, :n] = blocked[:, :, r0:r1, t0:t0 + n].transpose(2, 3)
+                s = s.masked_fill(blk, _NEG_INF * _LOG2E)
+                p = torch.exp2(s - m[:, :, None, r0:r1]) * inv_l[:, :, None, r0:r1]
+                p[:, :, n:] = 0.0
+                ds = (p * (dp - delta[:, :, None, r0:r1])).masked_fill(blk, 0.0)
+                ds[:, :, n:] = 0.0
+                dv[:, :, t0:t0 + n] += product("bkq,bqd->bkd", p.flatten(0, 1),
+                                               gp[:, :, r0:r1].flatten(0, 1)).view(
+                                                   B, H, BWD_KEY_TILE, D)[:, :, :n]
+                dk[:, :, t0:t0 + n] += product("bkq,bqd->bkd", ds.flatten(0, 1),
+                                               qp[:, :, r0:r1].flatten(0, 1)).view(
+                                                   B, H, BWD_KEY_TILE, D)[:, :, :n]
+                dq_chunk[:, :, r0:r1] += product("bkq,bkd->bqd", ds.flatten(0, 1),
+                                                 kt.flatten(0, 1)).view(
+                                                     B, H, BWD_QUERY_TILE, D)
+        dq_parts.append(dq_chunk)
+    dq = dq_parts[0]
+    for part in dq_parts[1:]:
+        dq = dq + part
+    return ((dq[:, :, :Q] * scale).to(q.dtype), (dk * scale).to(q.dtype), dv.to(q.dtype))
 
 
 def _check_attention(name: str, q, k, v, mask, more=()):
@@ -249,14 +346,29 @@ def masked_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, stats) if with_stats else out
 
 
+def _bwd_chunk_size(S: int, parallel_blocks: int, sms: int) -> int:
+    """Keys per block of the backward: whole 64-key tiles, S split so that,
+    with `parallel_blocks` blocks per chunk (one per batch entry, head and 256
+    query rows), the grid holds at most BWD_BLOCKS_PER_SM blocks per SM (the
+    blocks that fit at once): one more block would start a second wave of
+    blocks, each as long as the first."""
+    tiles = -(-S // BWD_KEY_TILE)
+    chunks = min(tiles, max(1, BWD_BLOCKS_PER_SM * sms // parallel_blocks))
+    return -(-tiles // chunks) * BWD_KEY_TILE
+
+
 def masked_attn_bwd(grad_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: torch.Tensor, out: torch.Tensor, stats: torch.Tensor):
+                    mask: torch.Tensor, out: torch.Tensor, stats: torch.Tensor,
+                    chunk: int | None = None):
     """Launch K3's backward on CUDA tensors: (dq, dk, dv) for the `out` and
     `stats` that `masked_attn_fwd(..., with_stats=True)` returned on the same
     q, k, v and mask. The gradients are logical (B, H, N, D) and lie in memory
-    as (B, N, H, D), like the projections they belong to. dq is summed over the
-    key blocks with float32 atomics, so its last bits vary from run to run.
-    Raises on anything the kernel does not take, and if a launch fails."""
+    as (B, N, H, D), like the projections they belong to. `chunk`: the keys a
+    block walks, a multiple of 64, by default chosen from the shape and the
+    card's SM count. Where the keys are split, each block writes its dq into a
+    scratch that a second kernel sums in chunk order: the result is the same
+    bit for bit from run to run. Raises on anything the kernel does not take,
+    and if a launch fails."""
     global BWD_LAUNCHES
     strides = grad_out.stride()
     if strides[-1] != 1 or any(st * grad_out.element_size() % 16 for st in strides[:-1]):
@@ -267,17 +379,27 @@ def masked_attn_bwd(grad_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v:
             or stats.device != device:
         raise ValueError(f"masked_attn_bwd: stats must be the forward's contiguous float32 "
                          f"{(B, H, Q, 2)} on {device}, got {tuple(stats.shape)} {stats.dtype}")
-    dq32 = torch.zeros((B, Q, H, D), dtype=torch.float32, device=device)
-    dk = torch.empty((B, S, H, D), dtype=q.dtype, device=device)
-    dv = torch.empty((B, S, H, D), dtype=q.dtype, device=device)
-    delta = torch.empty((B * H * Q,), dtype=torch.float32, device=device)
+    if chunk is None:
+        chunk = _bwd_chunk_size(S, B * H * -(-Q // BWD_MAX_ROWS), sm_count(device.index))
+    elif chunk <= 0 or chunk % BWD_KEY_TILE:
+        raise ValueError(f"masked_attn_bwd: chunk {chunk} is no multiple of {BWD_KEY_TILE}")
+    chunks = -(-S // chunk)
+    dq = torch.empty((B, Q, H, D), dtype=q.dtype, device=device)
+    # above BWD_MAX_ROWS queries the row blocks add their shares of dk and dv
+    added = Q > BWD_MAX_ROWS
+    dk = (torch.zeros if added else torch.empty)((B, S, H, D), device=device,
+                                                 dtype=torch.float32 if added else q.dtype)
+    dv = torch.zeros_like(dk) if added else torch.empty_like(dk)
+    part = (torch.empty((chunks * B * H * Q * D,), dtype=torch.float32, device=device)
+            if chunks > 1 else None)
     launch("masked_attn_bwd", device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
-           mask.data_ptr(), stats.data_ptr(), delta.data_ptr(), dq32.data_ptr(), dk.data_ptr(),
-           dv.data_ptr(), B, H, Q, S, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-           *out.stride()[:3], *grad_out.stride()[:3], mask_sb, mask_sh, DTYPE_CODES[q.dtype])
+           mask.data_ptr(), stats.data_ptr(), None if part is None else part.data_ptr(),
+           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Q, S, D, *q.stride()[:3],
+           *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *grad_out.stride()[:3],
+           mask_sb, mask_sh, chunk, DTYPE_CODES[q.dtype])
     BWD_LAUNCHES += 1
-    return dq32.to(q.dtype).transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+    return dq.transpose(1, 2), dk.to(q.dtype).transpose(1, 2), dv.to(q.dtype).transpose(1, 2)
 
 
 class MaskedAttentionFunction(torch.autograd.Function):

@@ -649,3 +649,79 @@ def test_masked_attention_backward_kernel_refuses_what_it_does_not_take(cuda):
     # the stats of a row blocked everywhere: the maximum is -1e9 log2(e), the sum S
     assert stats[0, 0, 0, 1].item() == 40.0
     assert stats[0, 0, 0, 0].item() == pytest.approx(-1e9 * 1.4426950408889634, rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels' designs: K3 backward's key chunks, query tiles and dq
+# by scratch and merge; K1 backward on the encoder's layout (Q = S).
+
+
+@pytest.mark.parametrize("dtype,tol", BWD_TOLS)
+@pytest.mark.parametrize("per_head", [False, True])
+@pytest.mark.parametrize("B,Q,S", [(8, 120, 1024), (8, 120, 4096), (2, 1, 31), (2, 120, 1),
+                                   (1, 33, 33), (1, 300, 200)])
+def test_masked_attention_backward_kernel_at_the_edges(cuda, dtype, tol, per_head, B, Q, S):
+    """The training shapes, S = 1, 31 and 33, Q = 1 and Q above a block's 256
+    rows; strided head views; every key chunk against the plain backward and
+    the kernel's tiled arithmetic; dq the same bit for bit from run to run.
+    Relative to each gradient's largest entry, or absolute below 1: with one
+    key, dq and dk are 0 in exact arithmetic and rounding noise on both sides."""
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max().clamp(min=1.0)).item()
+
+    H = 8
+    q, k, v = _head_views(cuda, B, H, Q, S, dtype, seed=11)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    grad_out = torch.randn((B, Q, H, 32), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    mask = torch.rand((B, H, Q, S) if per_head else (B, Q, S), generator=g, device=cuda) < 0.7
+    mask[..., 0, :] = True
+    out, stats = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+    want = mac.masked_attention_backward_plain(grad_out.float(), q.float(), k.float(), v.float(),
+                                               mask)
+    tiled = mac.masked_attention_backward_tiled(grad_out, q, k, v, mask, out, stats)
+    for chunk in (None, 64, 128, -(-S // 64) * 64):
+        got = mac.masked_attn_bwd(grad_out, q, k, v, mask, out, stats, chunk=chunk)
+        for name, x, w, t in zip("qkv", got, want, tiled):
+            assert x.dtype == dtype and x.shape == w.shape, name
+            assert rel(x, w) <= tol, (name, chunk)
+            assert rel(x, t) <= tol, (name, chunk)
+        assert got[0][:, :, 0].abs().max().item() == 0
+    again = mac.masked_attn_bwd(grad_out, q, k, v, mask, out, stats)
+    first = mac.masked_attn_bwd(grad_out, q, k, v, mask, out, stats)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype,tol", BWD_TOLS)
+@pytest.mark.parametrize("B,M,shapes,P", [
+    (2, 8, [(16, 16), (32, 32), (64, 64)], 4),    # the training shape's levels
+    (1, 3, [(7, 9), (1, 1)], 4),                  # a one-pixel level
+    (2, 2, [(13, 17), (7, 9), (4, 5), (2, 3)], 2),  # four levels
+])
+def test_msda_backward_kernel_on_the_encoders_tokens(cuda, dtype, tol, B, M, shapes, P):
+    """Q = S, the queries the tokens, as the encoder calls it: points a few
+    pixels from the reference points (neighbouring queries add to the same
+    pixels at once) and anywhere on the map, with points off the map and not
+    finite."""
+    from mp_former_tpu_torch.models.pixel_decoder.msdeformattn import _reference_points
+
+    S = sum(h * w for h, w in shapes)
+    L = len(shapes)
+    value, loc, attn = _msda_inputs(cuda, B, S, M, 32, shapes, P, seed=13)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    sizes = torch.tensor([[w, h] for h, w in shapes], device=cuda).view(1, 1, 1, L, 1, 2)
+    ref = _reference_points(shapes, cuda)[None, :, None, :, None, :]
+    near = ref + torch.randn((B, S, M, L, P, 2), generator=g, device=cuda) * 3.0 / sizes
+    near[0, :5, 0, 0, 0, 0] = torch.tensor([float("nan"), float("inf"), -7.0, 1e30, 2.0],
+                                           device=cuda)
+    grad_out = torch.randn((B, S, M * 32), device=cuda).to(dtype)
+    for where in (near, loc):
+        args = [t.to(dtype).contiguous() for t in (value, where, attn)]
+        want = msda_cuda.ms_deform_attn_backward_plain(grad_out.float(), args[0].float(), shapes,
+                                                       args[1].float(), args[2].float())
+        got = msda_cuda.msda_bwd(grad_out, args[0], shapes, args[1], args[2])
+        for name, x, w, like in zip(("value", "loc", "attn"), got, want, args):
+            assert x.dtype == dtype and x.shape == like.shape, name
+            assert torch.isfinite(x).all(), name
+            assert _rel(x, w) <= tol, name
