@@ -50,7 +50,21 @@ result line):
     the kernels against the same step through autograd of the plain ops, then
     1 warm and 3 timed steps through `Trainer`; checks the 61 loss keys, the
     launches per step (K1 6, K1 backward 6, K3 9, K3 backward 9, K2 0) and
-    that the parameters moved.
+    that the parameters moved;
+14. slice 3, a training run that scores itself (`train_coco`): a seeded
+    COCO-format dataset written to `output/chip_smoke_coco/` by
+    `tools/make_synthetic_coco_torch.py` (64 train images of 640x640, 8 val
+    images of 480x480, 20 classes, `.npy` images, polygon ground truth with
+    some uncompressed-RLE and crowd annotations), registered as
+    `coco_2017_train` / `coco_2017_val`; `Trainer(cfg)` with no loader passed
+    trains the released recipe (B = 8, LSJ at 512x512, 100 target slots,
+    ground truth at 1/4 of the canvas) for 12 steps from
+    `build_train_loader`, and `Trainer.test` evaluates the 8 val images after
+    steps 6 and 12; checks the launches (per step K1 6, K1 backward 6, K3 9,
+    K3 backward 9, K2 0; per evaluated image K1 6, K3 9), the 61 finite loss
+    keys and `data_time` of the `metrics.json` lines, two finite segm APs and
+    at most 3 checkpoints on disk; prints s/step, data time, the batch copy
+    pinned against pageable and the evaluation's s/image.
 
 Each kernel phase also computes the kernel's bound (the least time the card
 could take: bytes over the memory rate or operations over the peak rate,
@@ -985,6 +999,268 @@ def phase_train(torch, card: str) -> dict:
     return launches
 
 
+COCO_ROOT = os.path.join(REPO, "output", "chip_smoke_coco")
+COCO_TRAIN_IMAGES, COCO_VAL_IMAGES, COCO_CLASSES = 64, 8, 20
+COCO_STEPS, COCO_EVAL_PERIOD, COCO_CHECKPOINT_PERIOD = 12, 6, 3
+COCO_EVAL_EXPECTED = {"msda_fwd": 6, "tap_weight_fwd": 0, "masked_attn_fwd": 9, "msda_bwd": 0,
+                      "masked_attn_bwd": 0}
+
+
+def uncompressed_rle(mask) -> dict:
+    """(H, W) bool -> COCO's uncompressed RLE (column-major runs, background
+    first)."""
+    flat = mask.T.reshape(-1).astype(np.uint8)
+    change = np.nonzero(np.diff(flat))[0] + 1
+    runs = np.diff(np.concatenate([[0], change, [flat.size]])).tolist()
+    return {"size": list(mask.shape), "counts": ([0] if flat[0] else []) + runs}
+
+
+def write_coco(root: str) -> dict:
+    """The phase's dataset; every 5th annotation's polygons become
+    uncompressed RLE and every 11th (from the 4th) a crowd annotation, so that
+    every branch of the mapper and the evaluator runs."""
+    from mp_former_tpu_torch.native import polygons_to_mask
+    from tools.make_synthetic_coco_torch import write_dataset
+
+    counts = {}
+    for split, n, size, seed in (("train2017", COCO_TRAIN_IMAGES, 640, SEED),
+                                 ("val2017", COCO_VAL_IMAGES, 480, SEED + 1)):
+        path = write_dataset(root, n, size, COCO_CLASSES, split, seed)
+        with open(path) as f:
+            data = json.load(f)
+        for k, a in enumerate(data["annotations"]):
+            if k % 5 == 1:
+                a["segmentation"] = uncompressed_rle(polygons_to_mask(a["segmentation"], size, size))
+            elif k % 11 == 3:
+                a["iscrowd"] = 1
+        with open(path, "w") as f:
+            json.dump(data, f)
+        kinds = [("rle" if isinstance(a["segmentation"], dict) else "polygon")
+                 + ("_crowd" if a["iscrowd"] else "") for a in data["annotations"]]
+        counts[split] = {k: kinds.count(k) for k in sorted(set(kinds))}
+    return counts
+
+
+def copy_ms(torch, batch, non_blocking: bool, reps: int = 5) -> float:
+    """Median host time of one batch copy to the card, synchronised."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch.to("cuda", non_blocking=non_blocking)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def hold_evaluation(torch, cfg, model, kernel_segm: dict) -> dict:
+    """The evaluation's shapes held against the plain ops: the val images'
+    800x800 canvas gives K1 Q = S = 13125 and K3 S = 625 / 2500 / 10000,
+    which phases K1 and K3 do not run. For each val image, the model's
+    outputs through the kernels against the plain ops (`compare_outputs`),
+    and the `Predictor`'s instances: sorted scores within 1e-3, and over the
+    detections that keep their rank, class and score (within 1e-4) the masks'
+    pooled IoU at least 0.99. Then the plain path's instances scored by the
+    evaluator against the last `Trainer.test` (the same weights): segm AP
+    within 0.01."""
+    from mp_former_tpu_torch.data.catalog import DatasetCatalog
+    from mp_former_tpu_torch.engine.eval_loop import read_image
+    from mp_former_tpu_torch.engine.predictor import Predictor
+    from mp_former_tpu_torch.evaluation.build import build_evaluator
+
+    records = DatasetCatalog.get("coco_2017_val")[:COCO_VAL_IMAGES]
+    predictor = Predictor(cfg, model=model, device="cuda")
+    evset = build_evaluator(cfg, "coco_2017_val", records)
+    evset.reset()
+    score_err, inter, union, kept = 0.0, 0, 0, 0
+    for rec in records:
+        image = read_image(rec)
+        canvas, _ = predictor.preprocess(image)
+        with torch.inference_mode():
+            k_out = model(canvas)
+            with plain_ops():
+                p_out = model(canvas)
+        compare_outputs(torch, "train_coco", f"val image {rec['image_id']}: kernel vs plain ops",
+                        cfg, canvas, k_out, p_out)
+        hw = (rec["height"], rec["width"])
+        k = predictor(image, hw)["instances"]
+        with plain_ops():
+            p = predictor(image, hw)["instances"]
+        evset.process(rec, {"instance": (p["scores"], p["classes"], p["masks"])})
+        score_err = max(score_err, float(np.abs(np.sort(k["scores"]) - np.sort(p["scores"])).max()))
+        same = (k["classes"] == p["classes"]) & (np.abs(k["scores"] - p["scores"]) < 1e-4)
+        inter += int((k["masks"][same] & p["masks"][same]).sum())
+        union += int((k["masks"][same] | p["masks"][same]).sum())
+        kept += int(same.sum())
+    plain_segm = evset.evaluate()["segm"]
+    iou = inter / union if union else 1.0  # all kept masks empty on both sides: the same
+    log("train_coco", compare="evaluation, kernel vs plain ops", images=len(records),
+        canvas=tuple(canvas.shape[1:3]), sorted_scores_max_abs_err=f"{score_err:.3e}",
+        scores_tol=1e-3, detections_kept=kept, mask_pixels_union=union,
+        masks_pooled_iou=f"{iou:.6f}", iou_min=0.99,
+        kernel_AP=f"{kernel_segm['AP']:.4f}", plain_AP=f"{plain_segm['AP']:.4f}", ap_tol=0.01)
+    if not (score_err < 1e-3 and kept > 0 and iou >= 0.99
+            and abs(kernel_segm["AP"] - plain_segm["AP"]) <= 0.01):
+        raise AssertionError("train_coco: the evaluation disagrees between the kernels and the "
+                             "plain ops")
+    return {"scores_err": score_err, "masks_iou": iou, "plain_segm": plain_segm}
+
+
+def phase_train_coco(torch, card: str) -> dict:
+    """Slice 3, the rest: a training run from a COCO-format dataset on disk,
+    scored by `Trainer.test` every COCO_EVAL_PERIOD steps."""
+    import shutil
+
+    from mp_former_tpu_torch.data.catalog import MetadataCatalog
+    from mp_former_tpu_torch.data.datasets.coco import register_all_coco
+    from mp_former_tpu_torch.data.loader import build_train_loader
+    from mp_former_tpu_torch.data.synthetic import synthetic_batch
+    from mp_former_tpu_torch.engine.trainer import Trainer
+    from mp_former_tpu_torch.structures import Batch, Targets
+
+    out_dir = os.path.join(REPO, "output", "chip_smoke_train_coco")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(COCO_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    kinds = write_coco(COCO_ROOT)
+    log("train_coco", dataset=os.path.relpath(COCO_ROOT, REPO), annotations=kinds,
+        write_s=f"{time.perf_counter() - t0:.2f}")
+    # the two names under this root, before anything imports the builtin
+    # registrations (which would register them under $DETECTRON2_DATASETS)
+    register_all_coco(COCO_ROOT)
+    for name in ("coco_2017_train", "coco_2017_val"):
+        if not MetadataCatalog.get(name).json_file.startswith(COCO_ROOT):
+            raise AssertionError(f"train_coco: {name} is registered elsewhere: "
+                                 f"{MetadataCatalog.get(name).json_file}")
+    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "INPUT.IMAGE_SIZE", str(TRAIN_SIZE),
+                            "SOLVER.MAX_ITER", str(COCO_STEPS),
+                            "SOLVER.CHECKPOINT_PERIOD", str(COCO_CHECKPOINT_PERIOD),
+                            "TEST.EVAL_PERIOD", str(COCO_EVAL_PERIOD), "OUTPUT_DIR", out_dir])
+    cfg.defrost()
+    cfg.TEST.MAX_EVAL_IMAGES = COCO_VAL_IMAGES  # read as the JAX trainer reads it: TEST.get
+    cfg.freeze()
+    if (cfg.INPUT.DATASET_MAPPER_NAME, cfg.TPU.MAX_INSTANCES, cfg.DATASETS.TRAIN,
+            cfg.DATASETS.TEST) != ("coco_instance_lsj", 100, ("coco_2017_train",),
+                                   ("coco_2017_val",)):
+        raise AssertionError("train_coco: the recipe's data settings changed")
+    trainer = Trainer(cfg, model=seeded_model(torch, cfg), device="cuda")
+
+    step_s, shapes = [], []
+    run_step = trainer.run_step
+
+    def timed_step(batch):
+        if not shapes:
+            shapes.append({"images": (tuple(batch.images.shape), str(batch.images.dtype),
+                                      batch.images.is_pinned()),
+                           "masks": (tuple(batch.targets.masks.shape),
+                                     str(batch.targets.masks.dtype))})
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    results, eval_s, eval_launches = [], [], {k: 0 for k in COCO_EVAL_EXPECTED}
+    test = trainer.test
+
+    def timed_test(max_images=None):
+        before = kernel_counts(backward=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        results.append(test(max_images))
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t)
+        for k, v in kernel_counts(backward=True).items():
+            eval_launches[k] += v - before[k]
+        return results[-1]
+
+    trainer.run_step, trainer.test = timed_step, timed_test
+    # the main path, counted
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    total_s = time.perf_counter() - t0
+    launches = kernel_counts(backward=True)
+    train_launches = {k: launches[k] - eval_launches[k] for k in launches}
+    n_eval = COCO_VAL_IMAGES * len(results)
+    expected_train = {k: COCO_STEPS * v for k, v in TRAIN_EXPECTED.items()}
+    expected_eval = {k: n_eval * v for k, v in COCO_EVAL_EXPECTED.items()}
+    log("train_coco", steps=COCO_STEPS, train_launches=train_launches, expected=expected_train)
+    log("train_coco", evaluations=len(results), images=n_eval, eval_launches=eval_launches,
+        expected=expected_eval)
+    if train_launches != expected_train or eval_launches != expected_eval or len(results) != 2:
+        raise AssertionError(f"train_coco: launches {train_launches} / {eval_launches} over "
+                             f"{len(results)} evaluations, expected {expected_train} / "
+                             f"{expected_eval} over 2")
+    want_shapes = {"images": ((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3), "torch.uint8", True),
+                   "masks": ((TRAIN_BATCH, 100, TRAIN_SIZE // 4, TRAIN_SIZE // 4), "torch.bool")}
+    if shapes[0] != want_shapes:
+        raise AssertionError(f"train_coco: loader batch {shapes[0]}, expected {want_shapes}")
+
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        lines = [json.loads(x) for x in f.read().splitlines()]
+    keys = [k + d + s for k in ("loss_ce", "loss_mask", "loss_dice") for d in ("", "_dn")
+            for s in ("", *(f"_{i}" for i in range(cfg.MODEL.MASK_FORMER.DEC_LAYERS - 1)))]
+    for line in lines:
+        losses = {k: v for k, v in line.items() if k.startswith("loss_") or k == "total_loss"}
+        missing = [k for k in (*keys, "total_loss") if k not in losses]
+        if missing or len(losses) != 61 or not all(np.isfinite(v) for v in line.values()) \
+                or "data_time" not in line:
+            raise AssertionError(f"train_coco: metrics line {line.get('iteration')}: "
+                                 f"{len(losses)} loss keys, missing {missing}, data_time "
+                                 f"{line.get('data_time')}, or a non-finite value")
+    if [x["iteration"] for x in lines] != [0, COCO_STEPS - 1]:
+        raise AssertionError(f"train_coco: metrics lines {[x['iteration'] for x in lines]}")
+    aps = [r["segm"]["AP"] for r in results]
+    if not all(np.isfinite(aps)):
+        raise AssertionError(f"train_coco: segm AP {aps}")
+    ckpts = sorted(f for f in os.listdir(os.path.join(out_dir, "checkpoints"))
+                   if f.endswith(".pth"))
+    if len(ckpts) > 3 or ckpts[-1] != f"model_{COCO_STEPS:07d}.pth":
+        raise AssertionError(f"train_coco: checkpoints {ckpts}")
+    hold_evaluation(torch, cfg, trainer.model, results[-1]["segm"])
+
+    # the batch copy: a loader batch pinned and pageable, and phase train's batch
+    loader = build_train_loader(cfg, pin_memory=True)
+    try:
+        pinned = next(loader)
+    finally:
+        loader.close()
+    pageable = Batch(pinned.images.clone(), Targets(*(t.clone() for t in pinned.targets)))
+    if pageable.images.is_pinned() or not pinned.images.is_pinned():
+        raise AssertionError("train_coco: the copy comparison lost its pinned/pageable split")
+    generated = synthetic_batch(np.random.RandomState(SEED), TRAIN_BATCH, TRAIN_SIZE,
+                                COCO_CLASSES, TRAIN_MAX_INSTANCES)
+    copies = {"pinned_ms": copy_ms(torch, pinned, True),
+              "pageable_ms": copy_ms(torch, pageable, False),
+              "generated_pageable_ms": copy_ms(torch, generated, False)}
+    mb = {"loader_batch_MB": nbytes(pinned.images, *pinned.targets) / 1e6,
+          "generated_batch_MB": nbytes(generated.images, *generated.targets) / 1e6}
+
+    first_data, last = lines[0]["data_time"], lines[-1]
+    steady_data = (last["data_time"] * COCO_STEPS - first_data) / (COCO_STEPS - 1)
+    res = {"s_per_step": mean(step_s[1:]), "first_step_s": step_s[0],
+           "data_time_s": last["data_time"], "data_time_first_s": first_data,
+           "data_time_steady_s": steady_data, **copies, **mb,
+           "eval_s_per_image": [t / COCO_VAL_IMAGES for t in eval_s], "segm_AP": aps,
+           "wall_s": total_s}
+    log("train_coco", s_per_step=f"{res['s_per_step']:.4f}",
+        steps_s=[f"{t:.4f}" for t in step_s], card=repr(card))
+    log("train_coco", data_time_s=f"{last['data_time']:.4f}", first_step_data_s=f"{first_data:.4f}",
+        data_time_after_first_s=f"{steady_data:.4f}", card=repr(card))
+    log("train_coco", batch_copy_pinned_ms=f"{copies['pinned_ms']:.3f}",
+        batch_copy_pageable_ms=f"{copies['pageable_ms']:.3f}",
+        loader_batch_MB=f"{mb['loader_batch_MB']:.1f}",
+        generated_batch_pageable_ms=f"{copies['generated_pageable_ms']:.3f}",
+        generated_batch_MB=f"{mb['generated_batch_MB']:.1f}", card=repr(card))
+    log("train_coco", eval_s_per_image=[f"{t:.4f}" for t in res["eval_s_per_image"]],
+        segm_AP=[f"{a:.4f}" for a in aps], checkpoints=ckpts, train_wall_s=f"{total_s:.2f}",
+        card=repr(card))
+    log("train_coco", ok=True)
+    return train_launches
+
+
 def main() -> int:
     import torch
 
@@ -1012,7 +1288,10 @@ def main() -> int:
     k1_bwd = phase_k1_bwd(torch, card)
     k3_bwd = phase_k3_bwd(torch, card)
     train = phase_train(torch, card)
-    by_path = {"slice": s1, "slice2": s2, "tap_weighting_route": route, "train": train}
+    torch.cuda.empty_cache()
+    train_coco = phase_train_coco(torch, card)
+    by_path = {"slice": s1, "slice2": s2, "tap_weighting_route": route, "train": train,
+               "train_coco": train_coco}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",

@@ -1,6 +1,6 @@
-"""COCO-format dataset loading without pycocotools (the record loader of
-`mp_former_tpu/data/datasets/coco.py`; the other datasets are not registered
-in the port yet).
+"""COCO-format dataset loading without pycocotools (the record loader and the
+`coco_2017_*` registration of `mp_former_tpu/data/datasets/coco.py`; the
+other datasets are not registered in the port yet).
 
 Produces d2-style per-image records: {file_name, height, width, image_id,
 annotations: [{bbox (xywh), category_id (contiguous), segmentation,
@@ -40,8 +40,14 @@ def load_coco_json(json_file: str, image_root: str,
 
     records = []
     for img in coco["images"]:
+        if "file_name" in img:
+            fname = img["file_name"]
+        else:
+            # LVIS v1 images carry only coco_url (http://.../train2017/000000391895.jpg):
+            # keep the split directory, as d2's LVIS loader does
+            fname = "/".join(img["coco_url"].split("/")[-2:])
         rec = {
-            "file_name": os.path.join(image_root, img["file_name"]),
+            "file_name": os.path.join(image_root, fname),
             "height": img["height"],
             "width": img["width"],
             "image_id": img["id"],
@@ -66,3 +72,16 @@ def register_coco_instances(name: str, json_file: str, image_root: str):
         name, lambda: load_coco_json(json_file, image_root, name))
     MetadataCatalog.get(name).set(
         json_file=json_file, image_root=image_root, evaluator_type="coco")
+
+
+def register_all_coco(root: Optional[str] = None):
+    """`coco_2017_train` and `coco_2017_val` in the standard layout under
+    `root` ($DETECTRON2_DATASETS, else `datasets`); a name already registered
+    is left as it is."""
+    root = root or os.environ.get("DETECTRON2_DATASETS", "datasets")
+    for name, (json_rel, img_rel) in {
+        "coco_2017_train": ("coco/annotations/instances_train2017.json", "coco/train2017"),
+        "coco_2017_val": ("coco/annotations/instances_val2017.json", "coco/val2017"),
+    }.items():
+        if name not in DatasetCatalog:
+            register_coco_instances(name, os.path.join(root, json_rel), os.path.join(root, img_rel))

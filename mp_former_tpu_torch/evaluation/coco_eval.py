@@ -16,6 +16,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..native import polygons_to_mask
+
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
 AREA_RNGS = {
@@ -247,7 +249,7 @@ class CocoAPEvaluator:
         return res
 
 
-def _rle_to_mask(rle: dict) -> np.ndarray:
+def rle_to_mask(rle: dict) -> np.ndarray:
     """Uncompressed COCO RLE ({"size": [h, w], "counts": [runs]}, column-major
     runs starting with background) -> (h, w) bool."""
     h, w = rle["size"]
@@ -258,22 +260,6 @@ def _rle_to_mask(rle: dict) -> np.ndarray:
         pos += c
         val = 1 - val
     return flat.reshape(w, h).T.astype(bool)
-
-
-def _polygons_to_mask(polygons, h: int, w: int) -> np.ndarray:
-    """COCO polygons -> (h, w) bool, vertices rounded to pixels and filled
-    (the JAX package's cv2 route, `data/transforms.py:polygons_to_bitmask`)."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError("polygon ground truth needs cv2 to be rasterised; give the "
-                          "annotations' masks as arrays or uncompressed RLE instead") from e
-    mask = np.zeros((h, w), np.uint8)
-    pts = [np.round(np.asarray(p, np.float64).reshape(-1, 2)).astype(np.int32)
-           for p in polygons if len(p) >= 6]
-    if pts:
-        cv2.fillPoly(mask, pts, 1)
-    return mask.astype(bool)
 
 
 class COCOEvaluator:
@@ -301,9 +287,9 @@ class COCOEvaluator:
             if isinstance(seg, np.ndarray):
                 m = seg.astype(bool)
             elif isinstance(seg, list):
-                m = _polygons_to_mask(seg, h, w)
+                m = polygons_to_mask(seg, h, w)
             elif isinstance(seg, dict) and isinstance(seg.get("counts"), list):
-                m = _rle_to_mask(seg)
+                m = rle_to_mask(seg)
             else:
                 continue
             gt_cats.append(a["category_id"])

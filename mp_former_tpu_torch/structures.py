@@ -18,7 +18,8 @@ class Targets(NamedTuple):
     """Padded ground truth of a batch.
 
     labels: (B, N) int64          class ids (junk where invalid)
-    masks:  (B, N, H, W) bool     bitmasks at the padded image's resolution
+    masks:  (B, N, H, W) bool     bitmasks at the padded image's resolution,
+                                  or at 1/TPU.GT_MASK_STRIDE of it
     boxes:  (B, N, 4) float32     cxcywh, normalised
     valid:  (B, N) bool           which slots are real; real slots come first
     """
@@ -32,8 +33,8 @@ class Targets(NamedTuple):
     def num_instances(self) -> int:
         return self.labels.shape[1]
 
-    def to(self, device) -> "Targets":
-        return Targets(*(t.to(device) for t in self))
+    def to(self, device, non_blocking: bool = False) -> "Targets":
+        return Targets(*(t.to(device, non_blocking=non_blocking) for t in self))
 
     def first(self, n: int) -> "Targets":
         """The first `n` slots (targets are valid-prefix, so a cap is a slice)."""
@@ -44,8 +45,12 @@ class Batch(NamedTuple):
     images: torch.Tensor          # (B, H, W, 3) raw pixels in INPUT.FORMAT order
     targets: Targets
 
-    def to(self, device) -> "Batch":
-        return Batch(self.images.to(device), self.targets.to(device))
+    def to(self, device, non_blocking: bool = False) -> "Batch":
+        """On `device`; `non_blocking` copies from pinned memory without
+        waiting for the host (the loader pins where the trainer's device is
+        CUDA)."""
+        return Batch(self.images.to(device, non_blocking=non_blocking),
+                     self.targets.to(device, non_blocking=non_blocking))
 
 
 class DNArgs(NamedTuple):

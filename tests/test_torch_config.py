@@ -83,7 +83,7 @@ def _port_modules():
                 rel = os.path.relpath(os.path.join(dp, f), root)[:-3]
                 mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
     return sorted(mods) + ["chip_smoke", "tools.probe_torch_row_gather",
-                           "tools.profile_torch_slice"]
+                           "tools.profile_torch_slice", "tools.make_synthetic_coco_torch"]
 
 
 def test_port_imports_no_jax():
@@ -93,6 +93,10 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert "mp_former_tpu_torch.ops.tap_weighting" in mods
     assert "mp_former_tpu_torch.engine.eval_loop" in mods
+    assert {"mp_former_tpu_torch.native", "mp_former_tpu_torch.data.loader",
+            "mp_former_tpu_torch.data.transforms", "mp_former_tpu_torch.data.datasets.builtin",
+            "mp_former_tpu_torch.data.dataset_mappers.coco_instance_new_baseline",
+            "mp_former_tpu_torch.evaluation.build"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -7,6 +7,7 @@ bucketed by 32 so that both sides pad to the same canvas.
 """
 
 import json
+import os
 import sys
 
 import cv2
@@ -15,16 +16,20 @@ import pytest
 import torch
 
 from mp_former_tpu.data.datasets.coco import load_coco_json as jax_load_coco_json
+from mp_former_tpu.data.datasets.coco import register_coco_instances as jax_register_coco_instances
 from mp_former_tpu.engine.eval_loop import inference_on_dataset as jax_inference_on_dataset
+from mp_former_tpu.engine.eval_loop import run_evaluation as jax_run_evaluation
 from mp_former_tpu.evaluation import coco_eval as jax_coco_eval
 from mp_former_tpu.evaluation.evaluators import COCOEvaluator as JaxCOCOEvaluator
+from mp_former_tpu import native as jax_native
 
 from mp_former_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
 from mp_former_tpu_torch.data.datasets.coco import load_coco_json, register_coco_instances
 from mp_former_tpu_torch.engine import eval_loop
-from mp_former_tpu_torch.engine.eval_loop import inference_on_dataset
+from mp_former_tpu_torch.engine.eval_loop import inference_on_dataset, run_evaluation
 from mp_former_tpu_torch.engine.predictor import Predictor
 from mp_former_tpu_torch.evaluation import coco_eval
+from mp_former_tpu_torch import native
 
 from test_torch_headshare import FLOAT32, TPU_CONFIG
 from test_torch_slice import SMALL, _build_pair
@@ -133,15 +138,106 @@ def test_dataset_evaluator_matches_jax():
     np.testing.assert_equal(results[1], results[2])
 
 
+def _fractional_polygon(rng, h, w):
+    """A polygon of 3-9 vertices with fractional coordinates, some off the
+    canvas."""
+    n = rng.randint(3, 10)
+    cx, cy = rng.uniform(0, w), rng.uniform(0, h)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+    rad = rng.uniform(2, max(h, w) / 2, n)
+    return np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], -1).reshape(-1).tolist()
+
+
+def test_native_rasteriser_matches_jax():
+    """The port's copy of maskapi.cc gives the JAX package's native masks bit
+    for bit: fractional vertices, vertices off the canvas, objects of several
+    parts, parts of fewer than 3 vertices (skipped), an empty list."""
+    rng = np.random.RandomState(11)
+    for _ in range(60):
+        h, w = rng.randint(5, 70, 2)
+        polys = [_fractional_polygon(rng, h, w) for _ in range(rng.randint(1, 4))]
+        if rng.rand() < 0.2:
+            polys.append([1.5, 2.5, 3.5, 4.5])  # 2 vertices
+        got = native.polygons_to_mask(polys, h, w)
+        assert got.dtype == bool and got.shape == (h, w)
+        np.testing.assert_array_equal(got, jax_native.polygons_to_mask_native(polys, h, w))
+    assert not native.polygons_to_mask([], 7, 9).any()
+
+
 def test_polygon_ground_truth_is_rasterised():
+    """Polygon ground truth is rasterised by pycocotools' rule, as the JAX
+    evaluator does: the rectangle with corners (4, 3) and (20, 15) covers
+    rows 3-14 and columns 4-19, 192 pixels, not the 221 of filling rounded
+    vertices (fault C2), and scores 100 against exactly that mask."""
     poly = [[4.0, 3.0, 20.0, 3.0, 20.0, 15.0, 4.0, 15.0]]
     rec = {"image_id": 7, "height": 24, "width": 32, "annotations": [
-        {"category_id": 1, "iscrowd": 0, "area": 221.0, "segmentation": poly}]}
+        {"category_id": 1, "iscrowd": 0, "area": 192.0, "segmentation": poly}]}
     want = np.zeros((24, 32), bool)
-    want[3:16, 4:21] = True
+    want[3:15, 4:20] = True
+    np.testing.assert_array_equal(native.polygons_to_mask(poly, 24, 32), want)
     ev = coco_eval.COCOEvaluator([rec])
     ev.process(7, np.asarray([0.9]), np.asarray([1]), [want])
     assert ev.evaluate()["segm"]["AP"] == pytest.approx(100.0)
+
+
+def test_polygon_ground_truth_matches_jax_evaluator():
+    """Fault C2: on polygon ground truth with fractional vertices (crowd and
+    not, several parts), the port's evaluator gives the JAX evaluator's IoU
+    matrices and summary exactly. The detections are the ground truth shifted
+    by up to a pixel, where the rasterisation decides the IoU."""
+    rng = np.random.RandomState(5)
+    h, w = 30, 44
+    records, dets = [], []
+    for i in range(6):
+        annos, masks, cats = [], [], []
+        for _ in range(rng.randint(1, 5)):
+            polys = [_fractional_polygon(rng, h, w) for _ in range(rng.randint(1, 3))]
+            m = jax_native.polygons_to_mask_native(polys, h, w)
+            if not m.any():
+                continue
+            c = int(rng.randint(0, 3))
+            annos.append({"category_id": c, "iscrowd": int(rng.rand() < 0.15),
+                          "area": float(m.sum()), "segmentation": polys})
+            masks.append(np.roll(m, rng.randint(-1, 2), axis=rng.randint(0, 2)))
+            cats.append(c)
+        records.append({"image_id": i, "height": h, "width": w, "annotations": annos})
+        dets.append((rng.rand(len(masks)), np.asarray(cats, np.int64), masks))
+    ours = coco_eval.COCOEvaluator(records, max_dets=10)
+    theirs = JaxCOCOEvaluator(records, max_dets=10)
+    for i, (scores, cats, masks) in enumerate(dets):
+        ours.process(i, scores, cats, masks)
+        theirs.process(i, scores, cats, masks)
+    assert ours._ap._records.keys() == theirs._ap._records.keys()
+    for c in theirs._ap._records:
+        for a, b in zip(ours._ap._records[c], theirs._ap._records[c], strict=True):
+            np.testing.assert_array_equal(a["ious"], b["ious"])
+    got, want = ours.evaluate(), theirs.evaluate()
+    assert 0 < want["segm"]["AP"] < 100
+    np.testing.assert_equal(got, want)
+
+
+def test_failed_rasteriser_build_raises(monkeypatch, tmp_path):
+    """No g++, or a source g++ rejects: the build raises with the compiler's
+    output, and polygon ground truth is not drawn some other way."""
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native.build()
+    monkeypatch.undo()
+    broken = tmp_path / "maskapi.cc"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(native, "SOURCE", broken)
+    with pytest.raises(RuntimeError, match="(?s)g\\+\\+ failed.*error"):
+        native.build()
+    native.library.cache_clear()
+    try:
+        ev = coco_eval.COCOEvaluator([{"image_id": 1, "height": 8, "width": 8, "annotations": [
+            {"category_id": 0, "segmentation": [[1, 1, 6, 1, 6, 6]]}]}])
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+            ev.process(1, np.asarray([0.5]), np.asarray([0]), [np.ones((8, 8), bool)])
+    finally:
+        native.library.cache_clear()
 
 
 def test_coco_json_records_match_jax(tmp_path):
@@ -170,6 +266,18 @@ def test_coco_json_records_match_jax(tmp_path):
         register_coco_instances("torch_eval_registered", str(path), str(tmp_path))
 
 
+def test_coco_json_without_file_name_matches_jax(tmp_path):
+    """Images that carry only `coco_url` (LVIS v1) keep the split directory."""
+    data = {"images": [{"id": 3, "height": 8, "width": 9,
+                        "coco_url": "http://images.cocodataset.org/val2017/000000000003.jpg"}],
+            "annotations": [], "categories": [{"id": 1, "name": "a"}]}
+    path = tmp_path / "lvis.json"
+    path.write_text(json.dumps(data))
+    got = load_coco_json(str(path), str(tmp_path))
+    assert got == jax_load_coco_json(str(path), str(tmp_path))
+    assert got[0]["file_name"] == str(tmp_path / "val2017" / "000000000003.jpg")
+
+
 def test_read_image(tmp_path, monkeypatch):
     img = np.random.RandomState(0).randint(0, 256, (12, 9, 3), dtype=np.uint8)
     assert eval_loop.read_image({"image": img, "file_name": "/nonexistent.png"}) is img
@@ -177,9 +285,18 @@ def test_read_image(tmp_path, monkeypatch):
     cv2.imwrite(path, img)
     np.testing.assert_array_equal(eval_loop.read_image({"file_name": path}), img)
     assert eval_loop.read_image({"file_name": str(tmp_path / "missing.png")}) is None
+    npy = str(tmp_path / "x.npy")
+    np.save(npy, img)
+    bad = str(tmp_path / "bad.npy")
+    np.save(bad, img.astype(np.float32))
     monkeypatch.setitem(sys.modules, "cv2", None)  # as where cv2 is not installed
     with pytest.raises(ImportError, match="needs cv2.*\"image\""):
         eval_loop.read_image({"file_name": path})
+    # .npy: how images reach a machine without an image decoder
+    np.testing.assert_array_equal(eval_loop.read_image({"file_name": npy}), img)
+    assert eval_loop.read_image({"file_name": str(tmp_path / "missing.npy")}) is None
+    with pytest.raises(ValueError, match="uint8"):
+        eval_loop.read_image({"file_name": bad})
 
 
 TOPK = 8
@@ -245,3 +362,46 @@ def test_max_images_and_unreadable_records(eval_pair):
     res = inference_on_dataset(tcfg, predictor, records, evaluator, max_images=2)
     assert seen == [0, 1]  # the unreadable record is skipped and does not count
     assert np.isfinite(res["segm"]["AP"])
+
+
+def test_run_evaluation_matches_jax(eval_pair, tmp_path):
+    """`run_evaluation` of a registered COCO-format dataset on disk (the
+    port's images as .npy, the JAX package's as .png; ground truth as RLE and
+    fractional polygons) gives the JAX `run_evaluation`'s AP within
+    test_e2e_ap_oracle.py's 0.05, with MASK_FORMER.TEST.INSTANCE_ON off on
+    both sides: the evaluators, not the switch, decide the tasks."""
+    jcfg, jmodel, variables, tcfg, predictor, jax_records, _ = eval_pair
+    rng = np.random.RandomState(3)
+    images, annotations = {"png": [], "npy": []}, []
+    for rec in jax_records:
+        img = cv2.imread(rec["file_name"], cv2.IMREAD_COLOR)
+        np.save(str(tmp_path / f"{rec['image_id']:03d}.npy"), img)
+        for ext in images:
+            images[ext].append({"id": rec["image_id"], "file_name": f"{rec['image_id']:03d}.{ext}",
+                                "height": rec["height"], "width": rec["width"]})
+        polygon = {"category_id": int(rng.randint(0, 3)), "iscrowd": 0,
+                   "segmentation": [_fractional_polygon(rng, rec["height"], rec["width"])]}
+        for a in rec["annotations"] + [polygon]:
+            annotations.append({**a, "id": len(annotations) + 1, "image_id": rec["image_id"],
+                                "category_id": a["category_id"] + 1, "bbox": [0, 0, 1, 1]})
+    categories = [{"id": c + 1, "name": f"c{c}"} for c in range(80)]
+    names = {}
+    for ext, register in (("png", jax_register_coco_instances), ("npy", register_coco_instances)):
+        path = tmp_path / f"instances_{ext}.json"
+        path.write_text(json.dumps({"images": images[ext], "annotations": annotations,
+                                    "categories": categories}))
+        names[ext] = f"torch_run_evaluation_{ext}"
+        # the .png images live beside the eval_pair fixture's records
+        root = os.path.dirname(jax_records[0]["file_name"]) if ext == "png" else str(tmp_path)
+        register(names[ext], str(path), root)
+    jcfg = jcfg.clone()
+    jcfg.merge_from_list(["TPU.EVAL_STREAM", "1", "MODEL.MASK_FORMER.TEST.INSTANCE_ON", "False"])
+    tcfg = tcfg.clone()
+    tcfg.merge_from_list(["MODEL.MASK_FORMER.TEST.INSTANCE_ON", "False"])
+    model = predictor.model
+    got = run_evaluation(tcfg, model, names["npy"], max_images=4)
+    want = jax_run_evaluation(jcfg, jmodel, variables, names["png"], max_images=4)
+    assert got.keys() == want.keys() == {"segm"}
+    assert got["segm"]["AP"] > 20
+    for key in ("AP", "AP50", "AP75"):
+        assert abs(got["segm"][key] - want["segm"][key]) <= 0.05, key

@@ -725,3 +725,43 @@ def test_msda_backward_kernel_on_the_encoders_tokens(cuda, dtype, tol, B, M, sha
             assert x.dtype == dtype and x.shape == like.shape, name
             assert torch.isfinite(x).all(), name
             assert _rel(x, w) <= tol, name
+
+
+def test_loader_fed_trainer_launches_the_training_kernels(cuda, tmp_path):
+    """The released training recipe at full width, fed by `build_train_loader`
+    from a dataset on disk (LSJ at 128x128, B = 2, 100 target slots): each
+    step launches K1 6, K1 backward 6, K3 9 and K3 backward 9 times, K2 never,
+    and the loader hands over pinned batches."""
+    from mp_former_tpu_torch.config import add_deeplab_config, add_maskformer2_config, get_cfg
+    from mp_former_tpu_torch.data.catalog import DatasetCatalog
+    from mp_former_tpu_torch.data.datasets.coco import register_coco_instances
+    from mp_former_tpu_torch.engine.trainer import Trainer
+    from tools.make_synthetic_coco_torch import write_dataset
+
+    path = write_dataset(str(tmp_path), images=4, size=160, classes=4, split="train2017", seed=0)
+    name = f"gpu_trainer_{tmp_path.name}"
+    if name not in DatasetCatalog:
+        register_coco_instances(name, path, str(tmp_path / "coco" / "train2017"))
+    cfg = get_cfg()
+    add_deeplab_config(cfg)
+    add_maskformer2_config(cfg)
+    cfg.merge_from_file("configs/coco/instance-segmentation/maskformer2_R50_bs16_12ep_DN_query.yaml")
+    cfg.merge_from_list([
+        "MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME", "MultiScaleMaskedTransformerDecoderMaskDN",
+        "MODEL.MASK_FORMER.DN_MODE", "points", "MODEL.DN.NUM_DN", "1",
+        "MODEL.DN.NOISE_SCALE", "0.0", "MODEL.MASK_FORMER.ALL_LY_DN", "True",
+        "MODEL.MASK_FORMER.LB_NOISE_RATIO", "0.2", "MODEL.WEIGHTS", "",
+        "INPUT.IMAGE_SIZE", "128", "SOLVER.IMS_PER_BATCH", "2", "SOLVER.MAX_ITER", "2",
+        "DATALOADER.NUM_WORKERS", "2", "DATASETS.TRAIN", f"('{name}',)", "DATASETS.TEST", "()",
+        "OUTPUT_DIR", str(tmp_path / "out")])
+    trainer = Trainer(cfg, device="cuda")
+    pinned = []
+    run_step = trainer.run_step
+    trainer.run_step = lambda batch: (pinned.append(batch.images.is_pinned()), run_step(batch))[1]
+    counters = (msda_cuda, "LAUNCHES"), (msda_cuda, "BWD_LAUNCHES"), (mac, "LAUNCHES"), \
+        (mac, "BWD_LAUNCHES"), (tw, "LAUNCHES")
+    before = [getattr(m, a) for m, a in counters]
+    trainer.train()
+    launches = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
+    assert launches == [12, 12, 18, 18, 0]
+    assert pinned == [True, True]

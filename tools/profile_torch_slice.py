@@ -4,6 +4,7 @@
     python3 tools/profile_torch_slice.py [--recipe released|tpu] [--requests 3]
                                          [--height 480 --width 640]
     python3 tools/profile_torch_slice.py --train [--requests 3]
+    python3 tools/profile_torch_slice.py --train-inputs [--requests 3]
 
 Builds the released R50 COCO instance recipe (K1 and K3), or with `--recipe
 tpu` the TPU recipe in float32 (head-shared sampling through K2, and K3), at
@@ -25,6 +26,31 @@ each stage (forward, matcher costs, the host's assignment solve, losses,
 backward, clipping and optimizer), then traces as many steps with
 `torch.profiler` and prints device busy time per step, the port's four kernels
 per launch and the top ops by device time.
+
+`--train-inputs` asks where the step of `chip_smoke.py`'s `train_coco` phase
+(the same recipe fed by `build_train_loader` from its dataset on disk: LSJ,
+100 target slots, ground truth at 1/4 of the canvas, pinned batches) spends
+more than phase `train`'s: it runs the step on ten batch sources in turns,
+`--requests` steps each for 3 rounds, and prints each source's seconds per
+step (`Trainer.run_step`, synchronised), the matcher's host time and the
+stages with a synchronise after each. The sources differ one thing at a time:
+`generated20` phase train's batches (20 slots, full-resolution masks,
+pageable), `generated20_s4` their masks any-pooled to 1/4, `generated100_s4`
+those padded to 100 slots, `loader_prefetched` loader batches taken before
+the timing (no worker thread maps while a step runs), `loader_live` the loader
+mapping the next batches on its threads meanwhile, `loader_live_1worker` a
+loader with one worker thread, `loader_live_1thread` the first loader while
+torch's intra-op pool has one thread, `loader_live_switch` the first loader
+while the interpreter hands the GIL between threads every 0.1 ms, not every
+5 ms (`sys.setswitchinterval`): where the main thread waits for a GIL that a
+mapper thread holds, that wait shrinks; `loader_live_pageable` a loader that
+does not pin its batches; `prefetched_busy_native` batches taken beforehand
+while 4 threads hash in C with the GIL released (cores taken, GIL free).
+While each source's steps run, a thread that sleeps 1 ms at a time records
+how late it wakes: the time it waits for the GIL, and for a core, once its
+sleep ends. Then it splits the
+evaluation of the phase's 8 val images into the `Predictor` call and the
+evaluator's `process`.
 """
 
 from __future__ import annotations
@@ -153,6 +179,189 @@ def profile_training(torch, card: str, steps: int) -> int:
     return 0
 
 
+def compare_train_inputs(torch, card: str, steps: int, rounds: int = 3) -> int:
+    import contextlib
+    import hashlib
+    import itertools
+    import threading
+
+    import torch.nn.functional as F
+
+    from chip_smoke import (COCO_ROOT, CONFIG, SEED, TRAIN_BATCH, TRAIN_MAX_INSTANCES,
+                            TRAIN_OVERRIDES, TRAIN_SIZE, load_cfg, seeded_model, write_coco)
+    from mp_former_tpu_torch.data.catalog import DatasetCatalog
+    from mp_former_tpu_torch.data.datasets.coco import register_all_coco
+    from mp_former_tpu_torch.data.loader import build_train_loader
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.engine.eval_loop import read_image
+    from mp_former_tpu_torch.engine.predictor import Predictor
+    from mp_former_tpu_torch.engine.trainer import Trainer
+    from mp_former_tpu_torch.evaluation.build import build_evaluator
+    from mp_former_tpu_torch.structures import Batch, Targets
+
+    write_coco(COCO_ROOT)
+    register_all_coco(COCO_ROOT)
+    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "INPUT.IMAGE_SIZE", str(TRAIN_SIZE), "OUTPUT_DIR",
+                            os.path.join(REPO, "output", "profile_train_inputs")])
+    trainer = Trainer(cfg, model=seeded_model(torch, cfg), device="cuda")
+
+    def strided(b: Batch, slots: int) -> Batch:
+        """Masks any-pooled to 1/4 and the targets padded to `slots`."""
+        t = b.targets
+        masks = F.max_pool2d(t.masks.float(), 4) > 0
+        pad = slots - t.labels.shape[1]
+
+        def grow(x):
+            return torch.cat([x, x.new_zeros((x.shape[0], pad, *x.shape[2:]))], 1)
+        return Batch(b.images, Targets(grow(t.labels), grow(masks), grow(t.boxes), grow(t.valid)))
+
+    generated = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                  TRAIN_MAX_INSTANCES, seed=SEED)
+    live = build_train_loader(cfg, pin_memory=True)
+    one_worker = cfg.clone()
+    one_worker.defrost()
+    one_worker.DATALOADER.NUM_WORKERS = 1
+    live1 = build_train_loader(one_worker, pin_memory=True)
+    live_pageable = build_train_loader(cfg)
+    n_pre = (steps + 1) * rounds + 2
+    prefetched = [next(live) for _ in range(2 * n_pre)]
+    data_s = {}
+
+    def from_live(name, loader):
+        data_s[name] = []
+        while True:
+            t0 = time.perf_counter()
+            b = next(loader)
+            data_s[name].append(time.perf_counter() - t0)
+            yield b
+
+    sources = {"generated20": generated,
+               "generated20_s4": (strided(b, TRAIN_MAX_INSTANCES) for b in generated),
+               "generated100_s4": (strided(b, cfg.TPU.MAX_INSTANCES) for b in generated),
+               "loader_prefetched": iter(prefetched[:n_pre]),
+               "prefetched_busy_native": iter(prefetched[n_pre:]),
+               "loader_live": from_live("loader_live", live),
+               "loader_live_1worker": from_live("loader_live_1worker", live1),
+               "loader_live_1thread": from_live("loader_live_1thread", live),
+               "loader_live_switch": from_live("loader_live_switch", live),
+               "loader_live_pageable": from_live("loader_live_pageable", live_pageable)}
+    # the same loader while torch's CPU ops (the mapper's resize among them)
+    # run on one thread of the intra-op pool, or while the GIL changes hands
+    # every 0.1 ms; loader batches while 4 threads keep 4 cores busy in C
+    # without the GIL
+    intra_op = {"loader_live_1thread": 1}
+    switch = {"loader_live_switch": 1e-4}
+    busy = {"prefetched_busy_native": 4}
+    threads, interval = torch.get_num_threads(), sys.getswitchinterval()
+    late_s = {k: [] for k in sources}
+
+    def hashing(stop):
+        data = os.urandom(1 << 22)
+        while not stop.is_set():
+            hashlib.sha256(data).digest()  # releases the GIL for the whole hash
+
+    def sampling(stop, late):
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            time.sleep(1e-3)
+            late.append(time.perf_counter() - t0 - 1e-3)
+
+    @contextlib.contextmanager
+    def conditions(name, probe):
+        torch.set_num_threads(intra_op.get(name, threads))
+        sys.setswitchinterval(switch.get(name, interval))
+        stop = threading.Event()
+        workers = [threading.Thread(target=hashing, args=(stop,), daemon=True)
+                   for _ in range(busy.get(name, 0))]
+        if probe:
+            workers.append(threading.Thread(target=sampling, args=(stop, late_s[name]),
+                                            daemon=True))
+        for w in workers:
+            w.start()
+        try:
+            yield
+        finally:
+            stop.set()
+            for w in workers:
+                w.join()
+            torch.set_num_threads(threads)
+            sys.setswitchinterval(interval)
+
+    for name, src in sources.items():  # warm-up: two steps of each
+        with conditions(name, probe=False):
+            for _ in range(2):
+                trainer.run_step(next(src))
+    torch.cuda.synchronize()
+    step_s = {k: [] for k in sources}
+    host_s = {k: 0.0 for k in sources}
+    stage_s = {k: {s: [] for s in STAGES} for k in sources}
+    for _ in range(rounds):
+        for name, src in sources.items():
+            h0 = trainer.criterion.matcher_host_seconds
+            with conditions(name, probe=True):
+                for _ in range(steps):
+                    batch = next(src)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trainer.run_step(batch)
+                    torch.cuda.synchronize()
+                    step_s[name].append(time.perf_counter() - t0)
+            host_s[name] += trainer.criterion.matcher_host_seconds - h0
+
+            @contextlib.contextmanager
+            def synchronised(stage, _name=name):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                yield
+                torch.cuda.synchronize()
+                stage_s[_name][stage].append(time.perf_counter() - t0)
+
+            with conditions(name, probe=False):
+                train_step_in_stages(torch, trainer, next(src).to("cuda", non_blocking=True),
+                                     synchronised)
+    print(f"card: {card}  training step, B={TRAIN_BATCH} at {TRAIN_SIZE}x{TRAIN_SIZE}, float32, "
+          f"TF32 off; {steps} steps x {rounds} rounds a source, in turns; torch intra-op "
+          f"threads {threads}, CPU cores {os.cpu_count()}, GIL switch interval {interval} s")
+    for name in sources:
+        t = sorted(step_s[name])
+        stages = "  ".join(f"{s}={1e3 * sum(v) / len(v):.1f}" for s, v in stage_s[name].items())
+        print(f"{name:20s} s/step mean={sum(t) / len(t):.4f} median={t[len(t) // 2]:.4f} "
+              f"min={t[0]:.4f} max={t[-1]:.4f}  matcher_host_ms/step="
+              f"{1e3 * host_s[name] / len(t):.2f}")
+        print(f"{'':20s} synchronised stages (ms): {stages}")
+        late = sorted(late_s[name])
+        print(f"{'':20s} 1 ms sleeper wakes late (ms): mean={1e3 * sum(late) / len(late):.3f} "
+              f"p90={1e3 * late[int(0.9 * len(late))]:.3f} "
+              f"p99={1e3 * late[int(0.99 * len(late))]:.3f} max={1e3 * late[-1]:.3f} "
+              f"over {len(late)} sleeps")
+    for name, waits in data_s.items():
+        print(f"{name} data wait per step (s): mean={sum(waits) / max(len(waits), 1):.4f} "
+              f"max={max(waits, default=0.0):.4f} over {len(waits)}")
+    for loader in (live, live1, live_pageable):
+        loader.close()
+
+    records = DatasetCatalog.get("coco_2017_val")
+    evset = build_evaluator(cfg, "coco_2017_val", records)
+    predictor = Predictor(cfg, model=trainer.model, device="cuda")
+    pred_s, proc_s = [], []
+    with torch.no_grad():
+        for rec in itertools.chain(records[:2], records):  # 2 warm-up images
+            image = read_image(rec)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inst = predictor(image, (rec["height"], rec["width"]))["instances"]
+            t1 = time.perf_counter()
+            evset.process(rec, {"instance": (inst["scores"], inst["classes"], inst["masks"])})
+            pred_s.append(t1 - t0)
+            proc_s.append(time.perf_counter() - t1)
+    pred_s, proc_s = pred_s[2:], proc_s[2:]
+    print(f"evaluation of {len(records)} val images of {records[0]['height']}x"
+          f"{records[0]['width']}: Predictor s/image={sum(pred_s) / len(pred_s):.4f} "
+          f"(instances to the host included), evaluator process s/image="
+          f"{sum(proc_s) / len(proc_s):.4f}")
+    return 0
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -160,6 +369,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train", action="store_true",
                     help="profile the training step instead of serving")
+    ap.add_argument("--train-inputs", action="store_true",
+                    help="the training step on ten batch sources, loader-fed among them")
     ap.add_argument("--recipe", choices=("released", "tpu"), default="released")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--height", type=int, default=480)
@@ -178,6 +389,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.train:
         return profile_training(torch, card, args.requests)
+    if args.train_inputs:
+        return compare_train_inputs(torch, card, args.requests)
     cfg = slice2_cfg() if args.recipe == "tpu" else slice_cfg()
     torch.manual_seed(SEED)
     model = build_model(cfg)
