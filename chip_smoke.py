@@ -32,11 +32,23 @@ result line):
    18 launches, K1 none; its outputs against slice 1's K1 route;
 10. evaluation: `inference_on_dataset` over 8 in-memory records on the
     slice-2 model, segm AP through the kernels and through the plain ops;
+10a. `TPU.COMPUTE_DTYPE bfloat16` (the JAX package's AMP-equivalent mode):
+    `slice_bf16`, slice 1's model and requests in bfloat16 (K1 6 and K3 9
+    launches a request), and `slice2_bf16`, the TPU recipe as its YAML says
+    (K2 18, K3 9): every launch in bfloat16 (K1 on a bfloat16 value with
+    float32 locations and weights), and on every request the bfloat16 forward
+    through the kernels no further from the float32 forward through the plain
+    ops than 1.5 x the bfloat16 plain forward's distance + 1e-3 (logits and
+    masks, relative to the float32 output's largest entry); device busy ms
+    per request in float32 and bfloat16; `eval_bf16`, the 8 records through
+    the bfloat16 TPU recipe, segm AP through the kernels within 0.5 of AP
+    through the plain ops, the float32 AP beside them;
 11. K1's backward kernel against `ms_deform_attn_backward_plain` and against
     autograd of the plain forward, at the 800x1088 canvas and at the training
     shape (B = 8, 512x512), model-like locations with some off the map,
-    float32 and bfloat16; the forward kernel at the same shapes against its
-    plain version;
+    float32, bfloat16, and a bfloat16 value with float32 locations and
+    weights (what a bfloat16 model hands them); the forward kernel at the
+    same shapes against its plain version, timed beside its bound;
 12. K3's backward kernel against `masked_attention_backward_plain`, against
     autograd of the plain forward and against the plain function that repeats
     its tiled arithmetic, at the training shapes (B = 8, Q = 120, S = 256 /
@@ -51,6 +63,13 @@ result line):
     1 warm and 3 timed steps through `Trainer`; checks the 61 loss keys, the
     launches per step (K1 6, K1 backward 6, K3 9, K3 backward 9, K2 0) and
     that the parameters moved;
+13a. `train_bf16`: the same in bfloat16: step 0 through the kernels against
+    autograd of the plain ops, both bfloat16 (losses within 2e-2 relative;
+    the gradient of every parameter whose float32 gradient is clear of
+    rounding noise at a cosine of at least 0.99), every launch in bfloat16,
+    then 4 steps through `Trainer` (K1 6, K1 backward 6, K3 9, K3 backward 9
+    a step) with float32 parameters, gradients and AdamW state; s/step and
+    peak memory beside the float32 phase's;
 14. slice 3, a training run that scores itself (`train_coco`): a seeded
     COCO-format dataset written to `output/chip_smoke_coco/` by
     `tools/make_synthetic_coco_torch.py` (64 train images of 640x640, 8 val
@@ -439,7 +458,8 @@ def slice_cfg():
 
 
 def slice2_cfg():
-    # the TPU recipe asks for bfloat16 compute; the slice runs it in float32
+    # the TPU recipe asks for bfloat16 compute; this phase runs it in float32,
+    # phase slice2_bf16 as the YAML says
     return load_cfg(TPU_CONFIG, ["TPU.COMPUTE_DTYPE", "float32"])
 
 
@@ -651,7 +671,138 @@ def phase_eval(torch, card: str, cfg, predictor) -> dict:
                 "masked_attn_fwd": 9 * len(records)}
     if launches != expected:
         raise AssertionError(f"evaluation: kernel launches {launches}, expected {expected}")
-    return {"kernel": kernel, "plain": plain}
+    return {"kernel": kernel, "plain": plain, "records": records}
+
+
+@contextlib.contextmanager
+def launch_types():
+    """Records the types each kernel wrapper is called with in the region:
+    {kernel: {type}}; K1's and its backward's read "value/locations"."""
+    from mp_former_tpu_torch.ops import masked_attention_cuda as mac
+    from mp_former_tpu_torch.ops import ms_deform_attn as msda_mod
+    from mp_former_tpu_torch.ops import msda_cuda
+    from mp_former_tpu_torch.ops import tap_weighting as tw
+
+    seen = {}
+
+    def name(t):
+        return str(t.dtype).split(".")[1]
+
+    def recording(kernel, fn, types):
+        def wrapper(*args, **kwargs):
+            seen.setdefault(kernel, set()).add(types(args))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    k1 = recording("msda_fwd", msda_cuda.msda_fwd, lambda a: f"{name(a[0])}/{name(a[2])}")
+    with mock.patch.object(msda_mod, "msda_fwd", k1), mock.patch.object(msda_cuda, "msda_fwd", k1), \
+            mock.patch.object(msda_cuda, "msda_bwd", recording(
+                "msda_bwd", msda_cuda.msda_bwd, lambda a: f"{name(a[1])}/{name(a[3])}")), \
+            mock.patch.object(tw, "tap_weight_fwd", recording(
+                "tap_weight_fwd", tw.tap_weight_fwd, lambda a: name(a[0]))), \
+            mock.patch.object(mac, "masked_attn_fwd", recording(
+                "masked_attn_fwd", mac.masked_attn_fwd, lambda a: name(a[0]))), \
+            mock.patch.object(mac, "masked_attn_bwd", recording(
+                "masked_attn_bwd", mac.masked_attn_bwd, lambda a: name(a[1]))):
+        yield seen
+
+
+# what a bfloat16 model hands each kernel: K1 a bfloat16 value with float32
+# locations and weights (the JAX package's float32 sampling arithmetic)
+BF16_TYPES = {"msda_fwd": {"bfloat16/float32"}, "msda_bwd": {"bfloat16/float32"},
+              "tap_weight_fwd": {"bfloat16"}, "masked_attn_fwd": {"bfloat16"},
+              "masked_attn_bwd": {"bfloat16"}}
+
+
+def check_bf16_types(phase: str, seen: dict) -> None:
+    log(phase, launch_types={k: sorted(v) for k, v in seen.items()})
+    wrong = {k: v for k, v in seen.items() if v != BF16_TYPES[k]}
+    if wrong:
+        raise AssertionError(f"{phase}: kernels launched in other types than bfloat16: {wrong}")
+
+
+def phase_slice_bf16(torch, card: str, phase: str, cfg, per_request: dict, images,
+                     f32_predictor):
+    """`TPU.COMPUTE_DTYPE bfloat16`: the float32 phase's model (the same
+    seeded weights) serves the same requests in bfloat16, counted, every
+    launch in bfloat16. On every request the bfloat16 forward through the
+    kernels is held against the float32 forward through the plain ops no
+    further than the bfloat16 forward through the plain ops is:
+    err(bf16 kernels) <= 1.5 x err(bf16 plain) + 1e-3, each the largest
+    difference relative to the float32 output's largest entry. Also device
+    busy ms per request in both types."""
+    from mp_former_tpu_torch.engine.predictor import Predictor
+    from mp_former_tpu_torch.utils.cuda_timing import busy_ms
+
+    model = seeded_model(torch, cfg)
+    if model.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"{phase}: the model does not read TPU.COMPUTE_DTYPE bfloat16")
+    predictor = Predictor(cfg, model=model, device="cuda")
+    with launch_types() as seen:
+        launches = serve(torch, phase, cfg, predictor, images, REQUESTS, per_request, card, 1)
+    check_bf16_types(phase, seen)
+    worst = {}
+    with torch.inference_mode():
+        for (h, w), img in zip(REQUESTS, images):
+            canvas, _ = predictor.preprocess(img)
+            k16 = model(canvas)
+            with plain_ops():
+                p16 = model(canvas)
+                model.compute_dtype = torch.float32
+                p32 = model(canvas)
+                model.compute_dtype = torch.bfloat16
+            if k16["pred_masks"].dtype != torch.bfloat16 or p32["pred_masks"].dtype != torch.float32:
+                raise AssertionError(f"{phase}: output types {k16['pred_masks'].dtype}, "
+                                     f"{p32['pred_masks'].dtype}")
+            for key in ("pred_logits", "pred_masks"):
+                scale = p32[key].abs().max().item()
+                kernel = (k16[key].float() - p32[key]).abs().max().item() / scale
+                plain = (p16[key].float() - p32[key]).abs().max().item() / scale
+                if not (math.isfinite(kernel) and kernel <= 1.5 * plain + 1e-3):
+                    raise AssertionError(f"{phase}: request {h}x{w} {key}: bf16 kernels "
+                                         f"{kernel:.3e}, bf16 plain ops {plain:.3e} from float32")
+                w0 = worst.get(key, (0.0, 0.0))
+                worst[key] = (max(w0[0], kernel), max(w0[1], plain))
+    log(phase, compare="bf16 kernels and bf16 plain ops against float32 plain ops, worst "
+        "request, relative to the float32 output's largest entry",
+        **{f"{k}_kernels": f"{v[0]:.3e}" for k, v in worst.items()},
+        **{f"{k}_plain": f"{v[1]:.3e}" for k, v in worst.items()}, bound="1.5 x plain + 1e-3")
+    busy32 = busy_ms(lambda: f32_predictor(images[0]))
+    busy16 = busy_ms(lambda: predictor(images[0]))
+    log(phase, request=f"{REQUESTS[0][0]}x{REQUESTS[0][1]}",
+        device_busy_ms_per_request_float32=f"{busy32:.3f}",
+        device_busy_ms_per_request_bfloat16=f"{busy16:.3f}", card=repr(card))
+    return launches, predictor
+
+
+def phase_eval_bf16(torch, card: str, cfg, predictor, evaluation: dict) -> dict:
+    """The 8 records of the evaluation phase (their ground truth the float32
+    model's own predictions) through the bfloat16 model: segm AP through the
+    kernels within 0.5 of AP through the plain ops, both bfloat16; the
+    float32 AP beside them."""
+    from mp_former_tpu_torch.engine.eval_loop import inference_on_dataset
+    from mp_former_tpu_torch.evaluation.coco_eval import COCOEvaluator
+
+    records, topk = evaluation["records"], cfg.TEST.DETECTIONS_PER_IMAGE
+    reset_kernel_counts()
+    with launch_types() as seen:
+        kernel = inference_on_dataset(cfg, predictor, records, COCOEvaluator(records, topk))["segm"]
+    launches = kernel_counts()
+    check_bf16_types("eval_bf16", seen)
+    with plain_ops():
+        plain = inference_on_dataset(cfg, predictor, records, COCOEvaluator(records, topk))["segm"]
+    log("eval_bf16", records=len(records), launches=launches,
+        kernel_path_AP=f"{kernel['AP']:.4f}", plain_path_AP=f"{plain['AP']:.4f}",
+        float32_kernel_path_AP=f"{evaluation['kernel']['AP']:.4f}", tol=0.5, card=repr(card))
+    aps = (kernel["AP"], plain["AP"])
+    if not (all(np.isfinite(aps)) and min(aps) > 0 and abs(aps[0] - aps[1]) <= 0.5):
+        raise AssertionError(f"eval_bf16: AP {aps[0]} through the kernels, {aps[1]} through "
+                             "the plain ops")
+    expected = {"msda_fwd": 0, "tap_weight_fwd": 18 * len(records),
+                "masked_attn_fwd": 9 * len(records)}
+    if launches != expected:
+        raise AssertionError(f"eval_bf16: kernel launches {launches}, expected {expected}")
+    return launches
 
 
 def rel_err(got, want) -> float:
@@ -682,6 +833,7 @@ def model_like_locations(torch, g, B, shapes, M, P):
 
 def phase_k1_bwd(torch, card: str) -> dict:
     from mp_former_tpu_torch.ops import msda_cuda
+    from mp_former_tpu_torch.utils.cuda_timing import two_clocks
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     M, D, P = 8, 32, 4
@@ -697,13 +849,20 @@ def phase_k1_bwd(torch, card: str) -> dict:
         sizes = torch.tensor([[w, h] for h, w in shapes], device="cuda").view(1, 1, 1, L, 1, 2)
         base = (loc * sizes - 0.5).floor()
         on_map = ((base >= -1) & (base <= sizes - 1)).all(-1).sum().item()
-        for dtype in (torch.float32, torch.bfloat16):
+        # float32, bfloat16, and the bfloat16 model's mix: a bfloat16 value and
+        # gradient with float32 locations and weights (held to bfloat16's tolerances)
+        for dtype, sampling in ((torch.float32,) * 2, (torch.bfloat16,) * 2,
+                                (torch.bfloat16, torch.float32)):
             name = str(dtype).split(".")[1]
-            go, v, lo, a = (t.to(dtype).contiguous() for t in (grad_out, value, loc, attn))
+            kind = name if sampling == dtype else f"{name}/{str(sampling).split('.')[1]}"
+            go, v = (t.to(dtype).contiguous() for t in (grad_out, value))
+            lo, a = (t.to(sampling).contiguous() for t in (loc, attn))
             # the forward at this shape too (phase K1 holds it at B = 1 only)
-            fwd_err = (msda_cuda.msda_fwd(v, shapes, lo, a).float()
-                       - msda_cuda.ms_deform_attn_plain(v.float(), shapes, lo.float(),
-                                                        a.float())).abs().max().item()
+            fwd = msda_cuda.msda_fwd(v, shapes, lo, a)
+            fwd_err = (fwd.float() - msda_cuda.ms_deform_attn_plain(
+                v.float(), shapes, lo.float(), a.float())).abs().max().item()
+            fwd_ms = two_clocks(lambda: msda_cuda.msda_fwd(v, shapes, lo, a))["ms"]
+            fwd_bound = bound(nbytes(v, lo, a, fwd), on_map * 5 * 2 * D, name)
             got = msda_cuda.msda_bwd(go, v, shapes, lo, a)
             torch.cuda.synchronize()
             want = msda_cuda.ms_deform_attn_backward_plain(go.float(), v.float(), shapes,
@@ -724,25 +883,27 @@ def phase_k1_bwd(torch, card: str) -> dict:
             # per tap on the map: the dot product with g and the add of w * g
             bnd = bound(nbytes(go, v, lo, a, got[1], got[2]) + v.numel() * 4,
                         on_map * 4 * 4 * D, name)
-            log("K1_bwd", case=case, dtype=name, shape=f"B{B}xQ{S}xM{M}xD{D}xL{L}xP{P}",
+            log("K1_bwd", case=case, dtype=kind, shape=f"B{B}xQ{S}xM{M}xD{D}xL{L}xP{P}",
                 rel_err_value_loc_attn=[f"{e:.2e}" for e in errs], tol=BWD_TOL[name],
                 max_abs_err=f"{abs_err:.3e}", forward_max_abs_err=f"{fwd_err:.3e}",
                 forward_tol=TOL[name], rel_err_vs_autograd_value_attn=[f"{e:.2e}" for e in auto_errs],
                 grad_loc_share_off_vs_autograd=f"{loc_miss:.2e}", autograd_tol=AUTOGRAD_TOL[name],
                 grad_value_reproducible="to rounding only (float32 atomics, in no fixed order)",
                 **fmt_times(times), bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
-                points_on_map=f"{on_map}/{B * S * M * L * P}", card=repr(card))
+                points_on_map=f"{on_map}/{B * S * M * L * P}", forward_ms=f"{fwd_ms:.5f}",
+                forward_bound_ms=f"{fwd_bound['bound_ms']:.4f}",
+                forward_bound_by=fwd_bound["bound_by"], card=repr(card))
             if not fwd_err <= TOL[name]:
-                raise AssertionError(f"K1 forward {case} {name}: max abs error {fwd_err} against "
+                raise AssertionError(f"K1 forward {case} {kind}: max abs error {fwd_err} against "
                                      f"the plain version, above {TOL[name]}")
             if not max(errs) <= BWD_TOL[name]:
-                raise AssertionError(f"K1 backward {case} {name}: relative errors {errs} "
+                raise AssertionError(f"K1 backward {case} {kind}: relative errors {errs} "
                                      f"against the plain backward, above {BWD_TOL[name]}")
             if not (max(auto_errs) <= AUTOGRAD_TOL[name] and loc_miss <= 1e-5):
-                raise AssertionError(f"K1 backward {case} {name}: against autograd of the plain "
+                raise AssertionError(f"K1 backward {case} {kind}: against autograd of the plain "
                                      f"forward {auto_errs}, grad_loc off on {loc_miss} of entries")
-            res[(case, name)] = {"max_abs_err": abs_err, **times, **bnd}
-            del got, go, v, lo, a
+            res[(case, kind)] = {"max_abs_err": abs_err, **times, **bnd}
+            del got, go, v, lo, a, fwd
     return res
 
 
@@ -996,6 +1157,110 @@ def phase_train(torch, card: str) -> dict:
     if not moved or not all(v > 0 for v in moved.values()):
         raise AssertionError(f"train: parameters did not move: {moved}")
     log("train", parameters_watched=len(moved), all_moved=True, ok=True)
+    return launches, {"step_s": seconds[1:], "peak_GiB": peak_gb}
+
+
+def cosine(a, b) -> float:
+    return (a.double().flatten() @ b.double().flatten()
+            / (a.double().norm() * b.double().norm()).clamp(min=1e-300)).item()
+
+
+def phase_train_bf16(torch, card: str, f32: dict) -> dict:
+    """The training phase's recipe, batches and seeded weights with
+    `TPU.COMPUTE_DTYPE bfloat16`: step 0 through the kernels against the same
+    step through autograd of the plain ops, both bfloat16 (every loss within
+    2e-2 of the plain one, relative; the gradient of every parameter whose
+    float32 gradient is clear of rounding noise, above 1e-3 of the largest,
+    at a cosine of at least 0.99 with the plain one), every launch in
+    bfloat16; then 1 warm and 3 timed steps through `Trainer` with parameters,
+    gradients and AdamW state float32; s/step and peak memory beside the
+    float32 phase's."""
+    import shutil
+
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.engine.trainer import Trainer
+
+    out_dir = os.path.join(REPO, "output", "chip_smoke_train_bf16")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "TPU.COMPUTE_DTYPE", "bfloat16",
+                            "OUTPUT_DIR", out_dir])
+    batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                TRAIN_MAX_INSTANCES, seed=SEED)
+    trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
+    model, criterion = trainer.model, trainer.criterion
+    if model.compute_dtype != torch.bfloat16:
+        raise AssertionError("train_bf16: the model does not read TPU.COMPUTE_DTYPE bfloat16")
+    first = next(batches).to("cuda")
+
+    reset_kernel_counts()
+    with launch_types() as seen:
+        k_losses, k_grads, assignments = loss_and_gradients(torch, model, criterion, first)
+    launches = kernel_counts(backward=True)
+    check_bf16_types("train_bf16", seen)
+    if launches != TRAIN_EXPECTED:
+        raise AssertionError(f"train_bf16: kernel launches of one step {launches}, expected "
+                             f"{TRAIN_EXPECTED}")
+    with plain_ops():
+        p_losses, p_grads, _ = loss_and_gradients(torch, model, criterion, first, assignments)
+    model.compute_dtype = torch.float32
+    f_losses, f_grads, _ = loss_and_gradients(torch, model, criterion, first, assignments)
+    model.compute_dtype = torch.bfloat16
+    loss_err = max(abs(k_losses[k] - p_losses[k]) / max(abs(p_losses[k]), 1e-6) for k in p_losses)
+    f32_loss_err = max(abs(k_losses[k] - f_losses[k]) / max(abs(f_losses[k]), 1e-6)
+                       for k in f_losses)
+    if not all(torch.isfinite(g).all() and g.dtype == torch.float32 for g in k_grads.values()):
+        raise AssertionError("train_bf16: non-finite or non-float32 gradients")
+    largest = max(g.abs().max().item() for g in f_grads.values())
+    clear = [n for n, g in f_grads.items() if g.abs().max().item() > 1e-3 * largest]
+    cos_plain = sorted((cosine(k_grads[n], p_grads[n]), n) for n in clear)
+    cos_f32 = sorted((cosine(k_grads[n], f_grads[n]), n) for n in clear)
+    log("train_bf16", compare="step 0, bf16 kernels vs bf16 autograd of the plain ops",
+        losses=len(k_losses), loss_max_rel_err=f"{loss_err:.3e}", loss_tol=2e-2,
+        gradients_clear_of_noise=len(clear), gradients=len(f_grads),
+        grad_min_cosine=f"{cos_plain[0][0]:.5f}", grad_cosine_tol=0.99,
+        worst=[(n, f"{c:.5f}") for c, n in cos_plain[:3]])
+    log("train_bf16", compare="step 0, bf16 kernels vs float32 kernels (information)",
+        loss_max_rel_err=f"{f32_loss_err:.3e}", grad_min_cosine=f"{cos_f32[0][0]:.5f}",
+        worst=[(n, f"{c:.5f}") for c, n in cos_f32[:3]])
+    if not (loss_err <= 2e-2 and len(clear) > 100 and cos_plain[0][0] >= 0.99):
+        raise AssertionError(f"train_bf16: step 0 through the kernels and through the plain ops "
+                             f"disagree: losses {loss_err}, gradients {cos_plain[:3]}")
+    del k_grads, p_grads, f_grads
+    model.zero_grad(set_to_none=True)
+
+    reset_kernel_counts()
+    criterion.matcher_host_seconds = 0.0
+    torch.cuda.synchronize()
+    seconds = []
+    with launch_types() as seen:
+        for step, batch in zip(range(4), itertools.chain([first], batches)):
+            if step == 1:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics = trainer.run_step(batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    launches = kernel_counts(backward=True)
+    check_bf16_types("train_bf16", seen)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {k: 4 * v for k, v in TRAIN_EXPECTED.items()}
+    log("train_bf16", steps=4, launches=launches, expected=expected)
+    log("train_bf16", timed_steps_s_bfloat16=[f"{t:.4f}" for t in seconds[1:]],
+        timed_steps_s_float32=[f"{t:.4f}" for t in f32["step_s"]],
+        peak_memory_allocated_GiB_bfloat16=f"{peak_gb:.2f}",
+        peak_memory_allocated_GiB_float32=f"{f32['peak_GiB']:.2f}",
+        total_loss=f"{float(metrics['total_loss']):.3f}",
+        batch=f"{TRAIN_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}", card=repr(card))
+    if launches != expected:
+        raise AssertionError(f"train_bf16: kernel launches {launches}, expected {expected}")
+    if len(metrics) != 61 or not all(np.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError("train_bf16: loss keys missing or a non-finite loss")
+    opt = trainer.optimizer
+    state = [t for p in opt.param_groups for q in p["params"] for t in (q, q.grad,
+             *opt.state[q].values()) if torch.is_tensor(t) and t.is_floating_point()]
+    if not all(t.dtype == torch.float32 for t in state):
+        raise AssertionError("train_bf16: parameters, gradients or AdamW state not float32")
+    log("train_bf16", float32_parameters_gradients_adamw_state=len(state), ok=True)
     return launches
 
 
@@ -1282,16 +1547,29 @@ def main() -> int:
         torch, card, "slice2", cfg2,
         {"msda_fwd": 0, "tap_weight_fwd": 18, "masked_attn_fwd": 9}, warm_passes=1)
     route = phase_tap_weighting_route(torch, card, predictor1, images[0], canvas, k1_out)
-    phase_eval(torch, card, cfg2, predictor2)
-    del predictor1, predictor2, k1_out
+    evaluation = phase_eval(torch, card, cfg2, predictor2)
+    # TPU.COMPUTE_DTYPE bfloat16: the released recipe switched to it, the TPU
+    # recipe as its YAML says
+    s1_bf16, _ = phase_slice_bf16(
+        torch, card, "slice_bf16", load_cfg(CONFIG, ["TPU.COMPUTE_DTYPE", "bfloat16"]),
+        {"msda_fwd": 6, "tap_weight_fwd": 0, "masked_attn_fwd": 9}, images, predictor1)
+    cfg2_bf16 = load_cfg(TPU_CONFIG, [])
+    s2_bf16, predictor2_bf16 = phase_slice_bf16(
+        torch, card, "slice2_bf16", cfg2_bf16,
+        {"msda_fwd": 0, "tap_weight_fwd": 18, "masked_attn_fwd": 9}, images, predictor2)
+    eval_bf16 = phase_eval_bf16(torch, card, cfg2_bf16, predictor2_bf16, evaluation)
+    del predictor1, predictor2, predictor2_bf16, k1_out
     torch.cuda.empty_cache()
     k1_bwd = phase_k1_bwd(torch, card)
     k3_bwd = phase_k3_bwd(torch, card)
-    train = phase_train(torch, card)
+    train, train_f32 = phase_train(torch, card)
+    torch.cuda.empty_cache()
+    train_bf16 = phase_train_bf16(torch, card, train_f32)
     torch.cuda.empty_cache()
     train_coco = phase_train_coco(torch, card)
     by_path = {"slice": s1, "slice2": s2, "tap_weighting_route": route, "train": train,
-               "train_coco": train_coco}
+               "train_coco": train_coco, "slice_bf16": s1_bf16, "slice2_bf16": s2_bf16,
+               "eval_bf16": eval_bf16, "train_bf16": train_bf16}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",

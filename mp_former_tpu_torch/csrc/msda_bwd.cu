@@ -132,12 +132,14 @@ struct Taps {
   float w00, w01, w10, w11;
 };
 
-template <typename T>
+// T: grad_out and value; U: locations, weights and their gradients (T, or
+// float32 for a bfloat16 value)
+template <typename T, typename U>
 __global__ void __launch_bounds__(kThreads)
 msda_bwd_kernel(const T* __restrict__ grad_out, const T* __restrict__ value,
-                const int* __restrict__ levels, const T* __restrict__ loc,
-                const T* __restrict__ attn, float* __restrict__ grad_value,
-                T* __restrict__ grad_loc, T* __restrict__ grad_attn,
+                const int* __restrict__ levels, const U* __restrict__ loc,
+                const U* __restrict__ attn, float* __restrict__ grad_value,
+                U* __restrict__ grad_loc, U* __restrict__ grad_attn,
                 int S, int Q, int M, int L, int P) {
   extern __shared__ int s_levels[];  // (L, 3): H, W, first token
   for (int i = threadIdx.x; i < 3 * L; i += kThreads) s_levels[i] = levels[i];
@@ -154,8 +156,8 @@ msda_bwd_kernel(const T* __restrict__ grad_out, const T* __restrict__ value,
   // every lane stays in the shuffles; a group past the last query adds and writes nothing
   const int pair = (b * Q + (live ? q : Q - 1)) * M + m;
   const int LP = L * P;
-  const T* loc_p = loc + (long long)pair * LP * 2;
-  const T* attn_p = attn + (long long)pair * LP;
+  const U* loc_p = loc + (long long)pair * LP * 2;
+  const U* attn_p = attn + (long long)pair * LP;
   const int pix_stride = M * kD;  // elements between pixels
   const long long lane_base = (long long)b * S * pix_stride + m * kD + lane * kVec;
   const T* base = value + lane_base;
@@ -235,7 +237,7 @@ msda_bwd_kernel(const T* __restrict__ grad_out, const T* __restrict__ value,
   }
 }
 
-template <typename T>
+template <typename T, typename U>
 cudaError_t launch(const void* grad_out, const void* value, const void* levels, const void* loc,
                    const void* attn, void* grad_value, void* grad_loc, void* grad_attn,
                    int B, int S, int Q, int M, int L, int P, cudaStream_t stream) {
@@ -249,18 +251,19 @@ cudaError_t launch(const void* grad_out, const void* value, const void* levels, 
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   const long long blocks = (long long)B * M * ((Q + kQueriesPerBlock - 1) / kQueriesPerBlock);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  msda_bwd_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  msda_bwd_kernel<T, U><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(grad_out), static_cast<const T*>(value),
-      static_cast<const int*>(levels), static_cast<const T*>(loc), static_cast<const T*>(attn),
-      static_cast<float*>(grad_value), static_cast<T*>(grad_loc), static_cast<T*>(grad_attn),
+      static_cast<const int*>(levels), static_cast<const U*>(loc), static_cast<const U*>(attn),
+      static_cast<float*>(grad_value), static_cast<U*>(grad_loc), static_cast<U*>(grad_attn),
       S, Q, M, L, P);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Every pointer must be 16-byte aligned.
-// grad_value is float32 for both types and must be zero on entry. Returns the
+// dtype: 0 = float32, 1 = bfloat16, 2 = bfloat16 grad_out and value with
+// float32 locations, weights and their gradients. Every pointer must be
+// 16-byte aligned. grad_value is float32 for both types and must be zero on entry. Returns the
 // launch's cudaError_t (0 = cudaSuccess); the launch is asynchronous on
 // `stream`.
 extern "C" int msda_bwd(const void* grad_out, const void* value, const void* levels,
@@ -270,10 +273,14 @@ extern "C" int msda_bwd(const void* grad_out, const void* value, const void* lev
   if (D != kD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(grad_out, value, levels, loc, attn, grad_value, grad_loc,
-                              grad_attn, B, S, Q, M, L, P, s);
+    return (int)launch<float, float>(grad_out, value, levels, loc, attn, grad_value, grad_loc,
+                                     grad_attn, B, S, Q, M, L, P, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(grad_out, value, levels, loc, attn, grad_value, grad_loc,
-                                      grad_attn, B, S, Q, M, L, P, s);
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(grad_out, value, levels, loc, attn,
+                                                     grad_value, grad_loc, grad_attn, B, S, Q,
+                                                     M, L, P, s);
+  if (dtype == 2)
+    return (int)launch<__nv_bfloat16, float>(grad_out, value, levels, loc, attn, grad_value,
+                                             grad_loc, grad_attn, B, S, Q, M, L, P, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -132,10 +132,11 @@ __device__ __forceinline__ void add_point(float4& acc, const T* __restrict__ bas
   fma_vec(acc, __shfl_sync(kFullMask, mine.w11, k, kLanes), v11);
 }
 
-template <typename T>
+// T: value and out; U: locations and weights (T, or float32 for a bfloat16 value)
+template <typename T, typename U>
 __global__ void __launch_bounds__(kThreads)
 msda_fwd_kernel(const T* __restrict__ value, const int* __restrict__ levels,
-                const T* __restrict__ loc, const T* __restrict__ attn, T* __restrict__ out,
+                const U* __restrict__ loc, const U* __restrict__ attn, T* __restrict__ out,
                 int S, int Q, int M, int L, int P) {
   extern __shared__ int s_levels[];  // (L, 3): H, W, first token
   for (int i = threadIdx.x; i < 3 * L; i += kThreads) s_levels[i] = levels[i];
@@ -153,8 +154,8 @@ msda_fwd_kernel(const T* __restrict__ value, const int* __restrict__ levels,
   const int pair = (b * Q + (live ? q : Q - 1)) * M + m;
   const int LP = L * P;
   // the pair's rows of locations and weights are contiguous
-  const T* loc_p = loc + (long long)pair * LP * 2;
-  const T* attn_p = attn + (long long)pair * LP;
+  const U* loc_p = loc + (long long)pair * LP * 2;
+  const U* attn_p = attn + (long long)pair * LP;
   const int pix_stride = M * kD;  // elements between pixels
   const T* base = value + (long long)b * S * pix_stride + m * kD + lane * kVec;
 
@@ -204,7 +205,7 @@ msda_fwd_kernel(const T* __restrict__ value, const int* __restrict__ levels,
   if (live) store_vec(out + (long long)pair * kD + lane * kVec, acc);
 }
 
-template <typename T>
+template <typename T, typename U>
 cudaError_t launch(const void* value, const void* levels, const void* loc, const void* attn,
                    void* out, int B, int S, int Q, int M, int L, int P, cudaStream_t stream) {
   if ((long long)B * Q * M == 0) return cudaSuccess;
@@ -216,15 +217,16 @@ cudaError_t launch(const void* value, const void* levels, const void* loc, const
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   const long long blocks = (long long)B * M * ((Q + kQueriesPerBlock - 1) / kQueriesPerBlock);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  msda_fwd_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(value), static_cast<const int*>(levels), static_cast<const T*>(loc),
-      static_cast<const T*>(attn), static_cast<T*>(out), S, Q, M, L, P);
+  msda_fwd_kernel<T, U><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(value), static_cast<const int*>(levels), static_cast<const U*>(loc),
+      static_cast<const U*>(attn), static_cast<T*>(out), S, Q, M, L, P);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Every pointer must be 16-byte aligned.
+// dtype: 0 = float32, 1 = bfloat16, 2 = bfloat16 value and out with float32
+// locations and weights. Every pointer must be 16-byte aligned.
 // Returns the launch's cudaError_t (0 = cudaSuccess); the launch is
 // asynchronous on `stream`.
 extern "C" int msda_fwd(const void* value, const void* levels, const void* loc,
@@ -234,8 +236,11 @@ extern "C" int msda_fwd(const void* value, const void* levels, const void* loc,
   if (D != kD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(value, levels, loc, attn, out, B, S, Q, M, L, P, s);
+    return (int)launch<float, float>(value, levels, loc, attn, out, B, S, Q, M, L, P, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(value, levels, loc, attn, out, B, S, Q, M, L, P, s);
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(value, levels, loc, attn, out, B, S, Q, M,
+                                                     L, P, s);
+  if (dtype == 2)
+    return (int)launch<__nv_bfloat16, float>(value, levels, loc, attn, out, B, S, Q, M, L, P, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -97,6 +97,7 @@ class Predictor:
         inst = postprocess_instance(logits, masks, image_size, h, w,
                                     self.cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
                                     self.cfg.TEST.DETECTIONS_PER_IMAGE)
-        return {"instances": {"scores": inst.scores.cpu().numpy(),
+        # a bfloat16 model's scores are bfloat16, which numpy has no type for
+        return {"instances": {"scores": inst.scores.float().cpu().numpy(),
                               "classes": inst.pred_classes.cpu().numpy(),
                               "masks": inst.pred_masks.cpu().numpy()}}

@@ -22,7 +22,10 @@ from ...utils.shape_spec import ShapeSpec
 
 class FrozenBatchNorm2d(nn.Module):
     """BatchNorm with fixed statistics and affine parameters, all buffers
-    (detectron2 FrozenBatchNorm2d)."""
+    (detectron2 FrozenBatchNorm2d). The float32 statistics promote a
+    bfloat16 convolution's result to float32, as in the JAX package
+    (`resnet.py:38-39`): the convolutions run in the compute type, the maps
+    between them are float32."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -35,7 +38,7 @@ class FrozenBatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self.weight * (self.running_var + self.eps).rsqrt()
         shift = self.bias - self.running_mean * scale
-        return x * scale.view(1, -1, 1, 1).to(x.dtype) + shift.view(1, -1, 1, 1).to(x.dtype)
+        return x * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
 
 
 class BasicStem(nn.Module):

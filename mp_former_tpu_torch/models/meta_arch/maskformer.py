@@ -8,6 +8,15 @@ Normalises, runs backbone -> head and returns the prediction dict
 With `targets` (training) the decoder also runs MP-Former's mask-piloted (DN)
 queries and the dict carries `dn_out`. The losses are in `models/criterion.py`,
 post-processing in `mp_former_tpu_torch/inference.py`.
+
+`TPU.COMPUTE_DTYPE bfloat16` (`compute_dtype`) is the JAX package's
+AMP-equivalent mode: the normalisation stays float32 (JAX `maskformer.py:85-88`),
+backbone and head run in a `torch.autocast` region (utils.compute_region) with
+the JAX package's types at the modules' boundaries, parameters stay float32,
+and `pred_logits` and `pred_masks` come out in bfloat16. The criterion runs
+outside the region, in float32 from its casts of the outputs, as the JAX
+package's losses do after theirs (autocast would put its matmuls back into
+bfloat16).
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import torch
 from torch import nn
 
 from ...structures import DNArgs, Targets
+from ...utils import compute_dtype, compute_region
 from ...utils.registry import BACKBONE_REGISTRY, META_ARCH_REGISTRY, SEM_SEG_HEADS_REGISTRY
 
 
@@ -34,8 +44,9 @@ class MaskFormer(nn.Module):
     def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
                  pixel_mean: Sequence[float], pixel_std: Sequence[float],
                  size_divisibility: int = 32, scalar: int = 5, noise_scale: float = 0.2,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         # DN (mask-piloted) training (reference from_config :121-122)
         self.scalar, self.noise_scale = scalar, noise_scale
         self.dropout = dropout
@@ -52,7 +63,8 @@ class MaskFormer(nn.Module):
         head = build_sem_seg_head(cfg, backbone.output_shape())
         return cls(backbone, head, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
                    cfg.MODEL.MASK_FORMER.SIZE_DIVISIBILITY, cfg.MODEL.DN.NUM_DN,
-                   cfg.MODEL.DN.NOISE_SCALE, cfg.MODEL.MASK_FORMER.DROPOUT)
+                   cfg.MODEL.DN.NOISE_SCALE, cfg.MODEL.MASK_FORMER.DROPOUT,
+                   compute_dtype(cfg))
 
     def forward(self, images: torch.Tensor, targets: Optional[Targets] = None, dn_groups=None,
                 generator: Optional[torch.Generator] = None) -> Dict:
@@ -67,14 +79,15 @@ class MaskFormer(nn.Module):
             raise ValueError(f"image size {tuple(images.shape[1:3])} is not padded to /{div}")
         x = images.permute(0, 3, 1, 2).float()
         x = (x - self.pixel_mean) / self.pixel_std
-        features = self.backbone(x)
-        if targets is None:
-            return self.sem_seg_head(features)
-        if self.dropout > 0:
+        if self.dropout > 0 and targets is not None:
             raise NotImplementedError(
                 f"MODEL.MASK_FORMER.DROPOUT {self.dropout}: the port carries no dropout (the "
                 "recipes train with 0.0, which only the pixel decoder's encoder would read)")
-        groups, batch_max = dn_groups if isinstance(dn_groups, tuple) else (dn_groups, None)
-        dn_args = DNArgs(targets=targets, scalar=self.scalar, noise_scale=self.noise_scale,
-                         groups=groups, batch_max=batch_max)
-        return self.sem_seg_head(features, dn_args, generator)
+        with compute_region(x.device.type, self.compute_dtype):
+            features = self.backbone(x)
+            if targets is None:
+                return self.sem_seg_head(features)
+            groups, batch_max = dn_groups if isinstance(dn_groups, tuple) else (dn_groups, None)
+            dn_args = DNArgs(targets=targets, scalar=self.scalar, noise_scale=self.noise_scale,
+                             groups=groups, batch_max=batch_max)
+            return self.sem_seg_head(features, dn_args, generator)

@@ -9,6 +9,15 @@ grid of pixel centres. `TPU.SAMPLING_ENGINE` and `TPU.PALLAS_TAP_WEIGHTING`
 choose the deformable sampling engine (`ops/ms_deform_attn.py:MSDeformAttn`).
 Only the unrolled encoder is ported: `TPU.SCAN_ENCODER`, `TPU.SHARD_TOKENS` and
 remat are TPU devices.
+
+In a bfloat16 compute region (`TPU.COMPUTE_DTYPE bfloat16`) the module follows
+its reference, the JAX package (`msdeformattn.py:285-332`), and departs on
+purpose from upstream Mask2Former, which runs it in float32 under AMP: the
+backbone's maps are rounded to bfloat16, the input projections, the FPN
+convolutions and their GroupNorms run in float32 on those rounded maps (flax
+promotes them), the position embeddings are bfloat16 and the encoder layers
+compute in bfloat16. mask_features come out float32, the multi-scale maps
+bfloat16.
 """
 
 from __future__ import annotations
@@ -21,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.ms_deform_attn import MSDeformAttn
-from ...utils.layers import Conv2d, c2_xavier_fill
+from ...utils import float32_region, region_dtype
+from ...utils.layers import Conv2d, LayerNorm, c2_xavier_fill
 from ...utils.registry import PIXEL_DECODER_REGISTRY
 from ...utils.shape_spec import ShapeSpec
 from ..transformer_decoder.position_encoding import position_embedding_sine
@@ -49,10 +59,10 @@ class MSDeformAttnTransformerEncoderLayer(nn.Module):
         super().__init__()
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                       sampling_engine, pallas_weighting)
-        self.norm1 = nn.LayerNorm(d_model)
+        self.norm1 = LayerNorm(d_model)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm2 = nn.LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
 
     def forward(self, src, pos, reference_points, spatial_shapes):
         src = self.norm1(src + self.self_attn(src + pos, reference_points, src, spatial_shapes))
@@ -171,12 +181,15 @@ class MSDeformAttnPixelDecoder(nn.Module):
         )
 
     def forward_features(self, features: Dict[str, torch.Tensor]):
+        device_type = next(iter(features.values())).device.type
+        dtype = region_dtype(device_type)
         srcs, pos = [], []
         for idx, f in enumerate(self.transformer_in_features):
-            x = features[f].float()  # the reference pins this module to fp32
-            srcs.append(self.input_proj[idx](x))
+            x = features[f].to(dtype)
+            with float32_region(device_type):
+                srcs.append(self.input_proj[idx](x.float()))
             h, w = x.shape[-2:]
-            pe = position_embedding_sine(h, w, self.conv_dim // 2, device=x.device)
+            pe = position_embedding_sine(h, w, self.conv_dim // 2, device=x.device, dtype=dtype)
             pos.append(pe.permute(2, 0, 1)[None].expand(x.shape[0], -1, -1, -1))
         memory, spatial_shapes = self.transformer(srcs, pos)
         out, start = [], 0
@@ -184,10 +197,12 @@ class MSDeformAttnPixelDecoder(nn.Module):
         for h, w in spatial_shapes:
             out.append(memory[:, start:start + h * w].transpose(1, 2).reshape(B, self.conv_dim, h, w))
             start += h * w
-        for idx, f in enumerate(self.fpn_features):
-            x = features[f].float()
-            lateral = getattr(self, f"adapter_{idx + 1}")(x)
-            y = lateral + F.interpolate(out[-1], size=x.shape[-2:], mode="bilinear",
-                                        align_corners=False)
-            out.append(getattr(self, f"layer_{idx + 1}")(y))
-        return self.mask_features(out[-1]), out[0], out[:self.maskformer_num_feature_levels]
+        with float32_region(device_type):
+            for idx, f in enumerate(self.fpn_features):
+                x = features[f].to(dtype)
+                lateral = getattr(self, f"adapter_{idx + 1}")(x.float())
+                y = lateral + F.interpolate(out[-1], size=x.shape[-2:], mode="bilinear",
+                                            align_corners=False)
+                out.append(getattr(self, f"layer_{idx + 1}")(y))
+            mask_features = self.mask_features(out[-1])
+        return mask_features, out[0], out[:self.maskformer_num_feature_levels]

@@ -29,8 +29,9 @@ import torch
 from torch import nn
 
 from ...structures import DNArgs
+from ...utils import float32_region, region_dtype
 from ...utils.interp import resize
-from ...utils.layers import Conv2d, c2_xavier_fill
+from ...utils.layers import Conv2d, LayerNorm, c2_xavier_fill
 from ...utils.registry import TRANSFORMER_DECODER_REGISTRY
 from .position_encoding import position_embedding_sine
 from ..matcher import uniform
@@ -79,7 +80,7 @@ class MultiScaleMaskedTransformerDecoderMaskDN(nn.Module):
             CrossAttentionLayer(hidden_dim, nheads) for _ in range(dec_layers))
         self.transformer_ffn_layers = nn.ModuleList(
             FFNLayer(hidden_dim, dim_feedforward) for _ in range(dec_layers))
-        self.decoder_norm = nn.LayerNorm(hidden_dim)
+        self.decoder_norm = LayerNorm(hidden_dim)
         self.query_feat = nn.Embedding(num_queries, hidden_dim)
         self.level_embed = nn.Embedding(num_feature_levels, hidden_dim)
         self.input_proj = nn.ModuleList()
@@ -130,8 +131,13 @@ class MultiScaleMaskedTransformerDecoderMaskDN(nn.Module):
         outputs_class = self.class_embed(dec)
         mask_embed = self.mask_embed(dec)
         outputs_mask = torch.einsum("bqc,bchw->bqhw", mask_embed, mask_features)
-        attn_mask = resize(outputs_mask, attn_mask_target_size, "bilinear")
-        attn_mask = attn_mask.sigmoid().flatten(2) < 0.5
+        # the JAX package (`mask2former_decoder.py:325-327`) resizes the mask
+        # logits in their own type and thresholds the sigmoid there: in
+        # bfloat16 a logit within ~0.004 below 0 rounds to a sigmoid of 0.5,
+        # which does not block
+        with float32_region(outputs_mask.device.type):
+            attn_mask = resize(outputs_mask, attn_mask_target_size, "bilinear")
+            attn_mask = attn_mask.sigmoid().flatten(2) < 0.5
         return outputs_class, outputs_mask, attn_mask
 
     def _prepare_dn(self, dn_args: DNArgs, size_list, generator):
@@ -188,7 +194,7 @@ class MultiScaleMaskedTransformerDecoderMaskDN(nn.Module):
             rand_lb = (uniform(labels.shape, generator, device) * self.num_classes).long()
             labels = torch.where(flip, rand_lb, labels)
         labels = labels.clamp(0, self.num_classes - 1)
-        content = self.label_enc(labels) * valid[:, None, :, None]
+        content = (self.label_enc(labels) * valid[:, None, :, None]).to(region_dtype(device.type))
         tgt_mask = _dn_tgt_mask(scalar, N, self.num_queries).to(device)
         meta = {"max_num": N, "pad_size": pad_size, "scalar": scalar}
         return content.reshape(B, pad_size, self.hidden_dim), tgt_mask, dn_padding_mask, meta
@@ -213,7 +219,8 @@ class MultiScaleMaskedTransformerDecoderMaskDN(nn.Module):
             src.append(self.input_proj[i](xi).flatten(2).transpose(1, 2)
                        + self.level_embed.weight[i][None, None])
 
-        output = self.query_feat.weight[None].expand(B, -1, -1)
+        # the queries enter the layers in the compute type (JAX :469-483)
+        output = self.query_feat.weight[None].expand(B, -1, -1).to(region_dtype(x[0].device.type))
         use_dn = dn_args is not None and self.has_label_enc
         tgt_mask, pad_size = None, 0
         if use_dn:

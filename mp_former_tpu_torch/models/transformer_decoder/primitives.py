@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.masked_attention_cuda import masked_attention
+from ...utils.layers import LayerNorm
 
 _NEG_INF = -1e9
 
@@ -82,7 +83,7 @@ class SelfAttentionLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int):
         super().__init__()
         self.self_attn = MultiheadAttention(d_model, nhead, fused=False)
-        self.norm = nn.LayerNorm(d_model)
+        self.norm = LayerNorm(d_model)
         _xavier_matrices(self)
 
     def forward(self, tgt, tgt_mask: Optional[torch.Tensor] = None):
@@ -93,7 +94,7 @@ class CrossAttentionLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int):
         super().__init__()
         self.multihead_attn = MultiheadAttention(d_model, nhead)
-        self.norm = nn.LayerNorm(d_model)
+        self.norm = LayerNorm(d_model)
         _xavier_matrices(self)
 
     def forward(self, tgt, memory, memory_mask, pos):
@@ -105,7 +106,7 @@ class FFNLayer(nn.Module):
         super().__init__()
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
-        self.norm = nn.LayerNorm(d_model)
+        self.norm = LayerNorm(d_model)
         _xavier_matrices(self)
 
     def forward(self, tgt):

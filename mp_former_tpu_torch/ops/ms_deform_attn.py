@@ -98,10 +98,16 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
     """value (B, S, M, D), sampling_locations (B, Q, M, L, P, 2) in [0, 1] as
     (x, y), attention_weights (B, Q, M, L, P) -> (B, Q, M * D).
     `pallas_weighting` (TPU.PALLAS_TAP_WEIGHTING) takes the patch-table gather
-    and K2 instead of K1."""
+    and K2 instead of K1. The JAX package's types (`ms_deform_attn.py:56`):
+    value in the compute type, the result in value's type, the sampling
+    arithmetic in float32, so locations and weights arrive in (or are cast
+    to) float32 when value is bfloat16."""
     if len(spatial_shapes) != sampling_locations.shape[3]:
         raise ValueError(f"ms_deform_attn: {len(spatial_shapes)} spatial shapes for "
                          f"L={sampling_locations.shape[3]} levels")
+    work = torch.promote_types(value.dtype, torch.float32)
+    sampling_locations = sampling_locations.to(work)
+    attention_weights = attention_weights.to(work)
     if pallas_weighting:
         return _ms_deform_attn_tap_weighting(value, spatial_shapes, sampling_locations,
                                              attention_weights)

@@ -14,7 +14,9 @@ sends CUDA tensors to the kernels and CPU tensors to the plain version.
 
 Layouts (the JAX package's): value (B, S, M, D), sampling_locations
 (B, Q, M, L, P, 2) in [0, 1] as (x, y), attention_weights (B, Q, M, L, P);
-result (B, Q, M * D).
+result (B, Q, M * D). Types the kernels take: all float32, all bfloat16, or
+value (and grad_out) bfloat16 with float32 locations and weights, the model's
+bfloat16 mode, whose sampling arithmetic is float32 as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,7 +38,11 @@ BWD_LAUNCHES = 0
 def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                          sampling_locations: torch.Tensor,
                          attention_weights: torch.Tensor) -> torch.Tensor:
-    """grid_sample form (reference ms_deform_attn_func.py:52-72)."""
+    """grid_sample form (reference ms_deform_attn_func.py:52-72), in the
+    locations' type (float32 for a bfloat16 value, as the kernel's sampling
+    arithmetic); the result in value's type."""
+    dtype = value.dtype
+    value = value.to(sampling_locations.dtype)
     B, S, M, D = value.shape
     _, Q, _, L, P, _ = sampling_locations.shape
     value_list = value.split([h * w for h, w in spatial_shapes], dim=1)
@@ -49,7 +55,7 @@ def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int
                                      align_corners=False))        # (B*M, D, Q, P)
     attn = attention_weights.transpose(1, 2).reshape(B * M, 1, Q, L * P)
     out = (torch.stack(samples, dim=-2).flatten(-2) * attn).sum(-1).view(B, M * D, Q)
-    return out.transpose(1, 2).contiguous()
+    return out.transpose(1, 2).to(dtype).contiguous()
 
 
 def _level_starts(shapes: Sequence[Tuple[int, int]]):
@@ -195,20 +201,31 @@ def _check_shapes(name: str, value, spatial_shapes, sampling_locations, attentio
     return (B, S, Q, M, L, P, D), shapes
 
 
+def _check_types(name: str, value, sampling_locations, attention_weights, *more):
+    """value (and `more`) float32 or bfloat16, the locations and weights of
+    one type, value's or float32; returns the device and the kernels' type
+    code: 0 float32, 1 bfloat16, 2 bfloat16 value with float32 locations and
+    weights."""
+    device = check_inputs(name, (value, *more), tuple(DTYPE_CODES), align=16)
+    sampling = tuple(dict.fromkeys((value.dtype, torch.float32)))
+    if check_inputs(name, (sampling_locations, attention_weights), sampling, align=16) != device:
+        raise ValueError(f"{name}: all inputs must be CUDA tensors on one device")
+    return device, 2 if sampling_locations.dtype != value.dtype else DTYPE_CODES[value.dtype]
+
+
 def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
              sampling_locations: torch.Tensor,
              attention_weights: torch.Tensor) -> torch.Tensor:
     """Launch K1 on CUDA tensors (forward only); raises on anything it does
     not take, and if the launch fails."""
     global LAUNCHES
-    device = check_inputs("msda_fwd", (value, sampling_locations, attention_weights),
-                          tuple(DTYPE_CODES), align=16)
+    device, code = _check_types("msda_fwd", value, sampling_locations, attention_weights)
     (B, S, Q, M, L, P, D), shapes = _check_shapes("msda_fwd", value, spatial_shapes,
                                                   sampling_locations, attention_weights)
     out = torch.empty((B, Q, M * D), dtype=value.dtype, device=device)
     launch("msda_fwd", device, value.data_ptr(), _level_table(shapes, device).data_ptr(),
            sampling_locations.data_ptr(), attention_weights.data_ptr(), out.data_ptr(),
-           B, S, Q, M, L, P, D, DTYPE_CODES[value.dtype])
+           B, S, Q, M, L, P, D, code)
     LAUNCHES += 1
     return out
 
@@ -222,8 +239,8 @@ def msda_bwd(grad_out: torch.Tensor, value: torch.Tensor,
     from run to run. Raises on anything the kernel does not take, and if the
     launch fails."""
     global BWD_LAUNCHES
-    device = check_inputs("msda_bwd", (grad_out, value, sampling_locations, attention_weights),
-                          tuple(DTYPE_CODES), align=16)
+    device, code = _check_types("msda_bwd", value, sampling_locations, attention_weights,
+                                grad_out)
     (B, S, Q, M, L, P, D), shapes = _check_shapes("msda_bwd", value, spatial_shapes,
                                                   sampling_locations, attention_weights)
     if grad_out.shape != (B, Q, M * D):
@@ -234,7 +251,7 @@ def msda_bwd(grad_out: torch.Tensor, value: torch.Tensor,
     launch("msda_bwd", device, grad_out.data_ptr(), value.data_ptr(),
            _level_table(shapes, device).data_ptr(), sampling_locations.data_ptr(),
            attention_weights.data_ptr(), grad_value.data_ptr(), grad_loc.data_ptr(),
-           grad_attn.data_ptr(), B, S, Q, M, L, P, D, DTYPE_CODES[value.dtype])
+           grad_attn.data_ptr(), B, S, Q, M, L, P, D, code)
     BWD_LAUNCHES += 1
     return grad_value.to(value.dtype), grad_loc, grad_attn
 

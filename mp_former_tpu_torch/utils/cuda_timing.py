@@ -6,7 +6,8 @@ calls is captured into a CUDA graph and replayed, so the host issues nothing
 while the events run. `issue_ms` is what the host spends to issue one eager
 call (Python, checks, allocation, launch). An eager caller pays the larger of
 the two. `cuda_ms` (events around a loop of eager calls) reads that larger
-one, whichever it is.
+one, whichever it is. `busy_ms` is a whole path's device busy time (a
+request, a training step): its kernels' and copies' time, idle gaps left out.
 """
 
 from __future__ import annotations
@@ -96,3 +97,19 @@ def issue_ms(fn: Callable[[], object], iters: int = 50) -> float:
 def two_clocks(fn: Callable[[], object], calls: int = 20, iters: int = 50) -> Dict[str, float]:
     """{"ms": device time by graph replay, "issue_ms": host issue time}."""
     return {"ms": device_ms(fn, calls=calls), "issue_ms": issue_ms(fn, iters=iters)}
+
+
+def busy_ms(fn: Callable[[], object], calls: int = 3) -> float:
+    """Device busy time of one call: the card's own time for every kernel and
+    copy the call issued, summed (`torch.profiler`'s device events), idle
+    gaps left out; one warm call first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return sum(e.self_device_time_total for e in device) / 1e3 / calls

@@ -1,6 +1,6 @@
 """detectron2's `Conv2d` wrapper: a conv with an attached `.norm` and
 activation, so the reference's state-dict names (`<conv>.weight`,
-`<conv>.norm.*`) carry over."""
+`<conv>.norm.*`) carry over; a LayerNorm that returns the compute type."""
 
 from __future__ import annotations
 
@@ -25,6 +25,20 @@ class Conv2d(nn.Conv2d):
         if self.activation is not None:
             x = self.activation(x)
         return x
+
+
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` whose result is in the compute region's type, as flax's
+    `LayerNorm(dtype=...)` of the JAX package is: statistics in float32, the
+    output rounded to bfloat16 under bfloat16 (CUDA's autocast would leave it
+    float32, the CPU's in the input's type). Outside a region, unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        device_type = x.device.type
+        if torch.is_autocast_enabled(device_type):
+            return y.to(torch.get_autocast_dtype(device_type))
+        return y
 
 
 def c2_xavier_fill(module: nn.Module) -> None:

@@ -74,9 +74,11 @@ def test_msda_backward_plain_matches_autograd(shapes, P, B, Q, M, D):
 @pytest.mark.parametrize("shapes,P,B,Q,M,D", MSDA_CASES[:2])
 def test_msda_backward_plain_matches_jax_vjp(shapes, P, B, Q, M, D):
     value, loc, attn, grad_out = _msda_inputs(1, B, Q, M, D, shapes, P)
-    _, vjp = jax.vjp(lambda v, l, a: jax_ms_deform_attn(v, shapes, l, a),
-                     jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn))
-    want = vjp(jnp.asarray(grad_out))
+    @jax.jit
+    def vjp(v, l, a, g):
+        return jax.vjp(lambda v, l, a: jax_ms_deform_attn(v, shapes, l, a), v, l, a)[1](g)
+
+    want = vjp(jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn), jnp.asarray(grad_out))
     got = msda_cuda.ms_deform_attn_backward_plain(*(torch.from_numpy(a) for a in
                                                     (grad_out, value)), shapes,
                                                   torch.from_numpy(loc), torch.from_numpy(attn))
@@ -207,7 +209,7 @@ def test_cross_attention_gradients_match_jax():
         out = JaxMultiheadAttention(C, H).apply({"params": p}, qu, ke, va, jnp.asarray(mask))
         return (out * grad_out).sum()
 
-    want_p, want_q, want_k, want_v = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(
+    want_p, want_q, want_k, want_v = jax.jit(jax.grad(jax_loss, argnums=(0, 1, 2, 3)))(
         params, jnp.asarray(query), jnp.asarray(key), jnp.asarray(value))
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (query, key, value))
     (mod(tq, tk, tv, torch.from_numpy(mask)) * torch.from_numpy(grad_out)).sum().backward()

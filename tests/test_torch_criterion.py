@@ -80,13 +80,19 @@ def _run_both(monkeypatch, jc, tc, outputs, jt, tt, assignments):
 
     def recording_uniform(*args, **kwargs):
         out = real_uniform(*args, **kwargs)
-        recorded.append(np.asarray(out))
+        recorded.append(out)  # a tracer: the jitted call returns it
         return out
 
+    joutputs = _convert(outputs, jnp.asarray)  # closed over: `dn_args` stays static
+
+    @jax.jit
+    def criterion(assignments):
+        return jc(joutputs, jt, jax.random.PRNGKey(0), assignments=assignments), list(recorded)
+
     monkeypatch.setattr(jax.random, "uniform", recording_uniform)
-    want = jc(_convert(outputs, jnp.asarray), jt, jax.random.PRNGKey(0),
-              assignments=jnp.asarray(assignments, jnp.int32))
+    want, draws = criterion(jnp.asarray(assignments, jnp.int32))
     monkeypatch.setattr(jax.random, "uniform", real_uniform)
+    recorded = [np.asarray(d) for d in draws]
 
     def replayed_uniform(shape, generator, device):
         rec = recorded.pop(0)

@@ -66,18 +66,19 @@ def make_targets(b=2, n=6, size=64, counts=(3, 1), classes=80, seed=0):
 def record_jax_draws(monkeypatch, num_classes):
     """Record jax.random.uniform and randint results as uniform numbers (an
     integer r out of K classes as (r + 0.5) / K, which the port's `(u *
-    K).long()` turns back into r). Returns the list they are appended to."""
+    K).long()` turns back into r). Returns the list they are appended to;
+    inside a jitted call it holds tracers, which the call returns."""
     recorded = []
     real_uniform, real_randint = jax.random.uniform, jax.random.randint
 
     def uniform(*args, **kwargs):
         out = real_uniform(*args, **kwargs)
-        recorded.append(np.asarray(out, np.float32))
+        recorded.append(out.astype(jnp.float32))
         return out
 
     def randint(*args, **kwargs):
         out = real_randint(*args, **kwargs)
-        recorded.append((np.asarray(out, np.float32) + 0.5) / num_classes)
+        recorded.append((out.astype(jnp.float32) + 0.5) / num_classes)
         return out
 
     monkeypatch.setattr(jax.random, "uniform", uniform)
@@ -140,10 +141,18 @@ def run_pair(monkeypatch, base, overrides, counts=(3, 1), n=6, dn_groups=None):
     img = np.concatenate([img, img[:, ::-1]], 0)  # a batch of two
     jt, tt = make_targets(n=n, counts=counts)
     recorded = record_jax_draws(monkeypatch, 80)
-    want = jmodel.apply({"params": params}, jnp.asarray(img), jt, train=True,
-                        dn_groups=dn_groups, rngs={"dn": jax.random.PRNGKey(1),
-                                                   "dropout": jax.random.PRNGKey(2)})
+
+    @jax.jit
+    def apply(p, x):
+        out = jmodel.apply({"params": p}, x, jt, train=True, dn_groups=dn_groups,
+                           rngs={"dn": jax.random.PRNGKey(1), "dropout": jax.random.PRNGKey(2)})
+        return out, list(recorded)
+
+    want, draws = apply(params, jnp.asarray(img))
+    # the block's sizes are host integers in the model; jit hands them back as arrays
+    want["dn_out"]["dn_args"] = {k: int(v) for k, v in want["dn_out"]["dn_args"].items()}
     monkeypatch.undo()
+    recorded = [np.asarray(d) for d in draws]
     replay_draws(monkeypatch, tdec, recorded)
     got = tmodel(torch.from_numpy(img), tt, dn_groups=dn_groups)
     assert not recorded, "the port drew fewer times than the JAX decoder"

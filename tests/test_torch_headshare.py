@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mp_former_tpu.ops.ms_deform_attn import MSDeformAttn as JaxMSDeformAttn
@@ -59,8 +60,9 @@ def _t(*arrays):
 @pytest.mark.parametrize("shapes,P,D,M", SHAPE_CASES)
 def test_headshare_matches_jax(shapes, P, D, M, pallas_weighting):
     value, loc, attn = _inputs(0, 2, 19, M, D, shapes, P, shared=True)
-    want = np.asarray(jax_headshare(jnp.asarray(value), shapes, jnp.asarray(loc),
-                                    jnp.asarray(attn), pallas_weighting=pallas_weighting))
+    want = np.asarray(jax.jit(lambda v, l, a: jax_headshare(
+        v, shapes, l, a, pallas_weighting=pallas_weighting))(
+            jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn)))
     launches = tap_weighting.LAUNCHES
     got = ms_deform_attn_headshare(*_t(value), shapes, *_t(loc, attn),
                                    pallas_weighting=pallas_weighting).numpy()
@@ -71,8 +73,9 @@ def test_headshare_matches_jax(shapes, P, D, M, pallas_weighting):
 @pytest.mark.parametrize("shapes,P,D,M", SHAPE_CASES)
 def test_tap_weighting_route_matches_jax(shapes, P, D, M):
     value, loc, attn = _inputs(1, 2, 17, M, D, shapes, P, shared=False)
-    want = np.asarray(jax_ms_deform_attn(jnp.asarray(value), shapes, jnp.asarray(loc),
-                                         jnp.asarray(attn), pallas_weighting=True))
+    want = np.asarray(jax.jit(lambda v, l, a: jax_ms_deform_attn(
+        v, shapes, l, a, pallas_weighting=True))(
+            jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn)))
     got = ms_deform_attn(*_t(value), shapes, *_t(loc, attn), pallas_weighting=True).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
     # the two routes of the per-head engine are one function
@@ -147,8 +150,8 @@ def test_module_matches_jax(engine, pallas_weighting, ref_dim):
     query = rng.randn(2, Q, C).astype(np.float32)
     feats = rng.randn(2, S, C).astype(np.float32)
     ref = rng.uniform(0.0, 1.0, (2, Q, L, ref_dim)).astype(np.float32)
-    want = jmod.apply({"params": params}, jnp.asarray(query), jnp.asarray(ref),
-                      jnp.asarray(feats), shapes)
+    want = jax.jit(lambda p, q, r, f: jmod.apply(p, q, r, f, shapes))(
+        {"params": params}, jnp.asarray(query), jnp.asarray(ref), jnp.asarray(feats))
     with torch.no_grad():
         got = mod(*_t(query, ref, feats), shapes)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)

@@ -765,3 +765,105 @@ def test_loader_fed_trainer_launches_the_training_kernels(cuda, tmp_path):
     launches = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
     assert launches == [12, 12, 18, 18, 0]
     assert pinned == [True, True]
+
+
+def test_msda_function_in_a_bfloat16_region(cuda):
+    """K1 forward and backward inside `torch.autocast("cuda", torch.bfloat16)`
+    on the types the model hands them there: value from a bfloat16 linear,
+    float32 locations (float32 reference points plus bfloat16 offsets) and
+    weights (CUDA autocast's float32 softmax). Both kernels launch in the
+    mixed bfloat16 mode and match the plain version's float32 sampling."""
+    shapes = [(12, 9), (6, 5)]
+    B, Q, M, P, C = 2, 50, 4, 3, 128
+    L, S = len(shapes), sum(h * w for h, w in shapes)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((B, S, C), generator=g, device=cuda)
+    query = torch.randn((B, Q, C), generator=g, device=cuda)
+    w_value = (torch.randn((C, C), generator=g, device=cuda) / C ** 0.5).requires_grad_()
+    w_offset = (torch.randn((M * L * P * 2, C), generator=g, device=cuda) * 0.05).requires_grad_()
+    w_attn = (torch.randn((M * L * P, C), generator=g, device=cuda) * 0.1).requires_grad_()
+    ref = torch.rand((B, Q, 1, L, 1, 2), generator=g, device=cuda)
+    normalizer = torch.tensor([[w, h] for h, w in shapes], device=cuda).view(1, 1, 1, L, 1, 2)
+    grad_out = torch.randn((B, Q, M * 32), generator=g, device=cuda)
+
+    def inputs():
+        value = torch.nn.functional.linear(x, w_value).view(B, S, M, 32)
+        offsets = torch.nn.functional.linear(query, w_offset).view(B, Q, M, L, P, 2)
+        attn = torch.nn.functional.linear(query, w_attn).view(B, Q, M, L * P).softmax(-1)
+        return value, ref + offsets / normalizer.to(offsets.dtype), attn.view(B, Q, M, L, P)
+
+    fwd, bwd = msda_cuda.LAUNCHES, msda_cuda.BWD_LAUNCHES
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        value, loc, attn = inputs()
+        assert (value.dtype, loc.dtype, attn.dtype) == (torch.bfloat16, torch.float32,
+                                                       torch.float32)
+        out = ms_deform_attn(value, shapes, loc, attn)
+    assert out.dtype == torch.bfloat16
+    got = torch.autograd.grad(out, (w_value, w_offset, w_attn), grad_out)
+    assert (msda_cuda.LAUNCHES, msda_cuda.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        value, loc, attn = inputs()
+    want_out = msda_cuda.ms_deform_attn_plain(value, shapes, loc, attn)
+    assert want_out.dtype == torch.bfloat16
+    assert (out.float() - want_out.float()).abs().max().item() <= TOLS[1][1]
+    want = torch.autograd.grad(want_out, (w_value, w_offset, w_attn), grad_out)
+    for name, a, b in zip(("value", "offsets", "weights"), got, want):
+        assert a.dtype == torch.float32 and _rel(a, b) <= BWD_TOLS[1][1], name
+    # the raw kernels on those types: locations and weights keep theirs
+    value, loc, attn = (t.detach().contiguous() for t in (value, loc, attn))
+    grads = msda_cuda.msda_bwd(grad_out.bfloat16(), value, shapes, loc, attn)
+    assert [t.dtype for t in grads] == [torch.bfloat16, torch.float32, torch.float32]
+
+
+def test_msda_kernels_refuse_other_type_mixes(cuda):
+    shapes = [(4, 4)]
+    value, loc, attn = _msda_inputs(cuda, 1, 16, 2, 32, shapes, 2)
+    grad_out = torch.randn((1, 16, 64), device=cuda)
+    bf = torch.bfloat16
+    for args in [(value, loc.to(bf), attn.to(bf)),          # float32 value, bfloat16 sampling
+                 (value.to(bf), loc, attn.to(bf)),          # locations and weights differ
+                 (value.half(), loc, attn),                 # a type the kernels lack
+                 (value.to(bf), loc.double(), attn.double())]:
+        with pytest.raises(TypeError, match="float32"):
+            msda_cuda.msda_fwd(args[0], shapes, *args[1:])
+        with pytest.raises(TypeError, match="float32"):
+            msda_cuda.msda_bwd(grad_out.to(args[0].dtype), args[0], shapes, *args[1:])
+    with pytest.raises(TypeError, match="float32"):  # grad_out in another type than value
+        msda_cuda.msda_bwd(grad_out, value.to(bf), shapes, loc, attn)
+
+
+def test_masked_attention_function_in_a_bfloat16_region(cuda):
+    """K3 forward and backward inside `torch.autocast("cuda", torch.bfloat16)`
+    on the head views of bfloat16 projections, as `MultiheadAttention` hands
+    them over: both kernels launch in bfloat16 and match the plain version."""
+    B, H, Q, S, C = 2, 8, 20, 300, 256
+    g = torch.Generator(device=cuda).manual_seed(10)
+    tgt = torch.randn((B, Q, C), generator=g, device=cuda)
+    memory = torch.randn((B, S, C), generator=g, device=cuda)
+    weights = [(torch.randn((C, C), generator=g, device=cuda) / C ** 0.5).requires_grad_()
+               for _ in range(3)]
+    mask = torch.rand((B, Q, S), generator=g, device=cuda) < 0.6
+    mask[:, 0] = True
+    grad_out = torch.randn((B, H, Q, 32), generator=g, device=cuda)
+
+    def heads():
+        return [torch.nn.functional.linear(x, w).view(B, -1, H, 32).transpose(1, 2)
+                for x, w in zip((tgt, memory, memory), weights)]
+
+    fwd, bwd = mac.LAUNCHES, mac.BWD_LAUNCHES
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        q, k, v = heads()
+        assert q.dtype == k.dtype == v.dtype == torch.bfloat16 and not q.is_contiguous()
+        out = mac.masked_attention(q, k, v, mask)
+    assert out.dtype == torch.bfloat16
+    got = torch.autograd.grad(out, weights, grad_out)
+    assert (mac.LAUNCHES, mac.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        q, k, v = heads()
+    want_out = mac.masked_attention_plain(q.float(), k.float(), v.float(), mask)
+    assert (out.float() - want_out).abs().max().item() <= TOLS[1][1]
+    want = torch.autograd.grad(want_out, weights, grad_out)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and _rel(a, b) <= BWD_TOLS[1][1]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mac.masked_attn_fwd(q.detach(), k.detach().float(), v.detach(), mask)

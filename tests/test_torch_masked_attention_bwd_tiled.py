@@ -81,9 +81,12 @@ def _jax_vjp(q, k, v, g, mask):
     def unflat(a, n):
         return np.asarray(a).reshape(B, n, H, D).transpose(0, 2, 1, 3)
 
-    _, vjp = jax.vjp(lambda a, b, c: module.apply({"params": params}, a, b, c, mask4),
-                     flat(q), flat(k), flat(v))
-    dq, dk, dv = vjp(flat(g))
+    @jax.jit
+    def vjp(a, b, c, grad):
+        return jax.vjp(lambda a, b, c: module.apply({"params": params}, a, b, c, mask4),
+                       a, b, c)[1](grad)
+
+    dq, dk, dv = vjp(flat(q), flat(k), flat(v), flat(g))
     return unflat(dq, Q), unflat(dk, k.shape[2]), unflat(dv, k.shape[2])
 
 

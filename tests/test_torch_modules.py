@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mp_former_tpu.engine import eval_loop as jax_eval_loop
@@ -66,7 +67,7 @@ def test_resnet_matches_jax():
     sd = _perturb_(net, 1)
     params = d2_resnet_params_from_state_dict(sd, prefix="")
     img = np.random.RandomState(2).randn(2, 3, 64, 96).astype(np.float32)
-    want = JaxResNet(**kw).apply({"params": params}, jnp.asarray(_nhwc(img)))
+    want = jax.jit(JaxResNet(**kw).apply)({"params": params}, jnp.asarray(_nhwc(img)))
     with torch.no_grad():
         got = net(torch.from_numpy(img))
     assert list(got) == ["res2", "res3", "res4", "res5"]
@@ -98,7 +99,7 @@ def test_pixel_decoder_matches_jax():
     jdec = JaxPixelDecoder(
         input_shape={k: JaxShapeSpec(channels=chans[k], stride=s) for k, s in strides.items()},
         transformer_dropout=0.0, **kw)
-    want_mf, want_tx, want_ms = jdec.apply(
+    want_mf, want_tx, want_ms = jax.jit(jdec.apply)(
         {"params": params}, {k: jnp.asarray(_nhwc(v)) for k, v in feats.items()})
     with torch.no_grad():
         got_mf, got_tx, got_ms = dec.forward_features({k: torch.from_numpy(v) for k, v in feats.items()})
@@ -120,9 +121,10 @@ def test_decoder_eval_path_matches_jax():
     rng = np.random.RandomState(6)
     x = [rng.randn(2, C, h, w).astype(np.float32) for h, w in [(3, 2), (6, 4), (12, 8)]]
     mf = rng.randn(2, 16, 24, 16).astype(np.float32)
-    want = JaxDecoder(in_channels=C, num_classes=K, hidden_dim=C, num_queries=Q, nheads=4,
-                      dim_feedforward=64, dec_layers=4, mask_dim=16).apply(
-        {"params": params}, [jnp.asarray(_nhwc(a)) for a in x], jnp.asarray(_nhwc(mf)), None)
+    jdec = JaxDecoder(in_channels=C, num_classes=K, hidden_dim=C, num_queries=Q, nheads=4,
+                      dim_feedforward=64, dec_layers=4, mask_dim=16)
+    want = jax.jit(lambda p, x, mf: jdec.apply(p, x, mf, None))(
+        {"params": params}, [jnp.asarray(_nhwc(a)) for a in x], jnp.asarray(_nhwc(mf)))
     with torch.no_grad():
         got = dec([torch.from_numpy(a) for a in x], torch.from_numpy(mf))
     assert got["pred_logits"].shape == (2, Q, K + 1)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mp_former_tpu.ops import msda_pallas
@@ -51,8 +52,8 @@ def test_plain_matches_pallas_kernel_interpret(seed, B, Q, monkeypatch):
                         functools.partial(msda_pallas._gather_weight_level, qb=128, unroll=8))
     shapes = [(8, 12), (4, 6), (2, 3)]
     value, loc, attn = _inputs(seed, B, Q, 8, 32, shapes, 4)
-    want = np.asarray(msda_pallas._msda_pallas_impl(
-        jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn), shapes, interpret=True))
+    want = np.asarray(jax.jit(lambda v, l, a: msda_pallas._msda_pallas_impl(
+        v, l, a, shapes, interpret=True))(jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn)))
     np.testing.assert_allclose(_port(value, shapes, loc, attn), want, rtol=0, atol=TOL)
 
 
@@ -63,8 +64,8 @@ def test_plain_matches_pallas_kernel_interpret(seed, B, Q, monkeypatch):
 ])
 def test_plain_matches_xla_engine(shapes, P, D):
     value, loc, attn = _inputs(3, 2, 19, 4, D, shapes, P, lo=-0.5, hi=1.5)
-    want = np.asarray(jax_ms_deform_attn(jnp.asarray(value), shapes, jnp.asarray(loc),
-                                         jnp.asarray(attn)))
+    want = np.asarray(jax.jit(lambda v, l, a: jax_ms_deform_attn(v, shapes, l, a))(
+        jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn)))
     np.testing.assert_allclose(_port(value, shapes, loc, attn), want, rtol=0, atol=TOL)
 
 
@@ -92,8 +93,9 @@ def test_module_matches_jax(ref_dim):
     query = rng.randn(2, Q, C).astype(np.float32)
     feats = rng.randn(2, S, C).astype(np.float32)
     ref = rng.uniform(0.1, 0.9, (2, Q, L, ref_dim)).astype(np.float32)
-    want = JaxMSDeformAttn(d_model=C, n_levels=L, n_heads=M, n_points=P).apply(
-        {"params": params}, jnp.asarray(query), jnp.asarray(ref), jnp.asarray(feats), shapes)
+    jmod = JaxMSDeformAttn(d_model=C, n_levels=L, n_heads=M, n_points=P)
+    want = jax.jit(lambda p, q, r, f: jmod.apply(p, q, r, f, shapes))(
+        {"params": params}, jnp.asarray(query), jnp.asarray(ref), jnp.asarray(feats))
     with torch.no_grad():
         got = mod(torch.from_numpy(query), torch.from_numpy(ref), torch.from_numpy(feats), shapes)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mp_former_tpu.ops.ms_deform_attn import ms_deform_attn as jax_ms_deform_attn
@@ -76,8 +77,8 @@ def _three_ways(value, shapes, loc, attn):
     args = [torch.from_numpy(a) for a in (value, loc, attn)]
     folded = ms_deform_attn_folded(args[0], shapes, args[1], args[2]).numpy()
     plain = ms_deform_attn_plain(args[0], shapes, args[1], args[2]).numpy()
-    jax_out = np.asarray(jax_ms_deform_attn(jnp.asarray(value), shapes, jnp.asarray(loc),
-                                            jnp.asarray(attn)))
+    jax_out = np.asarray(jax.jit(lambda v, l, a: jax_ms_deform_attn(v, shapes, l, a))(
+        jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn)))
     return folded, plain, jax_out
 
 

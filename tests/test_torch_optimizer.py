@@ -153,10 +153,16 @@ def test_two_adamw_steps_match_optax_on_the_same_gradients(pair, clip):
     grads = [_zero_frozen_bn(_random_like(params, rng, 0.05)) for _ in range(2)]
 
     tx = jopt.build_optimizer(jcfg, params)
-    state, want = tx.init(params), params
-    for g in grads:
-        updates, state = tx.update(g, state, want)
-        want = optax.apply_updates(want, updates)
+
+    @jax.jit
+    def two_steps(want, grads):
+        state = tx.init(want)
+        for g in grads:
+            updates, state = tx.update(g, state, want)
+            want = optax.apply_updates(want, updates)
+        return want
+
+    want = two_steps(params, grads)
 
     import copy
     model = copy.deepcopy(tmodel)

@@ -68,15 +68,21 @@ def _perturb(tree, rng):
 
 def _build_pair(overrides, img_hw, config=CONFIG):
     """JAX model + seeded perturbed params, and the port's model holding the
-    same weights (strict load)."""
+    same weights (strict load). The params start from the reference's
+    initialisation (the port's, seeded) carried into the JAX layout by the
+    JAX package's importer of reference checkpoints, which gives JAX
+    `model.init`'s tree leaf for leaf (`test_state_dict_round_trip`) without
+    compiling the model's init."""
     jcfg = _cfg(jax_get_cfg, jax_add_deeplab, jax_add_mf2, overrides, config)
     jmodel = jax_build_model(jcfg)
     rng = np.random.RandomState(0)
     img = (rng.rand(1, *img_hw, 3) * 255).astype(np.float32)
-    variables = jmodel.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(img), None, train=False)
-    params = _perturb(jax.tree.map(np.asarray, dict(variables["params"])), rng)
     tcfg = _cfg(get_cfg, add_deeplab_config, add_maskformer2_config, overrides, config)
-    tmodel = build_model(tcfg)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        tmodel = build_model(tcfg)
+    start = convert_maskformer_state_dict({k: v.numpy() for k, v in tmodel.state_dict().items()})
+    params = _perturb(start, rng)
     load_weights(tmodel, state_dict_from_jax_params(params))
     return jcfg, jmodel, params, tcfg, tmodel, img
 
@@ -87,7 +93,8 @@ def models():
 
 
 def _assert_outputs_match(jmodel, params, tmodel, img, queries, layers):
-    want = jmodel.apply({"params": params}, jnp.asarray(img), None, train=False)
+    want = jax.jit(lambda p, x: jmodel.apply({"params": p}, x, None, train=False))(
+        params, jnp.asarray(img))
     with torch.no_grad():
         got = tmodel(torch.from_numpy(img))
     want_cls = np.asarray(want["pred_logits"])

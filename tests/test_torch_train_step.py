@@ -77,8 +77,12 @@ def step():
     num_masks = jnp.maximum(jt.valid.sum().astype(jnp.float32), 1.0)
 
     # the JAX package's cost pass and host solver (engine/train_step.py:make_cost_step)
-    outputs = jmodel.apply({"params": params}, jnp.asarray(img), jt, train=True, rngs=rngs)
-    costs, _ = jcrit.layer_costs(outputs, jt, rng_loss)
+    @jax.jit
+    def cost_pass(p):
+        outputs = jmodel.apply({"params": p}, jnp.asarray(img), jt, train=True, rngs=rngs)
+        return jcrit.layer_costs(outputs, jt, rng_loss)[0]
+
+    costs = cost_pass(params)
     l, b, q, n = costs.shape
     assignments = _lsa_host(np.asarray(costs).reshape(l * b, q, n)).reshape(l, b, n)
 
@@ -88,10 +92,15 @@ def step():
                        assignments=jnp.asarray(assignments))
         return jcrit.weighted_total(losses), losses
 
-    (jtotal, jlosses), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    (jtotal, jlosses), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
     tx = jax_build_optimizer(jcfg, params)
-    updates, _ = tx.update(jgrads, tx.init(params), params)
-    jnew = optax.apply_updates(params, updates)
+
+    @jax.jit
+    def update(grads, p):
+        updates, _ = tx.update(grads, tx.init(p), p)
+        return optax.apply_updates(p, updates)
+
+    jnew = update(jgrads, params)
 
     model = copy.deepcopy(tmodel)
     optimizer, scheduler = build_optimizer(tcfg, model)

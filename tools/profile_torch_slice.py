@@ -3,7 +3,8 @@
 
     python3 tools/profile_torch_slice.py [--recipe released|tpu] [--requests 3]
                                          [--height 480 --width 640]
-    python3 tools/profile_torch_slice.py --train [--requests 3]
+                                         [--dtype float32|bfloat16]
+    python3 tools/profile_torch_slice.py --train [--requests 3] [--dtype float32|bfloat16]
     python3 tools/profile_torch_slice.py --train-inputs [--requests 3]
 
 Builds the released R50 COCO instance recipe (K1 and K3), or with `--recipe
@@ -17,6 +18,8 @@ and by host time, the port's own kernels (device time per launch, as the
 profiler reads it from the card; K3 is two kernels where the keys are split,
 `masked_attn_tiles` and `masked_attn_merge`), the number of strided-to-contiguous
 copy kernels per request, and the time by model stage (record_function ranges).
+`--dtype bfloat16` sets `TPU.COMPUTE_DTYPE` (both recipes, serving and
+`--train`): the JAX package's AMP-equivalent mode.
 
 `--train` profiles the training step of `chip_smoke.py`'s train phase instead
 (the released training recipe at full width and depth, B = 8 images of 512x512
@@ -25,7 +28,8 @@ from the seeded generator, float32, TF32 off): after 2 warm steps it times
 each stage (forward, matcher costs, the host's assignment solve, losses,
 backward, clipping and optimizer), then traces as many steps with
 `torch.profiler` and prints device busy time per step, the port's four kernels
-per launch and the top ops by device time.
+per launch and their share of the busy time, the peak memory of a step and
+the top ops by device time.
 
 `--train-inputs` asks where the step of `chip_smoke.py`'s `train_coco` phase
 (the same recipe fed by `build_train_loader` from its dataset on disk: LSJ,
@@ -98,7 +102,7 @@ def train_step_in_stages(torch, trainer, batch, between):
     return total
 
 
-def profile_training(torch, card: str, steps: int) -> int:
+def profile_training(torch, card: str, steps: int, dtype: str) -> int:
     import contextlib
 
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -108,7 +112,7 @@ def profile_training(torch, card: str, steps: int) -> int:
     from mp_former_tpu_torch.data.synthetic import synthetic_batches
     from mp_former_tpu_torch.engine.trainer import Trainer
 
-    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "OUTPUT_DIR",
+    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "TPU.COMPUTE_DTYPE", dtype, "OUTPUT_DIR",
                             os.path.join(REPO, "output", "profile_train")])
     batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
                                 TRAIN_MAX_INSTANCES, seed=SEED)
@@ -135,6 +139,7 @@ def profile_training(torch, card: str, steps: int) -> int:
         train_step_in_stages(torch, trainer, batch, synchronised)
         whole.append(time.perf_counter() - t0)
     plain = []
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(steps):
         batch = next(batches)
         torch.cuda.synchronize()
@@ -142,8 +147,10 @@ def profile_training(torch, card: str, steps: int) -> int:
         trainer.run_step(batch)
         torch.cuda.synchronize()
         plain.append(time.perf_counter() - t0)
-    print(f"card: {card}  training step, B={TRAIN_BATCH} at {TRAIN_SIZE}x{TRAIN_SIZE}, float32, "
-          "TF32 off")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"card: {card}  training step, B={TRAIN_BATCH} at {TRAIN_SIZE}x{TRAIN_SIZE}, "
+          f"TPU.COMPUTE_DTYPE {dtype}, TF32 off")
+    print(f"peak memory allocated in a step: {peak_gb:.2f} GiB")
     print(f"step seconds, Trainer.run_step (batch copy included): {[round(t, 4) for t in plain]}")
     print(f"step seconds with a synchronise after every stage: {[round(t, 4) for t in whole]}")
     for stage in STAGES:
@@ -164,11 +171,15 @@ def profile_training(torch, card: str, steps: int) -> int:
     dev_us = sum(e.self_device_time_total for e in device)
     print(f"\ndevice busy ms per step (kernels and copies): {dev_us / 1e3 / steps:.2f}")
     print("\n== the port's kernels ==")
+    kernels_us = 0.0
     for e in device:
         if any(name in e.key for name in ("msda_fwd", "msda_bwd", "masked_attn", "tap_weight")):
+            kernels_us += e.self_device_time_total
             print(f"{e.key[:70]:70s} launches/step={e.count / steps:g} "
                   f"device_ms/launch={e.self_device_time_total / 1e3 / e.count:.4f} "
                   f"device_ms/step={e.self_device_time_total / 1e3 / steps:.4f}")
+    print(f"the port's kernels: {kernels_us / 1e3 / steps:.2f} ms a step, "
+          f"{100 * kernels_us / dev_us:.1f}% of device busy time")
     print("\n== by device time ==")
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
     print("\n== stages (host time to issue, device span) ==")
@@ -375,11 +386,13 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--height", type=int, default=480)
     ap.add_argument("--width", type=int, default=640)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="TPU.COMPUTE_DTYPE for serving and --train")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice: needs a CUDA card")
     sys.path.insert(0, REPO)
-    from chip_smoke import SEED, slice2_cfg, slice_cfg
+    from chip_smoke import CONFIG, SEED, TPU_CONFIG, load_cfg, slice2_cfg, slice_cfg
     from mp_former_tpu_torch.engine.predictor import Predictor
     from mp_former_tpu_torch.models import build_model
 
@@ -388,10 +401,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.train:
-        return profile_training(torch, card, args.requests)
+        return profile_training(torch, card, args.requests, args.dtype)
     if args.train_inputs:
         return compare_train_inputs(torch, card, args.requests)
-    cfg = slice2_cfg() if args.recipe == "tpu" else slice_cfg()
+    if args.dtype == "float32":
+        cfg = slice2_cfg() if args.recipe == "tpu" else slice_cfg()
+    else:
+        cfg = load_cfg(TPU_CONFIG if args.recipe == "tpu" else CONFIG,
+                       ["TPU.COMPUTE_DTYPE", args.dtype])
     torch.manual_seed(SEED)
     model = build_model(cfg)
     predictor = Predictor(cfg, model=model, device="cuda")
@@ -426,7 +443,7 @@ def main() -> int:
     device = [e for e in events if e.device_type.name == "CUDA" and not e.key.startswith(ranges)]
     dev_us = sum(e.self_device_time_total for e in device)
     copy_us = sum(e.self_device_time_total for e in device if e.key.startswith("Memcpy"))
-    print(f"card: {card}  recipe: {args.recipe}")
+    print(f"card: {card}  recipe: {args.recipe}  TPU.COMPUTE_DTYPE {args.dtype}")
     print(f"request {args.height}x{args.width}: host ms per request "
           f"{[round(t * 1e3, 2) for t in host]}")
     print(f"device busy ms per request (kernels and copies): {dev_us / 1e3 / args.requests:.3f}, "
