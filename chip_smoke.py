@@ -56,6 +56,14 @@ result line):
     block, a fully blocked row, strided views; two calls give equal bits; the
     forward that writes the row statistics against the plain version, its
     output and the statistics;
+12a. K2's backward kernel (`K2_bwd`) against `weight_taps_backward_plain` at
+    both call shapes of a training step of the TPU recipe (B = 8, 512x512,
+    5376 queries: head-shared rows, M = 8, and the per-head patch tables, B * M
+    = 64), float32 and bfloat16, bitwise reproducible, timed beside its bound,
+    its plain version and the two PyTorch calls that compute the same
+    function, with K2's forward at those shapes; then the per-head
+    patch-table route's gradients (K2 and its backward) against the K1
+    route's at the training shape;
 13. slice 3, training: the released training recipe (DN `points`, NUM_DN 1,
     noise 0, ALL_LY_DN, label noise 0.2) at full width and depth, B = 8 images
     of 512x512 from the seeded generator: step 0's losses and gradients through
@@ -70,6 +78,12 @@ result line):
     then 4 steps through `Trainer` (K1 6, K1 backward 6, K3 9, K3 backward 9
     a step) with float32 parameters, gradients and AdamW state; s/step and
     peak memory beside the float32 phase's;
+13b. `train_tpu`: the TPU recipe (head-shared sampling through K2, DN
+    `points` as phase 13) trains, first in float32 as phase 13 (step 0
+    against the plain ops at its tolerances, 4 steps through `Trainer`), then
+    as its YAML says in bfloat16 (`train_tpu_bf16`, by phase 13a's rules):
+    K2 18, K2 backward 18, K3 9, K3 backward 9, K1 none a step; s/step, device
+    busy ms a step and peak memory in both types;
 14. slice 3, a training run that scores itself (`train_coco`): a seeded
     COCO-format dataset written to `output/chip_smoke_coco/` by
     `tools/make_synthetic_coco_torch.py` (64 train images of 640x640, 8 val
@@ -473,7 +487,7 @@ def seeded_model(torch, cfg):
 
 def kernel_counts(backward: bool = False) -> dict:
     """The launch counts of the model's kernels; with `backward` also those of
-    the two backward kernels (the serving phases compare the forward ones)."""
+    the three backward kernels (the serving phases compare the forward ones)."""
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
     from mp_former_tpu_torch.ops import msda_cuda
     from mp_former_tpu_torch.ops import tap_weighting as tw
@@ -481,7 +495,8 @@ def kernel_counts(backward: bool = False) -> dict:
     counts = {"msda_fwd": msda_cuda.LAUNCHES, "tap_weight_fwd": tw.LAUNCHES,
               "masked_attn_fwd": mac.LAUNCHES}
     if backward:
-        counts.update(msda_bwd=msda_cuda.BWD_LAUNCHES, masked_attn_bwd=mac.BWD_LAUNCHES)
+        counts.update(msda_bwd=msda_cuda.BWD_LAUNCHES, masked_attn_bwd=mac.BWD_LAUNCHES,
+                      tap_weight_bwd=tw.BWD_LAUNCHES)
     return counts
 
 
@@ -491,12 +506,12 @@ def reset_kernel_counts() -> None:
     from mp_former_tpu_torch.ops import tap_weighting as tw
 
     msda_cuda.LAUNCHES = tw.LAUNCHES = mac.LAUNCHES = 0
-    msda_cuda.BWD_LAUNCHES = mac.BWD_LAUNCHES = 0
+    msda_cuda.BWD_LAUNCHES = mac.BWD_LAUNCHES = tw.BWD_LAUNCHES = 0
 
 
 @contextlib.contextmanager
 def plain_ops():
-    """Every kernel of the model replaced by its plain version, and the two
+    """Every kernel of the model replaced by its plain version, and the three
     autograd Functions by autograd of the plain versions; fails if a kernel is
     launched all the same."""
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
@@ -509,6 +524,7 @@ def plain_ops():
             mock.patch.object(msda_cuda.MSDeformAttnFunction, "apply",
                               msda_cuda.ms_deform_attn_plain), \
             mock.patch.object(tw, "tap_weight_fwd", tw.weight_taps_plain), \
+            mock.patch.object(tw.TapWeightingFunction, "apply", tw.weight_taps_plain), \
             mock.patch.object(mac, "masked_attn_fwd", mac.masked_attention_plain), \
             mock.patch.object(mac.MaskedAttentionFunction, "apply", mac.masked_attention_plain):
         yield
@@ -700,6 +716,8 @@ def launch_types():
                 "msda_bwd", msda_cuda.msda_bwd, lambda a: f"{name(a[1])}/{name(a[3])}")), \
             mock.patch.object(tw, "tap_weight_fwd", recording(
                 "tap_weight_fwd", tw.tap_weight_fwd, lambda a: name(a[0]))), \
+            mock.patch.object(tw, "tap_weight_bwd", recording(
+                "tap_weight_bwd", tw.tap_weight_bwd, lambda a: name(a[0]))), \
             mock.patch.object(mac, "masked_attn_fwd", recording(
                 "masked_attn_fwd", mac.masked_attn_fwd, lambda a: name(a[0]))), \
             mock.patch.object(mac, "masked_attn_bwd", recording(
@@ -710,8 +728,8 @@ def launch_types():
 # what a bfloat16 model hands each kernel: K1 a bfloat16 value with float32
 # locations and weights (the JAX package's float32 sampling arithmetic)
 BF16_TYPES = {"msda_fwd": {"bfloat16/float32"}, "msda_bwd": {"bfloat16/float32"},
-              "tap_weight_fwd": {"bfloat16"}, "masked_attn_fwd": {"bfloat16"},
-              "masked_attn_bwd": {"bfloat16"}}
+              "tap_weight_fwd": {"bfloat16"}, "tap_weight_bwd": {"bfloat16"},
+              "masked_attn_fwd": {"bfloat16"}, "masked_attn_bwd": {"bfloat16"}}
 
 
 def check_bf16_types(phase: str, seen: dict) -> None:
@@ -1050,8 +1068,129 @@ def phase_k3_bwd(torch, card: str) -> dict:
     return res
 
 
+# K2's backward against its plain version, relative to each gradient's
+# largest entry: float32 sums the D products of grad_w in another order;
+# bfloat16 rounds grad_w's float32 sum to 8 bits of mantissa
+K2_BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def phase_k2_bwd(torch, card: str) -> dict:
+    """K2's backward kernel at the two call shapes of a training step (B = 8,
+    512x512: every one of the 5376 encoder tokens samples every level, P = 4;
+    head-shared rows M = 8, and the per-head patch tables, B * M = 64 with M =
+    1), float32 and bfloat16, against `weight_taps_backward_plain`; two calls
+    give equal bits; timed beside its plain version, its bound and the two
+    PyTorch calls that compute the same function (no single one does); K2's
+    forward at the same shapes, timed beside its bound. Then the gradients of
+    the per-head patch-table route (`ms_deform_attn(..., pallas_weighting=True)`:
+    K2 and its backward) against the K1 route's (`MSDeformAttnFunction`) at
+    the training shape: one function."""
+    from mp_former_tpu_torch.ops import msda_cuda
+    from mp_former_tpu_torch.ops import tap_weighting as tw
+    from mp_former_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from mp_former_tpu_torch.utils.cuda_timing import two_clocks
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    Q = sum(h * w for h, w in TRAIN_SHAPES)
+    D, T, P = 32, 4, 4
+    res = {}
+    for case, B, M in (("headshare", TRAIN_BATCH, 8), ("per_head", TRAIN_BATCH * 8, 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            taps = torch.randn((B, P * Q, T * M * D), generator=g, device="cuda").to(dtype)
+            # far from uniform, so a wrong row or lane order shows
+            w = (torch.rand((B, P * Q, T * M), generator=g, device="cuda") ** 3).to(dtype)
+            go = torch.randn((B, Q, M * D), generator=g, device="cuda").to(dtype)
+            got = tw.tap_weight_bwd(taps, w, go, P, M, D)
+            torch.cuda.synchronize()
+            want = tw.weight_taps_backward_plain(taps.float(), w.float(), go.float(), P, M, D)
+            errs = [rel_err(x, y) for x, y in zip(got, want)]
+            abs_err = max((x.float() - y).abs().max().item() for x, y in zip(got, want))
+            del want
+            again = tw.tap_weight_bwd(taps, w, go, P, M, D)
+            reproducible = all(torch.equal(x, y) for x, y in zip(got, again))
+            del again
+            # no single PyTorch call computes this: g * w broadcast over the
+            # taps, and torch.einsum for the sum over d
+            taps6 = taps.view(B, P, Q, T, M, D)
+            w6, g6 = w.view(B, P, Q, T, M, 1), go.view(B, 1, Q, 1, M, D)
+            g4 = go.view(B, Q, M, D)
+
+            def library():
+                return g6 * w6, torch.einsum("bpqtmd,bqmd->bpqtm", taps6, g4)
+
+            lib = library()
+            lib_err = max(rel_err(x.reshape(y.shape), y) for x, y in zip(lib, got))
+            del lib
+            t = timed(lambda: tw.tap_weight_bwd(taps, w, go, P, M, D),
+                      lambda: tw.weight_taps_backward_plain(taps, w, go, P, M, D), library,
+                      calls=5, plain_calls=2)
+            # per lane of the taps: a product for grad_taps, a multiply-add for grad_w
+            bnd = bound(nbytes(taps, w, go, *got), 3.0 * taps.numel(), name)
+            fwd = tw.tap_weight_fwd(taps, w, P, M, D)
+            fwd_err = rel_err(fwd, tw.weight_taps_plain(taps.float(), w.float(), P, M, D))
+            fwd_t = two_clocks(lambda: tw.tap_weight_fwd(taps, w, P, M, D), calls=5)
+            fwd_bound = bound(nbytes(taps, w, fwd), 2.0 * taps.numel(), name)
+            log("K2_bwd", case=case, dtype=name, shape=f"B{B}xQ{Q}xP{P}xT{T}xM{M}xD{D}",
+                rel_err_taps_w=[f"{e:.2e}" for e in errs], tol=K2_BWD_TOL[name],
+                max_abs_err=f"{abs_err:.3e}", bitwise_reproducible=reproducible,
+                library_rel_err=f"{lib_err:.2e}", **fmt_times(t),
+                bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
+                library="g * w broadcast + torch.einsum (two calls)",
+                forward_rel_err=f"{fwd_err:.2e}", forward_ms=f"{fwd_t['ms']:.5f}",
+                forward_issue_ms=f"{fwd_t['issue_ms']:.5f}",
+                forward_bound_ms=f"{fwd_bound['bound_ms']:.4f}", card=repr(card))
+            if not (max(errs) <= K2_BWD_TOL[name] and reproducible):
+                raise AssertionError(f"K2 backward {case} {name}: relative errors {errs} against "
+                                     f"the plain backward above {K2_BWD_TOL[name]}, or two calls "
+                                     f"differ ({reproducible=})")
+            if not (fwd_err <= BWD_TOL[name] and lib_err <= BWD_TOL[name]):
+                raise AssertionError(f"K2 {case} {name}: forward {fwd_err} against the plain "
+                                     f"version, or the library calls {lib_err} against the "
+                                     "backward kernel")
+            res[(case, name)] = {"max_abs_err": abs_err, **t, **bnd, "forward_ms": fwd_t["ms"],
+                                 "forward_bound_ms": fwd_bound["bound_ms"]}
+            del taps, w, go, got, taps6, w6, g6, g4, fwd
+
+    # the per-head patch-table route (K2) against the K1 route: one function
+    M, L = 8, len(TRAIN_SHAPES)
+    value = torch.randn((TRAIN_BATCH, Q, M, D), generator=g, device="cuda")
+    loc = model_like_locations(torch, g, TRAIN_BATCH, TRAIN_SHAPES, M, P)
+    attn = torch.randn((TRAIN_BATCH, Q, M, L * P), generator=g, device="cuda").softmax(-1)
+    attn = attn.view(TRAIN_BATCH, Q, M, L, P)
+    grad_out = torch.randn((TRAIN_BATCH, Q, M * D), generator=g, device="cuda")
+    grads, launches = {}, {}
+    for route, pw in (("K2", True), ("K1", False)):
+        leaves = [t.clone().requires_grad_() for t in (value, loc, attn)]
+        reset_kernel_counts()
+        ms_deform_attn(leaves[0], TRAIN_SHAPES, leaves[1], leaves[2],
+                       pallas_weighting=pw).backward(grad_out)
+        launches[route] = kernel_counts(backward=True)
+        grads[route] = [t.grad for t in leaves]
+    want_launches = {"K2": {"tap_weight_fwd": L, "tap_weight_bwd": L},
+                     "K1": {"msda_fwd": 1, "msda_bwd": 1}}
+    route_errs = [rel_err(grads["K2"][0], grads["K1"][0]), rel_err(grads["K2"][2], grads["K1"][2])]
+    loc_miss = ((grads["K2"][1] - grads["K1"][1]).abs()
+                > AUTOGRAD_TOL["float32"] * grads["K1"][1].abs().max()).float().mean().item()
+    log("K2_bwd", compare="per-head patch-table route (K2) vs K1 route, gradients",
+        shape=f"B{TRAIN_BATCH}xQ{Q}xM{M}xD{D}xL{L}xP{P}",
+        rel_err_value_attn=[f"{e:.2e}" for e in route_errs], tol=BWD_TOL["float32"],
+        grad_loc_share_off=f"{loc_miss:.2e}", loc_tol=AUTOGRAD_TOL["float32"],
+        launches={k: {n: c for n, c in v.items() if c} for k, v in launches.items()})
+    for route, want in want_launches.items():
+        if {n: c for n, c in launches[route].items() if c} != want:
+            raise AssertionError(f"K2_bwd: the {route} route launched {launches[route]}")
+    if not (max(route_errs) <= BWD_TOL["float32"] and loc_miss <= 1e-5):
+        raise AssertionError(f"K2_bwd: the patch-table route's gradients against the K1 route's: "
+                             f"{route_errs}, grad_loc off on {loc_miss} of entries")
+    return res
+
+
 TRAIN_EXPECTED = {"msda_fwd": 6, "tap_weight_fwd": 0, "masked_attn_fwd": 9, "msda_bwd": 6,
-                  "masked_attn_bwd": 9}
+                  "masked_attn_bwd": 9, "tap_weight_bwd": 0}
+# the TPU recipe: head-shared sampling through K2 (6 encoder layers x 3 levels)
+TRAIN_TPU_EXPECTED = {"msda_fwd": 0, "tap_weight_fwd": 18, "masked_attn_fwd": 9, "msda_bwd": 0,
+                      "masked_attn_bwd": 9, "tap_weight_bwd": 18}
 
 
 def loss_and_gradients(torch, model, criterion, batch, assignments=None):
@@ -1071,16 +1210,26 @@ def loss_and_gradients(torch, model, criterion, batch, assignments=None):
     return {k: v.item() for k, v in losses.items()}, grads, assignments
 
 
-def phase_train(torch, card: str) -> dict:
-    """Slice 3: the released training recipe at full width and depth."""
+def step_busy_ms(trainer, batches) -> float:
+    """Device busy ms of one `Trainer` step (profiled over 2, one warm first)."""
+    from mp_former_tpu_torch.utils.cuda_timing import busy_ms
+
+    return busy_ms(lambda: trainer.run_step(next(batches)), calls=2)
+
+
+def phase_train(torch, card: str, phase: str = "train", config: str = CONFIG,
+                overrides=(), expected: dict = TRAIN_EXPECTED, busy: bool = False) -> dict:
+    """Slice 3: the released training recipe at full width and depth (or,
+    as phase `train_tpu`, the TPU recipe in float32); `busy` also reads the
+    device busy ms of a step."""
     import shutil
 
     from mp_former_tpu_torch.data.synthetic import synthetic_batches
     from mp_former_tpu_torch.engine.trainer import Trainer
 
-    out_dir = os.path.join(REPO, "output", "chip_smoke_train")
+    out_dir = os.path.join(REPO, "output", f"chip_smoke_{phase}")
     shutil.rmtree(out_dir, ignore_errors=True)
-    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "OUTPUT_DIR", out_dir])
+    cfg = load_cfg(config, [*TRAIN_OVERRIDES, *overrides, "OUTPUT_DIR", out_dir])
     batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
                                 TRAIN_MAX_INSTANCES, seed=SEED)
     trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
@@ -1091,18 +1240,18 @@ def phase_train(torch, card: str) -> dict:
     reset_kernel_counts()
     k_losses, k_grads, assignments = loss_and_gradients(torch, model, criterion, first)
     launches = kernel_counts(backward=True)
-    if launches != TRAIN_EXPECTED:
-        raise AssertionError(f"train: kernel launches of one step {launches}, expected "
-                             f"{TRAIN_EXPECTED}")
+    if launches != expected:
+        raise AssertionError(f"{phase}: kernel launches of one step {launches}, expected "
+                             f"{expected}")
     with plain_ops():
         p_losses, p_grads, _ = loss_and_gradients(torch, model, criterion, first, assignments)
     loss_err = max(abs(k_losses[k] - p_losses[k]) / max(abs(p_losses[k]), 1e-6) for k in p_losses)
     if k_grads.keys() != p_grads.keys():
-        raise AssertionError("train: the two paths give gradients to different parameters")
+        raise AssertionError(f"{phase}: the two paths give gradients to different parameters")
     grad_errs = sorted(((rel_err(k_grads[n], p_grads[n]), n) for n in p_grads), reverse=True)
     within = sum(e <= 1e-3 for e, _ in grad_errs)
     kernel_errs = [(e, n) for e, n in grad_errs if any(s in n for s in TRAIN_KERNEL_LEAVES)]
-    log("train", compare="step 0, kernels vs autograd of the plain ops", losses=len(k_losses),
+    log(phase, compare="step 0, kernels vs autograd of the plain ops", losses=len(k_losses),
         loss_max_rel_err=f"{loss_err:.3e}", loss_tol=TRAIN_LOSS_TOL,
         gradients=len(grad_errs), grad_max_rel_err=f"{grad_errs[0][0]:.3e}",
         grad_tol=TRAIN_GRAD_TOL, gradients_within_1e_3=within,
@@ -1111,11 +1260,11 @@ def phase_train(torch, card: str) -> dict:
         worst=[(n, f"{e:.2e}") for e, n in grad_errs[:3]])
     if not (loss_err <= TRAIN_LOSS_TOL and grad_errs[0][0] <= TRAIN_GRAD_TOL
             and kernel_errs and kernel_errs[0][0] <= TRAIN_KERNEL_GRAD_TOL):
-        raise AssertionError(f"train: step 0 through the kernels and through the plain ops "
+        raise AssertionError(f"{phase}: step 0 through the kernels and through the plain ops "
                              f"disagree: losses {loss_err}, gradients {grad_errs[:3]}, next "
                              f"to the kernels {kernel_errs[:3]}")
     if not all(torch.isfinite(g).all() for g in k_grads.values()):
-        raise AssertionError("train: non-finite gradients")
+        raise AssertionError(f"{phase}: non-finite gradients")
     del k_grads, p_grads
     model.zero_grad(set_to_none=True)
 
@@ -1135,29 +1284,32 @@ def phase_train(torch, card: str) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
     launches = kernel_counts(backward=True)
-    expected = {k: 4 * v for k, v in TRAIN_EXPECTED.items()}
+    expected = {k: 4 * v for k, v in expected.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     metrics = {k: float(v) for k, v in metrics.items()}
-    log("train", steps=4, launches=launches, expected=expected)
-    log("train", warm_step_s=f"{seconds[0]:.3f}", timed_steps_s=[f"{t:.4f}" for t in seconds[1:]],
+    log(phase, steps=4, launches=launches, expected=expected)
+    log(phase, warm_step_s=f"{seconds[0]:.3f}", timed_steps_s=[f"{t:.4f}" for t in seconds[1:]],
         peak_memory_allocated_GiB=f"{peak_gb:.2f}",
         matcher_host_s_per_step=f"{criterion.matcher_host_seconds / 4:.4f}",
         total_loss=f"{metrics['total_loss']:.3f}", lr=trainer.scheduler.get_last_lr()[-1],
         batch=f"{TRAIN_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}", card=repr(card))
     if launches != expected:
-        raise AssertionError(f"train: kernel launches {launches}, expected {expected}")
+        raise AssertionError(f"{phase}: kernel launches {launches}, expected {expected}")
     keys = [k + d + s for k in ("loss_ce", "loss_mask", "loss_dice") for d in ("", "_dn")
             for s in ("", *(f"_{i}" for i in range(cfg.MODEL.MASK_FORMER.DEC_LAYERS - 1)))]
     missing = [k for k in (*keys, "total_loss") if k not in metrics]
     if missing or len(metrics) != 61 or not all(np.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f"train: {len(metrics)} loss keys, missing {missing}, or a "
+        raise AssertionError(f"{phase}: {len(metrics)} loss keys, missing {missing}, or a "
                              "non-finite loss")
     moved = {n: (p.detach() - watched[n]).abs().max().item()
              for n, p in model.named_parameters() if n in watched}
     if not moved or not all(v > 0 for v in moved.values()):
-        raise AssertionError(f"train: parameters did not move: {moved}")
-    log("train", parameters_watched=len(moved), all_moved=True, ok=True)
-    return launches, {"step_s": seconds[1:], "peak_GiB": peak_gb}
+        raise AssertionError(f"{phase}: parameters did not move: {moved}")
+    busy_ms = step_busy_ms(trainer, batches) if busy else None
+    if busy:
+        log(phase, device_busy_ms_per_step=f"{busy_ms:.3f}", card=repr(card))
+    log(phase, parameters_watched=len(moved), all_moved=True, ok=True)
+    return launches, {"step_s": seconds[1:], "peak_GiB": peak_gb, "busy_ms": busy_ms}
 
 
 def cosine(a, b) -> float:
@@ -1165,8 +1317,10 @@ def cosine(a, b) -> float:
             / (a.double().norm() * b.double().norm()).clamp(min=1e-300)).item()
 
 
-def phase_train_bf16(torch, card: str, f32: dict) -> dict:
-    """The training phase's recipe, batches and seeded weights with
+def phase_train_bf16(torch, card: str, f32: dict, phase: str = "train_bf16",
+                     config: str = CONFIG, expected: dict = TRAIN_EXPECTED,
+                     busy: bool = False) -> dict:
+    """The training phase's recipe (`config`), batches and seeded weights with
     `TPU.COMPUTE_DTYPE bfloat16`: step 0 through the kernels against the same
     step through autograd of the plain ops, both bfloat16 (every loss within
     2e-2 of the plain one, relative; the gradient of every parameter whose
@@ -1174,32 +1328,32 @@ def phase_train_bf16(torch, card: str, f32: dict) -> dict:
     at a cosine of at least 0.99 with the plain one), every launch in
     bfloat16; then 1 warm and 3 timed steps through `Trainer` with parameters,
     gradients and AdamW state float32; s/step and peak memory beside the
-    float32 phase's."""
+    float32 phase's; with `busy` the device busy ms of a step in both."""
     import shutil
 
     from mp_former_tpu_torch.data.synthetic import synthetic_batches
     from mp_former_tpu_torch.engine.trainer import Trainer
 
-    out_dir = os.path.join(REPO, "output", "chip_smoke_train_bf16")
+    out_dir = os.path.join(REPO, "output", f"chip_smoke_{phase}")
     shutil.rmtree(out_dir, ignore_errors=True)
-    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "TPU.COMPUTE_DTYPE", "bfloat16",
+    cfg = load_cfg(config, [*TRAIN_OVERRIDES, "TPU.COMPUTE_DTYPE", "bfloat16",
                             "OUTPUT_DIR", out_dir])
     batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
                                 TRAIN_MAX_INSTANCES, seed=SEED)
     trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
     model, criterion = trainer.model, trainer.criterion
     if model.compute_dtype != torch.bfloat16:
-        raise AssertionError("train_bf16: the model does not read TPU.COMPUTE_DTYPE bfloat16")
+        raise AssertionError(f"{phase}: the model does not read TPU.COMPUTE_DTYPE bfloat16")
     first = next(batches).to("cuda")
 
     reset_kernel_counts()
     with launch_types() as seen:
         k_losses, k_grads, assignments = loss_and_gradients(torch, model, criterion, first)
     launches = kernel_counts(backward=True)
-    check_bf16_types("train_bf16", seen)
-    if launches != TRAIN_EXPECTED:
-        raise AssertionError(f"train_bf16: kernel launches of one step {launches}, expected "
-                             f"{TRAIN_EXPECTED}")
+    check_bf16_types(phase, seen)
+    if launches != expected:
+        raise AssertionError(f"{phase}: kernel launches of one step {launches}, expected "
+                             f"{expected}")
     with plain_ops():
         p_losses, p_grads, _ = loss_and_gradients(torch, model, criterion, first, assignments)
     model.compute_dtype = torch.float32
@@ -1209,21 +1363,21 @@ def phase_train_bf16(torch, card: str, f32: dict) -> dict:
     f32_loss_err = max(abs(k_losses[k] - f_losses[k]) / max(abs(f_losses[k]), 1e-6)
                        for k in f_losses)
     if not all(torch.isfinite(g).all() and g.dtype == torch.float32 for g in k_grads.values()):
-        raise AssertionError("train_bf16: non-finite or non-float32 gradients")
+        raise AssertionError(f"{phase}: non-finite or non-float32 gradients")
     largest = max(g.abs().max().item() for g in f_grads.values())
     clear = [n for n, g in f_grads.items() if g.abs().max().item() > 1e-3 * largest]
     cos_plain = sorted((cosine(k_grads[n], p_grads[n]), n) for n in clear)
     cos_f32 = sorted((cosine(k_grads[n], f_grads[n]), n) for n in clear)
-    log("train_bf16", compare="step 0, bf16 kernels vs bf16 autograd of the plain ops",
+    log(phase, compare="step 0, bf16 kernels vs bf16 autograd of the plain ops",
         losses=len(k_losses), loss_max_rel_err=f"{loss_err:.3e}", loss_tol=2e-2,
         gradients_clear_of_noise=len(clear), gradients=len(f_grads),
         grad_min_cosine=f"{cos_plain[0][0]:.5f}", grad_cosine_tol=0.99,
         worst=[(n, f"{c:.5f}") for c, n in cos_plain[:3]])
-    log("train_bf16", compare="step 0, bf16 kernels vs float32 kernels (information)",
+    log(phase, compare="step 0, bf16 kernels vs float32 kernels (information)",
         loss_max_rel_err=f"{f32_loss_err:.3e}", grad_min_cosine=f"{cos_f32[0][0]:.5f}",
         worst=[(n, f"{c:.5f}") for c, n in cos_f32[:3]])
     if not (loss_err <= 2e-2 and len(clear) > 100 and cos_plain[0][0] >= 0.99):
-        raise AssertionError(f"train_bf16: step 0 through the kernels and through the plain ops "
+        raise AssertionError(f"{phase}: step 0 through the kernels and through the plain ops "
                              f"disagree: losses {loss_err}, gradients {cos_plain[:3]}")
     del k_grads, p_grads, f_grads
     model.zero_grad(set_to_none=True)
@@ -1241,26 +1395,29 @@ def phase_train_bf16(torch, card: str, f32: dict) -> dict:
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
     launches = kernel_counts(backward=True)
-    check_bf16_types("train_bf16", seen)
+    check_bf16_types(phase, seen)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = {k: 4 * v for k, v in TRAIN_EXPECTED.items()}
-    log("train_bf16", steps=4, launches=launches, expected=expected)
-    log("train_bf16", timed_steps_s_bfloat16=[f"{t:.4f}" for t in seconds[1:]],
+    expected = {k: 4 * v for k, v in expected.items()}
+    log(phase, steps=4, launches=launches, expected=expected)
+    log(phase, timed_steps_s_bfloat16=[f"{t:.4f}" for t in seconds[1:]],
         timed_steps_s_float32=[f"{t:.4f}" for t in f32["step_s"]],
         peak_memory_allocated_GiB_bfloat16=f"{peak_gb:.2f}",
         peak_memory_allocated_GiB_float32=f"{f32['peak_GiB']:.2f}",
         total_loss=f"{float(metrics['total_loss']):.3f}",
         batch=f"{TRAIN_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}", card=repr(card))
     if launches != expected:
-        raise AssertionError(f"train_bf16: kernel launches {launches}, expected {expected}")
+        raise AssertionError(f"{phase}: kernel launches {launches}, expected {expected}")
     if len(metrics) != 61 or not all(np.isfinite(float(v)) for v in metrics.values()):
-        raise AssertionError("train_bf16: loss keys missing or a non-finite loss")
+        raise AssertionError(f"{phase}: loss keys missing or a non-finite loss")
     opt = trainer.optimizer
     state = [t for p in opt.param_groups for q in p["params"] for t in (q, q.grad,
              *opt.state[q].values()) if torch.is_tensor(t) and t.is_floating_point()]
     if not all(t.dtype == torch.float32 for t in state):
-        raise AssertionError("train_bf16: parameters, gradients or AdamW state not float32")
-    log("train_bf16", float32_parameters_gradients_adamw_state=len(state), ok=True)
+        raise AssertionError(f"{phase}: parameters, gradients or AdamW state not float32")
+    if busy:
+        log(phase, device_busy_ms_per_step_bfloat16=f"{step_busy_ms(trainer, batches):.3f}",
+            device_busy_ms_per_step_float32=f"{f32['busy_ms']:.3f}", card=repr(card))
+    log(phase, float32_parameters_gradients_adamw_state=len(state), ok=True)
     return launches
 
 
@@ -1268,7 +1425,7 @@ COCO_ROOT = os.path.join(REPO, "output", "chip_smoke_coco")
 COCO_TRAIN_IMAGES, COCO_VAL_IMAGES, COCO_CLASSES = 64, 8, 20
 COCO_STEPS, COCO_EVAL_PERIOD, COCO_CHECKPOINT_PERIOD = 12, 6, 3
 COCO_EVAL_EXPECTED = {"msda_fwd": 6, "tap_weight_fwd": 0, "masked_attn_fwd": 9, "msda_bwd": 0,
-                      "masked_attn_bwd": 0}
+                      "masked_attn_bwd": 0, "tap_weight_bwd": 0}
 
 
 def uncompressed_rle(mask) -> dict:
@@ -1562,14 +1719,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1_bwd = phase_k1_bwd(torch, card)
     k3_bwd = phase_k3_bwd(torch, card)
+    k2_bwd = phase_k2_bwd(torch, card)
+    torch.cuda.empty_cache()
     train, train_f32 = phase_train(torch, card)
     torch.cuda.empty_cache()
     train_bf16 = phase_train_bf16(torch, card, train_f32)
     torch.cuda.empty_cache()
+    # the TPU recipe trains: head-shared sampling through K2 and its backward
+    train_tpu, train_tpu_f32 = phase_train(torch, card, "train_tpu", TPU_CONFIG,
+                                           ["TPU.COMPUTE_DTYPE", "float32"], TRAIN_TPU_EXPECTED,
+                                           busy=True)
+    torch.cuda.empty_cache()
+    train_tpu_bf16 = phase_train_bf16(torch, card, train_tpu_f32, "train_tpu_bf16", TPU_CONFIG,
+                                      TRAIN_TPU_EXPECTED, busy=True)
+    torch.cuda.empty_cache()
     train_coco = phase_train_coco(torch, card)
     by_path = {"slice": s1, "slice2": s2, "tap_weighting_route": route, "train": train,
                "train_coco": train_coco, "slice_bf16": s1_bf16, "slice2_bf16": s2_bf16,
-               "eval_bf16": eval_bf16, "train_bf16": train_bf16}
+               "eval_bf16": eval_bf16, "train_bf16": train_bf16, "train_tpu": train_tpu,
+               "train_tpu_bf16": train_tpu_bf16}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",
@@ -1596,6 +1764,11 @@ def main() -> int:
                      "the einsum branch, mp_former_tpu/models/transformer_decoder/"
                      "primitives.py:72)",
          "launches": train["masked_attn_bwd"], **k3_bwd["float32"]},
+        {"name": "tap_weight_bwd", "route": "cuda", "source": csrc + "tap_weight_bwd.cu",
+         "replaces": "mp_former_tpu/ops/tap_weighting.py:284 (the custom_vjp's _bwd, plain XLA)",
+         "launches": train_tpu["tap_weight_bwd"],
+         "library": "g * w broadcast + torch.einsum (two calls; no single call computes it)",
+         **k2_bwd[("headshare", "float32")]},
     ]
     for kern in kernels:
         kern["launches_by_path"] = {p: c[kern["name"]] for p, c in by_path.items()

@@ -122,6 +122,8 @@ def library() -> ctypes.CDLL:
     lib.masked_attn_bwd.restype = i
     lib.tap_weight_fwd.argtypes = [p, p, p, ll, ll, i, i, i, i, i, p]
     lib.tap_weight_fwd.restype = i
+    lib.tap_weight_bwd.argtypes = [p, p, p, p, p, ll, ll, i, i, i, i, i, p]
+    lib.tap_weight_bwd.restype = i
     lib.row_gather.argtypes = [p, p, p, ll, ll, i, p]
     lib.row_gather.restype = i
     lib.row_gather_sum.argtypes = [p, p, p, ll, i, i, i, i, p]
@@ -159,10 +161,9 @@ def check_inputs(name: str, typed, dtypes, others=(), align: int = 1,
         if t.requires_grad:
             raise RuntimeError(
                 f"{name} is forward-only and takes no tensor that requires a gradient: run it "
-                "under torch.no_grad(). Gradients of K1 and K3 go through ops.ms_deform_attn."
-                "ms_deform_attn and ops.masked_attention_cuda.masked_attention; the backward of "
-                "K2 (tap weighting) is not ported yet, it belongs to the slice that trains the "
-                "TPU recipe, and the row gathers have none")
+                "under torch.no_grad(). Gradients of K1, K2 and K3 go through ops.ms_deform_attn."
+                "ms_deform_attn, ops.tap_weighting.weight_taps and ops.masked_attention_cuda."
+                "masked_attention; the row gathers have none")
         if n < strided:
             strides, size, bad = t.stride(), t.element_size(), False
             for st, extent in zip(strides[:-1], t.shape):  # a stride of an extent of 1 is never used

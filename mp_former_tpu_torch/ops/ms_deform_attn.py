@@ -12,6 +12,11 @@ the B*M head tables. The two routes compute the same function.
 headshare`): all heads sample at the same locations, so one gathered row
 carries the taps of every head, and K2 weights them per head.
 
+Both K2 routes train: where a gradient is asked for, K2 runs through
+`TapWeightingFunction` (its backward kernel), the gather's gradient is
+`index_select`'s own scatter-add (the JAX package's gather is XLA's too), and
+the bilinear tap weights are differentiable in the locations, as JAX's are.
+
 `MSDeformAttn` is the module of reference ops/modules/ms_deform_attn.py:34-125
 with its state-dict names (sampling_offsets, attention_weights, value_proj,
 output_proj) and its initialisation, including the compass-rose bias of the

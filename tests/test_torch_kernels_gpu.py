@@ -269,7 +269,7 @@ def test_tap_weighting_kernel_takes_unaligned_rows(cuda):
 def test_tap_weighting_kernel_refuses_what_it_does_not_take(cuda):
     taps, w = _tap_inputs(cuda, 2, 16, 4, 2, 32, torch.float32)
     with pytest.raises(RuntimeError, match="forward-only"):
-        tw.weight_taps(taps.clone().requires_grad_(), w, 4, 2, 32)
+        tw.tap_weight_fwd(taps.clone().requires_grad_(), w, 4, 2, 32)
     with pytest.raises(ValueError, match="w .* is not"):
         tw.weight_taps(taps, w[..., :4].contiguous(), 4, 2, 32)
     with pytest.raises(ValueError, match="not \\(B, P\\*Q, T\\*M\\*D\\)"):
@@ -867,3 +867,137 @@ def test_masked_attention_function_in_a_bfloat16_region(cuda):
         assert a.dtype == torch.float32 and _rel(a, b) <= BWD_TOLS[1][1]
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         mac.masked_attn_fwd(q.detach(), k.detach().float(), v.detach(), mask)
+
+
+# K2's backward against its plain version, relative to each gradient's largest
+# entry: float32 sums d products in another order; bfloat16 rounds grad_w's
+# float32 sum to 8 bits (grad_taps is one float32 product rounded, as the
+# plain version rounds it)
+TAP_BWD_TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)]
+
+
+@pytest.mark.parametrize("dtype,tol", TAP_BWD_TOLS)
+@pytest.mark.parametrize("b,q,n_points,n_heads,d,offset", [
+    (1, 850, 4, 8, 32, 0),    # head-shared, 16 bytes a thread, 8 (fp32) or 4 (bf16) a group
+    (8, 850, 4, 1, 32, 0),    # per-head patch tables as the batch
+    (2, 101, 3, 8, 32, 0),    # ragged Q, P and Q coprime
+    (3, 37, 5, 2, 6, 0),      # D = 6: one thread per (row, t, m)
+    (2, 45, 4, 3, 16, 1),     # taps off their 16-byte boundary: one lane a thread
+    (1, 19, 2, 2, 64, 0),     # 16 (fp32) or 8 (bf16) threads a group
+    (2, 7, 1, 1, 128, 0),     # one group a warp in fp32
+])
+def test_tap_weighting_backward_kernel_matches_plain(cuda, dtype, tol, b, q, n_points, n_heads,
+                                                     d, offset):
+    taps, w = _tap_inputs(cuda, b, q, n_points, n_heads, d, dtype, seed=9)
+    if offset:  # a view one element into a larger buffer
+        taps = torch.cat([taps.new_zeros(1), taps.flatten()])[offset:].view(taps.shape)
+    g = torch.randn((b, q, n_heads * d), device=cuda).to(dtype)
+    before = tw.BWD_LAUNCHES
+    got = tw.tap_weight_bwd(taps, w, g, n_points, n_heads, d)
+    assert tw.BWD_LAUNCHES == before + 1
+    want = tw.weight_taps_backward_plain(taps.float(), w.float(), g.float(), n_points, n_heads, d)
+    for name, x, y, like in zip(("taps", "w"), got, want, (taps, w)):
+        assert x.dtype == dtype and x.shape == like.shape, name
+        assert _rel(x, y) <= tol, (name, _rel(x, y))
+    # the group sums run in a fixed order: two calls give equal bits
+    again = tw.tap_weight_bwd(taps, w, g, n_points, n_heads, d)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_tap_weighting_function_passes_gradients_and_counts_launches(cuda):
+    """Through `weight_taps`: a tensor that requires a gradient goes through
+    TapWeightingFunction (one forward and one backward launch), with the
+    gradients of autograd of the plain version; without one, the forward
+    kernel alone."""
+    taps, w = _tap_inputs(cuda, 2, 53, 3, 8, 32, torch.float32, seed=10)
+    g = torch.randn((2, 53, 256), device=cuda)
+    leaves = [taps.clone().requires_grad_(), w.clone().requires_grad_()]
+    fwd, bwd = tw.LAUNCHES, tw.BWD_LAUNCHES
+    out = tw.weight_taps(leaves[0], leaves[1], 3, 8, 32)
+    out.backward(g)
+    assert (tw.LAUNCHES, tw.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    plain = [taps.clone().requires_grad_(), w.clone().requires_grad_()]
+    want = torch.autograd.grad(tw.weight_taps_plain(plain[0], plain[1], 3, 8, 32), plain, g)
+    for leaf, y in zip(leaves, want):
+        assert _rel(leaf.grad, y) <= 1e-5
+    # one input requiring a gradient is enough; the other gets none
+    w_leaf = w.clone().requires_grad_()
+    tw.weight_taps(taps, w_leaf, 3, 8, 32).backward(g)
+    assert _rel(w_leaf.grad, want[1]) <= 1e-5
+    assert (tw.LAUNCHES, tw.BWD_LAUNCHES) == (fwd + 2, bwd + 2)
+    with torch.no_grad():
+        tw.weight_taps(leaves[0], leaves[1], 3, 8, 32)
+    tw.weight_taps(taps, w, 3, 8, 32)
+    assert (tw.LAUNCHES, tw.BWD_LAUNCHES) == (fwd + 4, bwd + 2)
+
+
+def test_tap_weighting_backward_kernel_against_finite_differences(cuda):
+    """K2 is linear in taps and in w, so a central difference of the kernel
+    forward along a random direction is exact up to rounding."""
+    taps, w = _tap_inputs(cuda, 2, 31, 4, 8, 32, torch.float32, seed=11)
+    g = torch.randn((2, 31, 256), device=cuda)
+    grads = tw.tap_weight_bwd(taps, w, g, 4, 8, 32)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    for i, (x, eps) in enumerate(((taps, 1e-1), (w, 1e-2))):
+        direction = torch.randn(x.shape, generator=gen, device=cuda)
+        hi, lo = [taps, w], [taps, w]
+        hi[i], lo[i] = x + eps * direction, x - eps * direction
+        numeric = ((tw.tap_weight_fwd(*hi, 4, 8, 32).double()
+                    - tw.tap_weight_fwd(*lo, 4, 8, 32).double()) * g.double()).sum().item()
+        numeric /= 2 * eps
+        analytic = (grads[i].double() * direction.double()).sum().item()
+        assert abs(numeric - analytic) <= 1e-3 * max(abs(analytic), 1.0), i
+
+
+def test_tap_weighting_backward_kernel_refuses_what_it_does_not_take(cuda):
+    taps, w = _tap_inputs(cuda, 2, 16, 4, 2, 32, torch.float32)
+    g = torch.randn((2, 16, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only.*weight_taps"):
+        tw.tap_weight_bwd(taps.clone().requires_grad_(), w, g, 4, 2, 32)
+    with pytest.raises(ValueError, match="g .* is not"):
+        tw.tap_weight_bwd(taps, w, g[:, :8].contiguous(), 4, 2, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        tw.tap_weight_bwd(taps, w, g.transpose(0, 1).contiguous().transpose(0, 1), 4, 2, 32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tw.tap_weight_bwd(taps, w, g.bfloat16(), 4, 2, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tw.tap_weight_bwd(taps, w, g.cpu(), 4, 2, 32)
+    with pytest.raises(ValueError, match="w .* is not"):
+        tw.tap_weight_bwd(taps, w[..., :4].contiguous(), g, 4, 2, 32)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("route", ["headshare", "per_head_tap_weighting"])
+def test_k2_sampling_routes_train_on_the_card(cuda, dtype, tol, route):
+    """The gradients in value, locations and attention weights of both K2
+    routes on the card (K2 forward and backward, `index_select`'s
+    scatter-add) against the same function on the CPU (the plain version
+    and autograd), relative to each gradient's largest entry. Locations are
+    kept 0.01 pixel from pixel borders, where the locations' gradient jumps.
+    bfloat16: the taps, the folded weights, each level's sum and the
+    gradients are rounded to 8 bits."""
+    shapes = [(25, 34), (13, 17), (7, 9)]
+    S = sum(h * w for h, w in shapes)
+    value, loc, attn = _msda_inputs(cuda, 2, S, 8, 32, shapes, 4, seed=13)
+    sizes = torch.tensor([[w, h] for h, w in shapes], device=cuda).view(1, 1, 1, 3, 1, 2)
+    pix = loc * sizes - 0.5
+    loc = (pix.floor() + (pix - pix.floor()).clamp(1e-2, 1 - 1e-2) + 0.5) / sizes
+    if route == "headshare":
+        loc = loc[:, :, 0].contiguous()
+
+        def fn(v, lo, a):
+            return ms_deform_attn_headshare(v, shapes, lo, a)
+    else:
+        def fn(v, lo, a):
+            return ms_deform_attn(v, shapes, lo, a, pallas_weighting=True)
+    grad_out = torch.randn((2, S, 256), device=cuda)
+    leaves = [value.to(dtype).requires_grad_(), loc.clone().requires_grad_(),
+              attn.clone().requires_grad_()]
+    fwd, bwd = tw.LAUNCHES, tw.BWD_LAUNCHES
+    fn(*leaves).backward(grad_out.to(dtype))
+    assert (tw.LAUNCHES, tw.BWD_LAUNCHES) == (fwd + 3, bwd + 3)
+    cpu = [t.detach().cpu().float().requires_grad_() for t in (value, loc, attn)]
+    want = torch.autograd.grad(fn(*cpu), cpu, grad_out.cpu())
+    for name, leaf, y in zip(("value", "locations", "weights"), leaves, want):
+        assert leaf.grad.dtype == leaf.dtype, name
+        assert _rel(leaf.grad.cpu(), y) <= tol, (name, _rel(leaf.grad.cpu(), y))

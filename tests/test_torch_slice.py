@@ -66,16 +66,16 @@ def _perturb(tree, rng):
     return a + rng.normal(0.0, 0.02, a.shape).astype(np.float32)
 
 
-def _build_pair(overrides, img_hw, config=CONFIG):
+def _build_pair(overrides, img_hw, config=CONFIG, seed=0):
     """JAX model + seeded perturbed params, and the port's model holding the
     same weights (strict load). The params start from the reference's
     initialisation (the port's, seeded) carried into the JAX layout by the
     JAX package's importer of reference checkpoints, which gives JAX
     `model.init`'s tree leaf for leaf (`test_state_dict_round_trip`) without
-    compiling the model's init."""
+    compiling the model's init; `seed` draws the image and the perturbation."""
     jcfg = _cfg(jax_get_cfg, jax_add_deeplab, jax_add_mf2, overrides, config)
     jmodel = jax_build_model(jcfg)
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     img = (rng.rand(1, *img_hw, 3) * 255).astype(np.float32)
     tcfg = _cfg(get_cfg, add_deeplab_config, add_maskformer2_config, overrides, config)
     with torch.random.fork_rng(devices=[]):

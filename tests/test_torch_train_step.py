@@ -47,7 +47,7 @@ from mp_former_tpu_torch.models.criterion import build_criterion
 from mp_former_tpu_torch.structures import Batch
 
 from test_torch_dn_decoder import DN, IMG, make_targets
-from test_torch_slice import SMALL, _build_pair
+from test_torch_slice import CONFIG, SMALL, _build_pair
 
 torch.set_num_threads(2)
 
@@ -64,10 +64,11 @@ TRAIN = SMALL + DN + [
 ]
 
 
-@pytest.fixture(scope="module")
-def step():
-    """One step in both packages; everything the tests compare."""
-    jcfg, jmodel, params, tcfg, tmodel, img = _build_pair(TRAIN, IMG)
+def one_step(overrides=TRAIN, config=CONFIG, seed=0):
+    """One step in both packages of the recipe `config` (the released one by
+    default) with `overrides`, weights and image drawn from `seed`;
+    everything the tests compare."""
+    jcfg, jmodel, params, tcfg, tmodel, img = _build_pair(overrides, IMG, config, seed)
     assert jcfg.MODEL.BACKBONE.FREEZE_AT == 2 and jcfg.TPU.POINT_SAMPLE_MODE == "grid"
     img = np.concatenate([img, img[:, ::-1]], 0)
     jt, tt = make_targets(n=6, counts=(3, 1))
@@ -115,7 +116,12 @@ def step():
                 batch=batch)
 
 
-def test_loss_dict_matches_jax(step):
+@pytest.fixture(scope="module")
+def step():
+    return one_step()
+
+
+def check_losses(step):
     metrics, want = step["metrics"], step["jlosses"]
     assert set(metrics) == set(want) | {"total_loss"}
     assert len(want) == 24  # 3 aux layers + final, main and DN, ce / mask / dice
@@ -125,7 +131,7 @@ def test_loss_dict_matches_jax(step):
     np.testing.assert_allclose(metrics["total_loss"].item(), step["jtotal"], rtol=1e-4)
 
 
-def test_gradients_match_jax_leaf_by_leaf(step):
+def check_gradients(step):
     model = step["model"]
     want = named_gradients_from_jax(step["jgrads"], model)
     largest = max(g.abs().max().item() for g in want.values())
@@ -152,7 +158,7 @@ def test_gradients_match_jax_leaf_by_leaf(step):
     assert checked == len(names) > 100
 
 
-def test_parameters_after_one_step_match_jax(step):
+def check_parameters(step):
     model, start = step["model"], step["start"].state_dict()
     want = state_dict_from_jax_params(step["jnew"])
     grads = named_gradients_from_jax(step["jgrads"], model)
@@ -174,6 +180,18 @@ def test_parameters_after_one_step_match_jax(step):
     for n in frozen:
         torch.testing.assert_close(model.state_dict()[n], start[n], rtol=0, atol=0, msg=n)
     assert moved > 100
+
+
+def test_loss_dict_matches_jax(step):
+    check_losses(step)
+
+
+def test_gradients_match_jax_leaf_by_leaf(step):
+    check_gradients(step)
+
+
+def test_parameters_after_one_step_match_jax(step):
+    check_parameters(step)
 
 
 def test_clipped_step_follows_the_reference_norm(step):

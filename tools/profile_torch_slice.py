@@ -4,7 +4,8 @@
     python3 tools/profile_torch_slice.py [--recipe released|tpu] [--requests 3]
                                          [--height 480 --width 640]
                                          [--dtype float32|bfloat16]
-    python3 tools/profile_torch_slice.py --train [--requests 3] [--dtype float32|bfloat16]
+    python3 tools/profile_torch_slice.py --train [--recipe released|tpu] [--requests 3]
+                                         [--dtype float32|bfloat16]
     python3 tools/profile_torch_slice.py --train-inputs [--requests 3]
 
 Builds the released R50 COCO instance recipe (K1 and K3), or with `--recipe
@@ -23,13 +24,17 @@ copy kernels per request, and the time by model stage (record_function ranges).
 
 `--train` profiles the training step of `chip_smoke.py`'s train phase instead
 (the released training recipe at full width and depth, B = 8 images of 512x512
-from the seeded generator, float32, TF32 off): after 2 warm steps it times
+from the seeded generator, float32, TF32 off; with `--recipe tpu` the TPU
+recipe's step of phase `train_tpu`, head-shared sampling through K2 and its
+backward): after 2 warm steps it times
 `--requests` steps stage by stage on the host clock with a synchronise after
 each stage (forward, matcher costs, the host's assignment solve, losses,
 backward, clipping and optimizer), then traces as many steps with
-`torch.profiler` and prints device busy time per step, the port's four kernels
-per launch and their share of the busy time, the peak memory of a step and
-the top ops by device time.
+`torch.profiler` and prints device busy time per step, the port's kernels
+per launch and their share of the busy time, the device time of
+`index_select`, `index_add_`, `cat` and `pad` (in the TPU recipe the gathers
+in front of K2, their backward and the patch tables), the peak memory of a
+step and the top ops by device time.
 
 `--train-inputs` asks where the step of `chip_smoke.py`'s `train_coco` phase
 (the same recipe fed by `build_train_loader` from its dataset on disk: LSJ,
@@ -102,18 +107,19 @@ def train_step_in_stages(torch, trainer, batch, between):
     return total
 
 
-def profile_training(torch, card: str, steps: int, dtype: str) -> int:
+def profile_training(torch, card: str, steps: int, dtype: str, recipe: str) -> int:
     import contextlib
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from chip_smoke import (CONFIG, SEED, TRAIN_BATCH, TRAIN_MAX_INSTANCES, TRAIN_OVERRIDES,
-                            TRAIN_SIZE, load_cfg, seeded_model)
+    from chip_smoke import (CONFIG, SEED, TPU_CONFIG, TRAIN_BATCH, TRAIN_MAX_INSTANCES,
+                            TRAIN_OVERRIDES, TRAIN_SIZE, load_cfg, seeded_model)
     from mp_former_tpu_torch.data.synthetic import synthetic_batches
     from mp_former_tpu_torch.engine.trainer import Trainer
 
-    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "TPU.COMPUTE_DTYPE", dtype, "OUTPUT_DIR",
-                            os.path.join(REPO, "output", "profile_train")])
+    cfg = load_cfg(TPU_CONFIG if recipe == "tpu" else CONFIG,
+                   [*TRAIN_OVERRIDES, "TPU.COMPUTE_DTYPE", dtype, "OUTPUT_DIR",
+                    os.path.join(REPO, "output", "profile_train")])
     batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
                                 TRAIN_MAX_INSTANCES, seed=SEED)
     trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
@@ -148,8 +154,8 @@ def profile_training(torch, card: str, steps: int, dtype: str) -> int:
         torch.cuda.synchronize()
         plain.append(time.perf_counter() - t0)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"card: {card}  training step, B={TRAIN_BATCH} at {TRAIN_SIZE}x{TRAIN_SIZE}, "
-          f"TPU.COMPUTE_DTYPE {dtype}, TF32 off")
+    print(f"card: {card}  training step of the {recipe} recipe, B={TRAIN_BATCH} at "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE}, TPU.COMPUTE_DTYPE {dtype}, TF32 off")
     print(f"peak memory allocated in a step: {peak_gb:.2f} GiB")
     print(f"step seconds, Trainer.run_step (batch copy included): {[round(t, 4) for t in plain]}")
     print(f"step seconds with a synchronise after every stage: {[round(t, 4) for t in whole]}")
@@ -180,6 +186,14 @@ def profile_training(torch, card: str, steps: int, dtype: str) -> int:
                   f"device_ms/step={e.self_device_time_total / 1e3 / steps:.4f}")
     print(f"the port's kernels: {kernels_us / 1e3 / steps:.2f} ms a step, "
           f"{100 * kernels_us / dev_us:.1f}% of device busy time")
+    print("\n== index_select, index_add_, cat, pad (the TPU recipe's gathers, their "
+          "backward, the patch tables) ==")
+    for e in events:
+        if e.key in ("aten::index_select", "aten::index_add_", "aten::cat",
+                     "aten::constant_pad_nd") and e.device_time_total > 0:
+            print(f"{e.key:24s} calls/step={e.count / steps:g} "
+                  f"device_ms/call={e.device_time_total / 1e3 / e.count:.4f} "
+                  f"device_ms/step={e.device_time_total / 1e3 / steps:.4f}")
     print("\n== by device time ==")
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
     print("\n== stages (host time to issue, device span) ==")
@@ -401,7 +415,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.train:
-        return profile_training(torch, card, args.requests, args.dtype)
+        return profile_training(torch, card, args.requests, args.dtype, args.recipe)
     if args.train_inputs:
         return compare_train_inputs(torch, card, args.requests)
     if args.dtype == "float32":
