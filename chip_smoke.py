@@ -69,20 +69,20 @@ result line):
     of 512x512 from the seeded generator: step 0's losses and gradients through
     the kernels against the same step through autograd of the plain ops, then
     1 warm and 3 timed steps through `Trainer`; checks the 61 loss keys, the
-    launches per step (K1 6, K1 backward 6, K3 9, K3 backward 9, K2 0) and
+    launches per step (K1 12, K1 backward 6, K3 9, K3 backward 9, K2 0) and
     that the parameters moved;
 13a. `train_bf16`: the same in bfloat16: step 0 through the kernels against
     autograd of the plain ops, both bfloat16 (losses within 2e-2 relative;
     the gradient of every parameter whose float32 gradient is clear of
     rounding noise at a cosine of at least 0.99), every launch in bfloat16,
-    then 4 steps through `Trainer` (K1 6, K1 backward 6, K3 9, K3 backward 9
+    then 4 steps through `Trainer` (K1 12, K1 backward 6, K3 9, K3 backward 9
     a step) with float32 parameters, gradients and AdamW state; s/step and
     peak memory beside the float32 phase's;
 13b. `train_tpu`: the TPU recipe (head-shared sampling through K2, DN
     `points` as phase 13) trains, first in float32 as phase 13 (step 0
     against the plain ops at its tolerances, 4 steps through `Trainer`), then
     as its YAML says in bfloat16 (`train_tpu_bf16`, by phase 13a's rules):
-    K2 18, K2 backward 18, K3 9, K3 backward 9, K1 none a step; s/step, device
+    K2 36, K2 backward 18, K3 9, K3 backward 9, K1 none a step; s/step, device
     busy ms a step and peak memory in both types;
 14. slice 3, a training run that scores itself (`train_coco`): a seeded
     COCO-format dataset written to `output/chip_smoke_coco/` by
@@ -93,11 +93,47 @@ result line):
     trains the released recipe (B = 8, LSJ at 512x512, 100 target slots,
     ground truth at 1/4 of the canvas) for 12 steps from
     `build_train_loader`, and `Trainer.test` evaluates the 8 val images after
-    steps 6 and 12; checks the launches (per step K1 6, K1 backward 6, K3 9,
+    steps 6 and 12; checks the launches (per step K1 12, K1 backward 6, K3 9,
     K3 backward 9, K2 0; per evaluated image K1 6, K3 9), the 61 finite loss
     keys and `data_time` of the `metrics.json` lines, two finite segm APs and
     at most 3 checkpoints on disk; prints s/step, data time, the batch copy
-    pinned against pageable and the evaluation's s/image.
+    pinned against pageable and the evaluation's s/image;
+15. `accum`: `TPU.GRAD_ACCUM_STEPS 2` on phase 13's recipe, batch and
+    weights, step 0 (two micro-batches through `engine/train_step.py`)
+    against the plain ops at phase 13's tolerances, launches K1 24, K1
+    backward 12, K3 and K3 backward 18; then the same batch with accum 1 and
+    2, nothing drawn and equal no-object weight in the micro-batches: every
+    loss term within 1e-4;
+16. `remat`: `TPU.REMAT_ENCODER` on against off, step 0 of phase 13: model
+    outputs bitwise equal, losses within 1e-6, gradients within 1e-5 of each
+    parameter's largest entry, K1 12 against 6 launches; peak memory and
+    device busy ms of a step in both; then in bfloat16 with `TPU.REMAT_POLICY
+    dots`, every launch bfloat16: the gradients with remat on against off,
+    beside two runs without remat (the spread) and a recompute made wrong by
+    one bfloat16 step (the control), as the card chooses cuDNN's algorithms
+    and with them fixed; remat within REMAT_GRAD_TOL of each parameter's
+    largest entry and REMAT_L2_TOL in the L2 norm of all gradients, the
+    control beyond them;
+17. `train_tpu_bs16`: the TPU recipe as its YAML says (bfloat16, head-shared
+    sampling, remat) at 16 images of 1024x1024: 2 steps, K2 36 and K2
+    backward 18 launches a step, s/step and peak memory; the first step
+    keeps one launch of every kernel at each of its shapes, held against
+    the plain versions (K2 on taps of 16 x 86016 x 1024, K3 up to 16384
+    keys);
+18. `train_net_accum2`, `train_net_accum1`: the released recipe launched as
+    its users launch it, `mp_former_tpu_torch.train_net.main` with the
+    overrides of run_50ep_no_noise_all_ly.sh, at its own batch (16 images,
+    LSJ at 1024) from phase 14's dataset, `TPU.GRAD_ACCUM_STEPS` 2 and then
+    1 (the monolithic step fits on 80 GB): 3 steps (K1 6 (1 + remat) accum,
+    K1 backward 6 accum, K3 and K3 backward 9 accum launches a step), the
+    second step's launches held against the plain versions at their own
+    shapes as in phase 17, then `--eval-only --resume` on 4 val images (K1
+    6, K3 9 an image); s/step, device busy ms of the last step, peak memory,
+    data_time and segm AP.
+
+Every training phase recomputes the pixel decoder's encoder layers in the
+backward, as the recipes' `TPU.REMAT_ENCODER` default says: K1 (or K2) runs
+once more a step than the encoder has layers (levels), its backward once.
 
 Each kernel phase also computes the kernel's bound (the least time the card
 could take: bytes over the memory rate or operations over the peak rate,
@@ -691,37 +727,45 @@ def phase_eval(torch, card: str, cfg, predictor) -> dict:
 
 
 @contextlib.contextmanager
-def launch_types():
-    """Records the types each kernel wrapper is called with in the region:
-    {kernel: {type}}; K1's and its backward's read "value/locations"."""
+def watching_wrappers(watch):
+    """Each of the six kernel wrappers replaced, in the region, by one that
+    calls `watch(kernel, args, kwargs)` and then the wrapper (K1's forward
+    where both `ms_deform_attn` and `MSDeformAttnFunction` call it)."""
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
     from mp_former_tpu_torch.ops import ms_deform_attn as msda_mod
     from mp_former_tpu_torch.ops import msda_cuda
     from mp_former_tpu_torch.ops import tap_weighting as tw
 
-    seen = {}
-
-    def name(t):
-        return str(t.dtype).split(".")[1]
-
-    def recording(kernel, fn, types):
+    def watched(kernel, fn):
         def wrapper(*args, **kwargs):
-            seen.setdefault(kernel, set()).add(types(args))
+            watch(kernel, args, kwargs)
             return fn(*args, **kwargs)
         return wrapper
 
-    k1 = recording("msda_fwd", msda_cuda.msda_fwd, lambda a: f"{name(a[0])}/{name(a[2])}")
-    with mock.patch.object(msda_mod, "msda_fwd", k1), mock.patch.object(msda_cuda, "msda_fwd", k1), \
-            mock.patch.object(msda_cuda, "msda_bwd", recording(
-                "msda_bwd", msda_cuda.msda_bwd, lambda a: f"{name(a[1])}/{name(a[3])}")), \
-            mock.patch.object(tw, "tap_weight_fwd", recording(
-                "tap_weight_fwd", tw.tap_weight_fwd, lambda a: name(a[0]))), \
-            mock.patch.object(tw, "tap_weight_bwd", recording(
-                "tap_weight_bwd", tw.tap_weight_bwd, lambda a: name(a[0]))), \
-            mock.patch.object(mac, "masked_attn_fwd", recording(
-                "masked_attn_fwd", mac.masked_attn_fwd, lambda a: name(a[0]))), \
-            mock.patch.object(mac, "masked_attn_bwd", recording(
-                "masked_attn_bwd", mac.masked_attn_bwd, lambda a: name(a[1]))):
+    k1 = watched("msda_fwd", msda_cuda.msda_fwd)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(msda_mod, "msda_fwd", k1))
+        for module, kernel in ((msda_cuda, "msda_fwd"), (msda_cuda, "msda_bwd"),
+                               (tw, "tap_weight_fwd"), (tw, "tap_weight_bwd"),
+                               (mac, "masked_attn_fwd"), (mac, "masked_attn_bwd")):
+            wrapper = k1 if kernel == "msda_fwd" else watched(kernel, getattr(module, kernel))
+            stack.enter_context(mock.patch.object(module, kernel, wrapper))
+        yield
+
+
+@contextlib.contextmanager
+def launch_types():
+    """Records the types each kernel wrapper is called with in the region:
+    {kernel: {type}}; K1's and its backward's read "value/locations"."""
+    def name(t):
+        return str(t.dtype).split(".")[1]
+
+    types = {"msda_fwd": lambda a: f"{name(a[0])}/{name(a[2])}",
+             "msda_bwd": lambda a: f"{name(a[1])}/{name(a[3])}",
+             "masked_attn_bwd": lambda a: name(a[1])}
+    seen = {}
+    with watching_wrappers(lambda kernel, args, kwargs: seen.setdefault(kernel, set()).add(
+            types.get(kernel, lambda a: name(a[0]))(args))):
         yield seen
 
 
@@ -1186,65 +1230,68 @@ def phase_k2_bwd(torch, card: str) -> dict:
     return res
 
 
+# launches of one training step with one micro-batch and the encoder not
+# recomputed: the released recipe (K1 in the 6 encoder layers, K3 in the 9
+# decoder layers, one backward each) and the TPU recipe (head-shared sampling
+# through K2: 6 encoder layers x 3 levels)
 TRAIN_EXPECTED = {"msda_fwd": 6, "tap_weight_fwd": 0, "masked_attn_fwd": 9, "msda_bwd": 6,
                   "masked_attn_bwd": 9, "tap_weight_bwd": 0}
-# the TPU recipe: head-shared sampling through K2 (6 encoder layers x 3 levels)
 TRAIN_TPU_EXPECTED = {"msda_fwd": 0, "tap_weight_fwd": 18, "masked_attn_fwd": 9, "msda_bwd": 0,
                       "masked_attn_bwd": 9, "tap_weight_bwd": 18}
 
 
-def loss_and_gradients(torch, model, criterion, batch, assignments=None):
-    """Step 0 without the update: (losses, {name: gradient}, assignments). The
-    draws come from a generator seeded anew, and the matcher's points are drawn
-    whether or not `assignments` are given, so two calls see the same noise."""
+def step_expected(base: dict, remat: bool, accum: int = 1) -> dict:
+    """A step's launches: `base` once a micro-batch (TPU.GRAD_ACCUM_STEPS),
+    and the encoder's forward kernels (K1, K2) once more in the backward where
+    TPU.REMAT_ENCODER recomputes its layers."""
+    again = ("msda_fwd", "tap_weight_fwd") if remat else ()
+    return {k: v * accum * (2 if k in again else 1) for k, v in base.items()}
+
+
+class NoUpdate:
+    """An optimizer and a schedule that update nothing, so that `train_step`
+    leaves a step's gradients in `.grad` and the weights as they were."""
+
+    def __init__(self, model):
+        self.model = model
+        self.param_groups = [{"params": [p for p in model.parameters() if p.requires_grad]}]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.model.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        pass
+
+
+def loss_and_gradients(torch, model, criterion, batch, assignments=None, accum: int = 1):
+    """Step 0 through `engine/train_step.py:train_step` without the update:
+    (losses, {name: gradient}, the matcher's assignments, one a micro-batch).
+    The draws come from a generator seeded anew, and the matcher's points are
+    drawn whether or not `assignments` are handed in, so two calls see the
+    same noise."""
+    from mp_former_tpu_torch.engine.train_step import train_step
+
     generator = torch.Generator(device="cuda").manual_seed(SEED)
-    model.zero_grad(set_to_none=True)
-    outputs = model(batch.images, batch.targets, generator=generator)
-    costs = criterion.layer_costs(outputs, batch.targets, generator)
-    if assignments is None:
-        assignments = criterion.assign(costs)
-    losses = criterion(outputs, batch.targets, generator, assignments=assignments)
-    criterion.weighted_total(losses).backward()
+    solved, handed, solve = [], iter(assignments or ()), criterion.assign
+
+    def assign(costs):
+        solved.append(next(handed) if assignments is not None else solve(costs))
+        return solved[-1]
+
+    criterion.assign = assign
+    stay = NoUpdate(model)
+    try:
+        losses = train_step(model, criterion, stay, stay, batch, generator, accum=accum)
+    finally:
+        del criterion.assign
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
              if p.grad is not None}
-    return {k: v.item() for k, v in losses.items()}, grads, assignments
+    return ({k: v.item() for k, v in losses.items() if k != "total_loss"}, grads, solved)
 
 
-def step_busy_ms(trainer, batches) -> float:
-    """Device busy ms of one `Trainer` step (profiled over 2, one warm first)."""
-    from mp_former_tpu_torch.utils.cuda_timing import busy_ms
-
-    return busy_ms(lambda: trainer.run_step(next(batches)), calls=2)
-
-
-def phase_train(torch, card: str, phase: str = "train", config: str = CONFIG,
-                overrides=(), expected: dict = TRAIN_EXPECTED, busy: bool = False) -> dict:
-    """Slice 3: the released training recipe at full width and depth (or,
-    as phase `train_tpu`, the TPU recipe in float32); `busy` also reads the
-    device busy ms of a step."""
-    import shutil
-
-    from mp_former_tpu_torch.data.synthetic import synthetic_batches
-    from mp_former_tpu_torch.engine.trainer import Trainer
-
-    out_dir = os.path.join(REPO, "output", f"chip_smoke_{phase}")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    cfg = load_cfg(config, [*TRAIN_OVERRIDES, *overrides, "OUTPUT_DIR", out_dir])
-    batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
-                                TRAIN_MAX_INSTANCES, seed=SEED)
-    trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
-    model, criterion = trainer.model, trainer.criterion
-    first = next(batches).to("cuda")
-
-    # step 0 through the kernels and through autograd of the plain ops
-    reset_kernel_counts()
-    k_losses, k_grads, assignments = loss_and_gradients(torch, model, criterion, first)
-    launches = kernel_counts(backward=True)
-    if launches != expected:
-        raise AssertionError(f"{phase}: kernel launches of one step {launches}, expected "
-                             f"{expected}")
-    with plain_ops():
-        p_losses, p_grads, _ = loss_and_gradients(torch, model, criterion, first, assignments)
+def hold_step(torch, phase: str, k_losses, k_grads, p_losses, p_grads) -> None:
+    """Step 0 through the kernels against the same step through autograd of
+    the plain ops, at phase train's tolerances (TRAIN_*_TOL)."""
     loss_err = max(abs(k_losses[k] - p_losses[k]) / max(abs(p_losses[k]), 1e-6) for k in p_losses)
     if k_grads.keys() != p_grads.keys():
         raise AssertionError(f"{phase}: the two paths give gradients to different parameters")
@@ -1265,6 +1312,166 @@ def phase_train(torch, card: str, phase: str = "train", config: str = CONFIG,
                              f"to the kernels {kernel_errs[:3]}")
     if not all(torch.isfinite(g).all() for g in k_grads.values()):
         raise AssertionError(f"{phase}: non-finite gradients")
+
+
+def restore_kernel_counts(counts: dict) -> None:
+    """Set the launch counts back to `counts` (as `kernel_counts(backward=True)`
+    read them), after launches that only compare a kernel with its plain
+    version."""
+    from mp_former_tpu_torch.ops import masked_attention_cuda as mac
+    from mp_former_tpu_torch.ops import msda_cuda
+    from mp_former_tpu_torch.ops import tap_weighting as tw
+
+    msda_cuda.LAUNCHES, tw.LAUNCHES = counts["msda_fwd"], counts["tap_weight_fwd"]
+    mac.LAUNCHES, msda_cuda.BWD_LAUNCHES = counts["masked_attn_fwd"], counts["msda_bwd"]
+    mac.BWD_LAUNCHES, tw.BWD_LAUNCHES = counts["masked_attn_bwd"], counts["tap_weight_bwd"]
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """While open, the first launch of each kernel wrapper at each signature
+    (the shapes and types of its arguments) keeps a detached copy of its
+    arguments on the card: {(kernel, signature): (args, kwargs)}. The launch
+    and its count go on as they were."""
+    import torch
+
+    recorded = {}
+
+    def record(kernel, args, kwargs):
+        sig = (kernel, tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else repr(a)
+                             for a in args))
+        if sig not in recorded:
+            recorded[sig] = (tuple(a.detach().clone() if torch.is_tensor(a) else a
+                                   for a in args), dict(kwargs))
+
+    with watching_wrappers(record):
+        yield recorded
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| over max(1, want's largest entry): absolute on
+    outputs of unit scale (as the kernel phases hold them), relative beyond."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
+
+
+def hold_recorded(torch, phase: str, recorded: dict, card: str) -> None:
+    """Every launch `recording_launches` kept from a training step, run again
+    through its wrapper on the same inputs on the card and held against the
+    kernel's plain version: a forward within TOL (`scaled_err`), a backward
+    within BWD_TOL (K2's within K2_BWD_TOL) of each gradient's largest entry
+    (K3's on the forward output the kernel is handed, as it takes it). The
+    launches made here are not counted."""
+    from mp_former_tpu_torch.ops import masked_attention_cuda as mac
+    from mp_former_tpu_torch.ops import msda_cuda
+    from mp_former_tpu_torch.ops import tap_weighting as tw
+
+    counts = kernel_counts(backward=True)
+    launched = {k for k, v in counts.items() if v}
+    if {k for k, _ in recorded} != launched:
+        raise AssertionError(f"{phase}: kernels recorded {sorted({k for k, _ in recorded})}, "
+                             f"launched {sorted(launched)}")
+
+    def f32(*ts):
+        return [t.float() if torch.is_tensor(t) else t for t in ts]
+
+    def dtype_of(t):
+        return str(t.dtype).split(".")[1]
+
+    for (kernel, _), (args, kwargs) in sorted(recorded.items(), key=lambda r: r[0][0]):
+        extra = {}
+        if kernel == "msda_fwd":
+            v, shapes, lo, a = args
+            name, shape = dtype_of(v), f"B{v.shape[0]}xS{v.shape[1]}xQ{lo.shape[1]}xL{len(shapes)}"
+            errs = [scaled_err(msda_cuda.msda_fwd(*args),
+                               msda_cuda.ms_deform_attn_plain(*f32(v, shapes, lo, a)))]
+            tol = TOL[name]
+        elif kernel == "msda_bwd":
+            go, v, shapes, lo, a = args
+            name, shape = dtype_of(v), f"B{v.shape[0]}xS{v.shape[1]}xQ{lo.shape[1]}xL{len(shapes)}"
+            errs = [rel_err(x, y) for x, y in zip(
+                msda_cuda.msda_bwd(*args),
+                msda_cuda.ms_deform_attn_backward_plain(*f32(go, v, shapes, lo, a)))]
+            tol = BWD_TOL[name]
+        elif kernel == "masked_attn_fwd":
+            q, k, v, mask = args
+            name, shape = dtype_of(q), "B{}xH{}xQ{}xS{}xD{}".format(*q.shape[:3], *k.shape[2:])
+            out = mac.masked_attn_fwd(*args, **kwargs)
+            out = out[0] if isinstance(out, tuple) else out
+            errs = [scaled_err(out, mac.masked_attention_plain(*f32(q, k, v), mask))]
+            tol = TOL[name]
+        elif kernel == "masked_attn_bwd":
+            go, q, k, v, mask, out, stats = args
+            name, shape = dtype_of(q), "B{}xH{}xQ{}xS{}xD{}".format(*q.shape[:3], *k.shape[2:])
+            got = mac.masked_attn_bwd(*args)
+            # the kernel takes delta from the forward's output it is handed: so
+            # does the plain version here; the distance from the plain version
+            # that recomputes the output in float32 is logged beside it
+            errs = [rel_err(x, y) for x, y in zip(
+                got, mac.masked_attention_backward_plain(*f32(go, q, k, v), mask, out=out))]
+            extra["rel_errs_vs_recomputed_output"] = [f"{rel_err(x, y):.2e}" for x, y in zip(
+                got, mac.masked_attention_backward_plain(*f32(go, q, k, v), mask))]
+            tol = BWD_TOL[name]
+        elif kernel == "tap_weight_fwd":
+            taps, w, P, M, D = args
+            name, shape = dtype_of(taps), f"B{taps.shape[0]}xPQ{taps.shape[1]}xTMD{taps.shape[2]}"
+            errs = [scaled_err(tw.tap_weight_fwd(*args),
+                               tw.weight_taps_plain(*f32(taps, w), P, M, D))]
+            tol = TOL[name]
+        else:  # tap_weight_bwd
+            taps, w, g, P, M, D = args
+            name, shape = dtype_of(taps), f"B{taps.shape[0]}xPQ{taps.shape[1]}xTMD{taps.shape[2]}"
+            errs = [rel_err(x, y) for x, y in zip(
+                tw.tap_weight_bwd(*args), tw.weight_taps_backward_plain(*f32(taps, w, g), P, M, D))]
+            tol = K2_BWD_TOL[name]
+        torch.cuda.synchronize()
+        log(phase, hold=kernel, dtype=name, shape=shape, errs=[f"{e:.2e}" for e in errs], tol=tol,
+            against="the plain version on the step's own inputs", **extra, card=repr(card))
+        if not max(errs) <= tol:
+            raise AssertionError(f"{phase}: {kernel} {name} at {shape} against its plain version "
+                                 f"on the step's inputs: {errs}, above {tol}")
+        torch.cuda.empty_cache()
+    restore_kernel_counts(counts)
+
+
+def step_busy_ms(trainer, batches) -> float:
+    """Device busy ms of one `Trainer` step (profiled over 2, one warm first)."""
+    from mp_former_tpu_torch.utils.cuda_timing import busy_ms
+
+    return busy_ms(lambda: trainer.run_step(next(batches)), calls=2)
+
+
+def phase_train(torch, card: str, phase: str = "train", config: str = CONFIG,
+                overrides=(), base: dict = TRAIN_EXPECTED, busy: bool = False) -> dict:
+    """Slice 3: the released training recipe at full width and depth (or,
+    as phase `train_tpu`, the TPU recipe in float32), the encoder recomputed
+    in the backward as the recipes' default says; `busy` also reads the
+    device busy ms of a step."""
+    import shutil
+
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.engine.trainer import Trainer
+
+    out_dir = os.path.join(REPO, "output", f"chip_smoke_{phase}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = load_cfg(config, [*TRAIN_OVERRIDES, *overrides, "OUTPUT_DIR", out_dir])
+    batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                TRAIN_MAX_INSTANCES, seed=SEED)
+    trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
+    model, criterion = trainer.model, trainer.criterion
+    first = next(batches).to("cuda")
+
+    # step 0 through the kernels and through autograd of the plain ops
+    expected = step_expected(base, cfg.TPU.REMAT_ENCODER)
+    reset_kernel_counts()
+    k_losses, k_grads, assignments = loss_and_gradients(torch, model, criterion, first)
+    launches = kernel_counts(backward=True)
+    if launches != expected:
+        raise AssertionError(f"{phase}: kernel launches of one step {launches}, expected "
+                             f"{expected}")
+    with plain_ops():
+        p_losses, p_grads, _ = loss_and_gradients(torch, model, criterion, first, assignments)
+    hold_step(torch, phase, k_losses, k_grads, p_losses, p_grads)
     del k_grads, p_grads
     model.zero_grad(set_to_none=True)
 
@@ -1318,7 +1525,7 @@ def cosine(a, b) -> float:
 
 
 def phase_train_bf16(torch, card: str, f32: dict, phase: str = "train_bf16",
-                     config: str = CONFIG, expected: dict = TRAIN_EXPECTED,
+                     config: str = CONFIG, base: dict = TRAIN_EXPECTED,
                      busy: bool = False) -> dict:
     """The training phase's recipe (`config`), batches and seeded weights with
     `TPU.COMPUTE_DTYPE bfloat16`: step 0 through the kernels against the same
@@ -1345,6 +1552,7 @@ def phase_train_bf16(torch, card: str, f32: dict, phase: str = "train_bf16",
     if model.compute_dtype != torch.bfloat16:
         raise AssertionError(f"{phase}: the model does not read TPU.COMPUTE_DTYPE bfloat16")
     first = next(batches).to("cuda")
+    expected = step_expected(base, cfg.TPU.REMAT_ENCODER)
 
     reset_kernel_counts()
     with launch_types() as seen:
@@ -1606,7 +1814,8 @@ def phase_train_coco(torch, card: str) -> dict:
     launches = kernel_counts(backward=True)
     train_launches = {k: launches[k] - eval_launches[k] for k in launches}
     n_eval = COCO_VAL_IMAGES * len(results)
-    expected_train = {k: COCO_STEPS * v for k, v in TRAIN_EXPECTED.items()}
+    expected_train = {k: COCO_STEPS * v
+                      for k, v in step_expected(TRAIN_EXPECTED, cfg.TPU.REMAT_ENCODER).items()}
     expected_eval = {k: n_eval * v for k, v in COCO_EVAL_EXPECTED.items()}
     log("train_coco", steps=COCO_STEPS, train_launches=train_launches, expected=expected_train)
     log("train_coco", evaluations=len(results), images=n_eval, eval_launches=eval_launches,
@@ -1683,6 +1892,424 @@ def phase_train_coco(torch, card: str) -> dict:
     return train_launches
 
 
+ACCUM = 2
+# remat on against off: the forward is the same operations on the same inputs
+# (the model's outputs bitwise equal); the class losses differ in their last
+# bits, as two runs of the same step do (CUDA's cross-entropy reduction adds
+# in no fixed order), 1e-6 relative; the gradients by the order of the
+# float32 atomic adds of K1's backward and of the point sampling's
+# grid_sample backward (each call its own), 1e-5 of each parameter's largest
+# gradient entry. In bfloat16 those orders flip roundings of the bfloat16
+# gradients now and then: two runs of the same step without remat differ by
+# up to 8.9e-3 of an entry and 8.8e-4 in the L2 norm of all gradients, the
+# same with cuDNN's algorithms fixed (an H100, PERF.md), while a recompute
+# wrong by one bfloat16 step (REMAT_CONTROL_STEP, phase remat's control)
+# reads 2.9e-2 to 3.2e-2 and 7.5e-3: the limits lie between.
+REMAT_LOSS_TOL = 1e-6
+REMAT_GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+REMAT_L2_TOL = 3e-3
+REMAT_CONTROL_STEP = 2.0 ** -7
+# the bs16@1024 phases: the released batch at the recipes' LSJ size
+BS16, BS16_SIZE = 16, 1024
+BS16_STEPS, TRAIN_NET_STEPS, TRAIN_NET_EVAL_IMAGES = 2, 3, 4
+# the step whose kernel launches are held against the plain versions at
+# their own shapes (`hold_recorded`); the peak memory is read over the steps
+# after it. The released recipe's is the second, after an update has moved
+# the sampling offsets off the pixel grid they start on (at a location on a
+# pixel edge the kernel and the plain version may round to neighbouring
+# cells, whose location gradients differ); the TPU recipe's kernels take no
+# locations: its first
+TRAIN_NET_HOLD_STEP, BS16_HOLD_STEP = 1, 0
+TRAIN_NET_ACCUMS = (2, 1)
+# run_50ep_no_noise_all_ly.sh's overrides of the released config
+RELEASED_SH = ["MODEL.DN.NUM_DN", "1", "MODEL.DN.NOISE_SCALE", "0.0",
+               "MODEL.MASK_FORMER.DN_MODE", "points", "MODEL.MASK_FORMER.ALL_LY_DN", "True",
+               "MODEL.MASK_FORMER.LB_NOISE_RATIO", "0.2",
+               "MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME",
+               "MultiScaleMaskedTransformerDecoderMaskDN"]
+
+
+def phase_accum(torch, card: str) -> dict:
+    """`TPU.GRAD_ACCUM_STEPS 2` on phase train's recipe, batch and weights:
+    step 0 (two micro-batches of 4) through the kernels against the plain
+    ops at phase train's tolerances, the launches of the accumulated step
+    counted; then the same batch with accum 1 and 2 where nothing is drawn
+    (no label noise, importance ratio 1) and every image keeps as many
+    instances as the fewest has, so that the micro-batches carry equal
+    no-object weight: every loss term within 1e-4, relative."""
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.engine.trainer import Trainer
+    from mp_former_tpu_torch.structures import Batch
+
+    out_dir = os.path.join(REPO, "output", "chip_smoke_accum")
+    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "TPU.GRAD_ACCUM_STEPS", str(ACCUM),
+                            "OUTPUT_DIR", out_dir])
+    batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                TRAIN_MAX_INSTANCES, seed=SEED)
+    trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
+    model, criterion = trainer.model, trainer.criterion
+    first = next(batches).to("cuda")
+    expected = step_expected(TRAIN_EXPECTED, cfg.TPU.REMAT_ENCODER, ACCUM)
+    reset_kernel_counts()
+    k_losses, k_grads, assignments = loss_and_gradients(torch, model, criterion, first,
+                                                        accum=ACCUM)
+    launches = kernel_counts(backward=True)
+    log("accum", accum=ACCUM, launches=launches, expected=expected)
+    if launches != expected or len(assignments) != ACCUM:
+        raise AssertionError(f"accum: kernel launches of one step {launches}, expected "
+                             f"{expected}; {len(assignments)} matcher calls")
+    with plain_ops():
+        p_losses, p_grads, _ = loss_and_gradients(torch, model, criterion, first, assignments,
+                                                  accum=ACCUM)
+    hold_step(torch, "accum", k_losses, k_grads, p_losses, p_grads)
+    del k_grads, p_grads, trainer, model
+
+    # accum 1 against 2 on the same batch, nothing drawn, equal no-object weight
+    from mp_former_tpu_torch.models.criterion import build_criterion
+
+    cfg0 = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "MODEL.MASK_FORMER.LB_NOISE_RATIO", "0.0",
+                             "MODEL.MASK_FORMER.IMPORTANCE_SAMPLE_RATIO", "1.0",
+                             "OUTPUT_DIR", out_dir])
+    model0 = seeded_model(torch, cfg0).to("cuda")
+    crit0 = build_criterion(cfg0)
+    n = int(first.targets.valid.sum(-1).min())
+    valid = first.targets.valid.clone()
+    valid[:, n:] = False
+    even = Batch(first.images, first.targets._replace(valid=valid))
+    acc, acc_grads, parts = loss_and_gradients(torch, model0, crit0, even, accum=ACCUM)
+    whole = torch.empty((parts[0].shape[0], TRAIN_BATCH, parts[0].shape[2]),
+                        dtype=parts[0].dtype, device=parts[0].device)
+    for k, part in enumerate(parts):
+        whole[:, k::ACCUM] = part  # micro-batch k holds rows k, k + accum, ...
+    mono, mono_grads, _ = loss_and_gradients(torch, model0, crit0, even, [whole])
+    errs = {k: abs(acc[k] - mono[k]) / max(abs(mono[k]), 1e-6) for k in mono}
+    kinds = {kind: max(e for k, e in errs.items() if k.startswith(kind))
+             for kind in ("loss_ce", "loss_mask", "loss_dice")}
+    grad_err = max(rel_err(acc_grads[k], mono_grads[k]) for k in mono_grads)
+    log("accum", compare=f"accum {ACCUM} vs 1, same batch and assignments, nothing drawn",
+        instances_per_image=n, losses=len(errs),
+        **{f"{k}_max_rel_err": f"{v:.3e}" for k, v in kinds.items()}, loss_tol=1e-4,
+        grad_max_rel_err_information=f"{grad_err:.3e}")
+    if max(kinds.values()) > 1e-4:
+        raise AssertionError(f"accum: accumulated losses against the monolithic step: {kinds}")
+    log("accum", ok=True)
+    return launches
+
+
+def phase_remat(torch, card: str) -> dict:
+    """`TPU.REMAT_ENCODER` on against off on phase train's recipe, batch and
+    weights (B = 8, 512x512): step 0's model outputs bitwise equal, losses
+    within REMAT_LOSS_TOL, gradients within REMAT_GRAD_TOL, the launches of
+    both counted; peak memory and device busy ms of a `Trainer` step in
+    both; then in bfloat16 with `TPU.REMAT_POLICY dots`, every launch (the
+    recompute's too) in bfloat16, the gradients within REMAT_GRAD_TOL and
+    REMAT_L2_TOL, beside the spread of two runs without remat and a
+    recompute wrong by one bfloat16 step, which must fail them; both as the
+    card chooses cuDNN's algorithms and with them fixed."""
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.engine.trainer import Trainer
+
+    out_dir = os.path.join(REPO, "output", "chip_smoke_remat")
+    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "OUTPUT_DIR", out_dir])
+    if not cfg.TPU.REMAT_ENCODER or cfg.TPU.REMAT_POLICY != "full":
+        raise AssertionError("remat: the recipe's default is no longer REMAT_ENCODER True, full")
+    batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                TRAIN_MAX_INSTANCES, seed=SEED)
+    trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
+    model, criterion = trainer.model, trainer.criterion
+    encoder = model.sem_seg_head.pixel_decoder.transformer
+    first = next(batches).to("cuda")
+    outputs = []
+
+    def step0(remat: bool, assignments=None):
+        encoder.remat = remat
+        del outputs[:]
+        hook = model.register_forward_hook(lambda m, args, out: outputs.append(
+            [out["pred_logits"].detach().clone(), out["pred_masks"].detach().clone()]))
+        reset_kernel_counts()
+        try:
+            losses, grads, solved = loss_and_gradients(torch, model, criterion, first, assignments)
+        finally:
+            hook.remove()
+        launches = kernel_counts(backward=True)
+        want = step_expected(TRAIN_EXPECTED, remat)
+        if launches != want:
+            raise AssertionError(f"remat {remat}: kernel launches of one step {launches}, "
+                                 f"expected {want}")
+        return losses, grads, solved, outputs[0], launches
+
+    def compare(what, on, off, tol):
+        same_out = all(torch.equal(a, b) for a, b in zip(on[3], off[3]))
+        loss_err = max(abs(on[0][k] - v) / max(abs(v), 1e-6) for k, v in off[0].items())
+        errs = sorted(((rel_err(on[1][k], off[1][k]), k) for k in off[1]), reverse=True)
+        grad_err = errs[0][0]
+        log("remat", compare=what, outputs_bitwise_equal=same_out,
+            loss_max_rel_err=f"{loss_err:.3e}", loss_tol=REMAT_LOSS_TOL,
+            gradients=len(off[1]), grad_max_rel_err=f"{grad_err:.3e}", grad_tol=tol,
+            worst=[(k, f"{e:.2e}") for e, k in errs[:3]],
+            launches_on=on[4], launches_off=off[4])
+        if not (same_out and on[0].keys() == off[0].keys() and loss_err <= REMAT_LOSS_TOL
+                and on[1].keys() == off[1].keys() and grad_err <= tol):
+            raise AssertionError(f"remat: {what}: outputs equal {same_out}, losses {loss_err}, "
+                                 f"gradients {grad_err}")
+
+    on = step0(True)
+    off = step0(False, on[2])
+    compare("float32, full, step 0", on, off, REMAT_GRAD_TOL["float32"])
+    res = {"launches": on[4]}
+    del on, off
+    model.zero_grad(set_to_none=True)
+    for remat in (True, False):
+        encoder.remat = remat
+        torch.cuda.reset_peak_memory_stats()
+        busy = step_busy_ms(trainer, batches)
+        res[remat] = {"busy_ms": busy, "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("remat", dtype="float32", busy_ms_remat_on=f"{res[True]['busy_ms']:.3f}",
+        busy_ms_remat_off=f"{res[False]['busy_ms']:.3f}",
+        peak_GiB_remat_on=f"{res[True]['peak_GiB']:.2f}",
+        peak_GiB_remat_off=f"{res[False]['peak_GiB']:.2f}",
+        batch=f"{TRAIN_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}", card=repr(card))
+
+    # bfloat16, REMAT_POLICY dots (the JAX package's dots_saveable)
+    model.compute_dtype = torch.bfloat16
+    encoder.remat_policy = "dots"
+    with launch_types() as seen:
+        on = step0(True)
+        off = step0(False, on[2])
+    check_bf16_types("remat", seen)
+    # what the comparison must tell apart: two runs of the same step without
+    # remat (the spread), and a recompute that is wrong by one bfloat16 step
+    # (the control), as the card runs them and with cuDNN's algorithms fixed
+    again = step0(False, on[2])
+    with wrong_recompute(torch, encoder, REMAT_CONTROL_STEP):
+        bad = step0(True, on[2])
+    with fixed_cudnn(torch):
+        on_d, off_d, again_d = (step0(r, on[2]) for r in (True, False, False))
+        with wrong_recompute(torch, encoder, REMAT_CONTROL_STEP):
+            bad_d = step0(True, on[2])
+    readings = {}
+    for setting, (a, b, c, d) in (("as_chosen", (on, off, again, bad)),
+                                  ("cudnn_fixed", (on_d, off_d, again_d, bad_d))):
+        for what, x, y in (("remat", a, b), ("spread", c, b), ("control", d, b)):
+            readings[f"{setting}_{what}"] = grad_errs(torch, x[1], y[1])
+    log("remat", dtype="bfloat16", policy="dots",
+        control=f"each encoder layer's input x (1 + {REMAT_CONTROL_STEP:.4g}) in the recompute",
+        **{k: "max_rel={:.3e} l2_rel={:.3e}".format(*v) for k, v in readings.items()},
+        tol=REMAT_GRAD_TOL["bfloat16"], l2_tol=REMAT_L2_TOL, card=repr(card))
+    compare("bfloat16, dots, step 0", on, off, REMAT_GRAD_TOL["bfloat16"])
+    for setting in ("as_chosen", "cudnn_fixed"):
+        max_rel, l2 = readings[f"{setting}_remat"]
+        c_max, c_l2 = readings[f"{setting}_control"]
+        if not (max_rel <= REMAT_GRAD_TOL["bfloat16"] and l2 <= REMAT_L2_TOL):
+            raise AssertionError(f"remat: bfloat16 {setting}: gradients {max_rel}, {l2} (L2)")
+        if c_max <= REMAT_GRAD_TOL["bfloat16"] and c_l2 <= REMAT_L2_TOL:
+            raise AssertionError(f"remat: bfloat16 {setting}: the wrong recompute passes the "
+                                 f"check ({c_max}, {c_l2} (L2))")
+    log("remat", ok=True)
+    return res["launches"]
+
+
+def grad_errs(torch, got: dict, want: dict) -> tuple:
+    """(the largest over parameters of max |got - want| relative to want's
+    largest entry, the L2 norm of all differences over that of all of want)."""
+    diff = sum(float((got[k].float() - want[k].float()).pow(2).sum()) for k in want)
+    norm = sum(float(want[k].float().pow(2).sum()) for k in want)
+    return max(rel_err(got[k], want[k]) for k in want), math.sqrt(diff / norm)
+
+
+@contextlib.contextmanager
+def fixed_cudnn(torch):
+    """cuDNN's deterministic algorithms, chosen without benchmarking."""
+    was = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = was
+
+
+@contextlib.contextmanager
+def wrong_recompute(torch, encoder, step: float):
+    """The encoder's recompute made wrong on purpose: each layer's input
+    times (1 + step) while the checkpoint recomputes it, and only then (the
+    forward is untouched, the recomputed activations are of the same shapes
+    and types)."""
+    base = encoder._remat_context().get("context_fn")
+    recomputing = [False]
+
+    @contextlib.contextmanager
+    def flagged(ctx):
+        with ctx:
+            recomputing[0] = True
+            try:
+                yield
+            finally:
+                recomputing[0] = False
+
+    def context_fn():
+        fwd, rec = base() if base else (contextlib.nullcontext(), contextlib.nullcontext())
+        return fwd, flagged(rec)
+
+    def off_by_a_step(module, args):
+        if recomputing[0]:
+            return ((args[0].float() * (1.0 + step)).to(args[0].dtype), *args[1:])
+        return None
+
+    hooks = [layer.register_forward_pre_hook(off_by_a_step) for layer in encoder.encoder.layers]
+    try:
+        with mock.patch.object(encoder, "_remat_context", lambda: {"context_fn": context_fn}):
+            yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def phase_train_tpu_bs16(torch, card: str) -> dict:
+    """The TPU recipe as its YAML says (bfloat16, head-shared sampling
+    through K2, REMAT_ENCODER True) at the released batch, 16 images of
+    1024x1024 from the seeded generator, with phase train's DN overrides:
+    BS16_STEPS steps through `Trainer`, K2 36 and K2 backward 18 launches a
+    step; step BS16_HOLD_STEP keeps one launch of each kernel at each of
+    its shapes, held against the plain versions after the step
+    (`hold_recorded`); s/step, and the peak memory of the steps after it."""
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.engine.trainer import Trainer
+
+    out_dir = os.path.join(REPO, "output", "chip_smoke_train_tpu_bs16")
+    cfg = load_cfg(TPU_CONFIG, [*TRAIN_OVERRIDES, "SOLVER.IMS_PER_BATCH", str(BS16),
+                                "INPUT.IMAGE_SIZE", str(BS16_SIZE), "OUTPUT_DIR", out_dir])
+    if (cfg.TPU.COMPUTE_DTYPE, cfg.TPU.SAMPLING_ENGINE, cfg.TPU.REMAT_ENCODER) != (
+            "bfloat16", "headshare", True):
+        raise AssertionError("train_tpu_bs16: the TPU recipe's YAML changed")
+    batches = synthetic_batches(BS16, BS16_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                TRAIN_MAX_INSTANCES, seed=SEED)
+    trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    seconds = []
+    for step, batch in enumerate(itertools.islice(batches, BS16_STEPS)):
+        t0 = time.perf_counter()
+        with recording_launches() if step == BS16_HOLD_STEP else contextlib.nullcontext() as kept:
+            metrics = trainer.run_step(batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if step == BS16_HOLD_STEP:
+            hold_recorded(torch, "train_tpu_bs16", kept, card)
+            del kept
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    launches = kernel_counts(backward=True)
+    expected = {k: BS16_STEPS * v for k, v in step_expected(TRAIN_TPU_EXPECTED, True).items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("train_tpu_bs16", steps=BS16_STEPS, launches=launches, expected=expected)
+    log("train_tpu_bs16", steps_s=[f"{t:.4f}" for t in seconds], held_step=BS16_HOLD_STEP,
+        peak_memory_allocated_GiB_after_the_hold=f"{peak_gb:.2f}",
+        total_loss=f"{float(metrics['total_loss']):.3f}",
+        batch=f"{BS16}x{BS16_SIZE}x{BS16_SIZE}", card=repr(card))
+    if launches != expected:
+        raise AssertionError(f"train_tpu_bs16: kernel launches {launches}, expected {expected}")
+    if len(metrics) != 61 or not all(np.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError("train_tpu_bs16: loss keys missing or a non-finite loss")
+    log("train_tpu_bs16", ok=True)
+    return launches
+
+
+def phase_train_net(torch, card: str, accum: int) -> tuple:
+    """The released recipe launched as its users launch it: `train_net.main`
+    with the overrides of run_50ep_no_noise_all_ly.sh, full width and depth,
+    its own batch (16 images, LSJ at 1024) from phase train_coco's dataset
+    on disk, `TPU.GRAD_ACCUM_STEPS accum`, remat as the defaults say;
+    TRAIN_NET_STEPS steps, then `--eval-only --resume` on
+    TRAIN_NET_EVAL_IMAGES val images. Counts the launches a step (K1
+    6 (1 + remat) accum, K1 backward 6 accum, K3 and K3 backward 9 accum)
+    and an evaluated image; step TRAIN_NET_HOLD_STEP keeps one launch of
+    each kernel at each of its shapes, held against the plain versions after the step
+    (`hold_recorded`); prints s/step, device busy ms of the last step, the
+    peak memory of the steps after the hold, data_time and segm AP."""
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mp_former_tpu_torch import train_net
+    from mp_former_tpu_torch.engine.trainer import Trainer
+    from mp_former_tpu_torch.utils.cuda_timing import device_busy_us
+
+    phase = f"train_net_accum{accum}"
+    out_dir = os.path.join(REPO, "output", f"chip_smoke_{phase}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    opts = ["--config-file", os.path.join(REPO, CONFIG)]
+    overrides = [*RELEASED_SH, "SOLVER.MAX_ITER", str(TRAIN_NET_STEPS),
+                 "TPU.GRAD_ACCUM_STEPS", str(accum), "SEED", str(SEED), "OUTPUT_DIR", out_dir]
+    parse = train_net.default_argument_parser().parse_args
+    seconds, busy = [], []
+    run_step = Trainer.run_step
+
+    def timed_step(trainer, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = trainer.iteration
+        if step == TRAIN_NET_STEPS - 1:  # the last step, profiled
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = run_step(trainer, batch)
+                torch.cuda.synchronize()
+            busy.append(device_busy_us(prof.key_averages()) / 1e3)
+        else:
+            with (recording_launches() if step == TRAIN_NET_HOLD_STEP
+                  else contextlib.nullcontext()) as kept:
+                out = run_step(trainer, batch)
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if step == TRAIN_NET_HOLD_STEP:
+            hold_recorded(torch, phase, kept, card)
+            del kept
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    torch.manual_seed(SEED)  # the model's initialisation
+    with mock.patch.object(Trainer, "run_step", timed_step):
+        train_net.main(parse([*opts, *overrides]))
+    launches = kernel_counts(backward=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(out_dir, "config.yaml")) as f:
+        dumped = f.read()
+    remat = "REMAT_ENCODER: true" in dumped
+    per_step = step_expected(TRAIN_EXPECTED, remat, accum)
+    expected = {k: TRAIN_NET_STEPS * v for k, v in per_step.items()}
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        lines = [json.loads(x) for x in f.read().splitlines()]
+    log(phase, steps=TRAIN_NET_STEPS, batch=f"{BS16}x{BS16_SIZE}x{BS16_SIZE}", accum=accum,
+        remat=remat, launches=launches, expected=expected)
+    log(phase, steps_s=[f"{t:.4f}" for t in seconds[:-1]],
+        profiled_last_step_s=f"{seconds[-1]:.4f}", device_busy_ms_last_step=f"{busy[0]:.1f}",
+        peak_memory_allocated_GiB_after_the_hold=f"{peak_gb:.2f}",
+        data_time_s=f"{lines[-1]['data_time']:.4f}",
+        total_loss=f"{lines[-1]['total_loss']:.3f}", card=repr(card))
+    if launches != expected or not remat or len(seconds) != TRAIN_NET_STEPS:
+        raise AssertionError(f"{phase}: launches {launches}, expected {expected} (remat "
+                             f"{remat}), {len(seconds)} steps")
+    losses = [k for k in lines[-1] if k.startswith("loss_") or k == "total_loss"]
+    if not all(np.isfinite(v) for x in lines for v in x.values()) or len(losses) != 61:
+        raise AssertionError(f"{phase}: metrics.json lines {lines}")
+
+    reset_kernel_counts()
+    results = train_net.main(parse([*opts, "--eval-only", "--resume", "--max-eval-images",
+                                    str(TRAIN_NET_EVAL_IMAGES), *overrides]))
+    launches_eval = kernel_counts(backward=True)
+    expected_eval = {k: TRAIN_NET_EVAL_IMAGES * v for k, v in COCO_EVAL_EXPECTED.items()}
+    ap = results["segm"]["AP"]
+    log(phase, evaluated=TRAIN_NET_EVAL_IMAGES, launches=launches_eval, expected=expected_eval,
+        segm_AP=f"{ap:.4f}")
+    if launches_eval != expected_eval or not np.isfinite(ap):
+        raise AssertionError(f"{phase}: evaluation launches {launches_eval}, expected "
+                             f"{expected_eval}; AP {ap}")
+    log(phase, ok=True)
+    return launches, launches_eval
+
+
 def main() -> int:
     import torch
 
@@ -1734,10 +2361,25 @@ def main() -> int:
                                       TRAIN_TPU_EXPECTED, busy=True)
     torch.cuda.empty_cache()
     train_coco = phase_train_coco(torch, card)
+    torch.cuda.empty_cache()
+    accum = phase_accum(torch, card)
+    torch.cuda.empty_cache()
+    remat = phase_remat(torch, card)
+    torch.cuda.empty_cache()
+    train_tpu_bs16 = phase_train_tpu_bs16(torch, card)
+    torch.cuda.empty_cache()
+    # the released recipe at its own batch through the entry point: micro-batches
+    # of 8, then the monolithic step, which fits on 80 GB (PERF.md)
+    train_net_paths = {}
+    for a in TRAIN_NET_ACCUMS:
+        train_net_paths[f"train_net_accum{a}"], train_net_paths[f"train_net_accum{a}_eval"] = \
+            phase_train_net(torch, card, a)
+        torch.cuda.empty_cache()
     by_path = {"slice": s1, "slice2": s2, "tap_weighting_route": route, "train": train,
                "train_coco": train_coco, "slice_bf16": s1_bf16, "slice2_bf16": s2_bf16,
                "eval_bf16": eval_bf16, "train_bf16": train_bf16, "train_tpu": train_tpu,
-               "train_tpu_bf16": train_tpu_bf16}
+               "train_tpu_bf16": train_tpu_bf16, "accum": accum, "remat": remat,
+               "train_tpu_bs16": train_tpu_bs16, **train_net_paths}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",

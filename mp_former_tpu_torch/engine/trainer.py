@@ -4,7 +4,8 @@ batches of `data/loader.py::build_train_loader` (or of an iterator the caller
 passes, e.g. `data/synthetic.py`), writes `metrics.json` lines with the
 reference's loss keys and `data_time`, calls hooks, evaluates every
 TEST.EVAL_PERIOD steps (`test`), saves and resumes with `torch.save`, keeping
-the last 3 checkpoints. It runs on `cuda` unless the caller passes
+the last 3 checkpoints. `TPU.GRAD_ACCUM_STEPS` splits each step into that many
+micro-batches (`train_step.py`). It runs on `cuda` unless the caller passes
 `device="cpu"`, and raises when asked for `cuda` and there is none.
 """
 
@@ -46,6 +47,10 @@ class Trainer:
         self.optimizer, self.scheduler = build_optimizer(cfg, self.model)
         self.clip_gradients = build_gradient_clipper(cfg)
         self.dn_group_bucket = int(cfg.TPU.DN_GROUP_BUCKET)
+        self.accum = int(cfg.TPU.GRAD_ACCUM_STEPS or 1)
+        if cfg.SOLVER.IMS_PER_BATCH % self.accum:
+            raise ValueError(f"SOLVER.IMS_PER_BATCH={cfg.SOLVER.IMS_PER_BATCH} must be "
+                             f"divisible by TPU.GRAD_ACCUM_STEPS={self.accum}")
         self.train_loader = train_loader
         self.max_iter = cfg.SOLVER.MAX_ITER
         self.checkpoint_period = cfg.SOLVER.CHECKPOINT_PERIOD
@@ -102,11 +107,13 @@ class Trainer:
         return self.iteration
 
     # -- the loop ------------------------------------------------------------
-    def run_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
+    def run_step(self, batch: Batch, stage: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+        """One step; `stage(name)`, where given, wraps each stage of it
+        (`train_step`)."""
         metrics = train_step(self.model, self.criterion, self.optimizer, self.scheduler,
                              batch.to(self.device, non_blocking=True), self.generator,
                              clip_gradients=self.clip_gradients,
-                             dn_group_bucket=self.dn_group_bucket)
+                             dn_group_bucket=self.dn_group_bucket, accum=self.accum, stage=stage)
         self.iteration += 1
         return metrics
 
@@ -114,7 +121,8 @@ class Trainer:
               hooks: Optional[Dict[str, Callable]] = None) -> None:
         """Steps `start_iter` (by default where the trainer stands) to
         SOLVER.MAX_ITER. After each step: a metrics line every 20 steps and
-        at the end, `hooks` called as `h(step, trainer)`, a checkpoint every
+        at the end (losses, `lr`, `data_time`, `time`), `hooks` called as
+        `h(step, trainer)`, a checkpoint every
         SOLVER.CHECKPOINT_PERIOD steps and at the end, an evaluation every
         TEST.EVAL_PERIOD steps."""
         if start_iter is not None:
@@ -127,6 +135,7 @@ class Trainer:
         try:
             batches = iter(loader)
             first, t_data = self.iteration, 0.0
+            last_line, t_line = self.iteration - 1, time.perf_counter()
             while self.iteration < self.max_iter:
                 step = self.iteration
                 t0 = time.perf_counter()
@@ -139,6 +148,12 @@ class Trainer:
                     line["lr"] = self.scheduler.get_last_lr()[-1]
                     # mean seconds a step waited for its batch
                     line["data_time"] = t_data / (step - first + 1)
+                    # mean wall seconds a step since the last line: the batch wait,
+                    # checkpoints and evaluations included (reading the losses above
+                    # waits for the device)
+                    now = time.perf_counter()
+                    line["time"] = (now - t_line) / (step - last_line)
+                    last_line, t_line = step, now
                     logger.info("iter %d total_loss %.4f loss_ce %.4f loss_mask %.4f "
                                 "loss_dice %.4f data_time %.4f", step, line["total_loss"],
                                 line.get("loss_ce", 0.0), line.get("loss_mask", 0.0),

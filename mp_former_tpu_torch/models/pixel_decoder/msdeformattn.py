@@ -7,8 +7,9 @@ encoder's 1/32 map, [1/32, 1/16, 1/8] multi-scale maps), all NCHW. Images are
 unpadded, so the valid ratios are 1 and the reference points are the fixed
 grid of pixel centres. `TPU.SAMPLING_ENGINE` and `TPU.PALLAS_TAP_WEIGHTING`
 choose the deformable sampling engine (`ops/ms_deform_attn.py:MSDeformAttn`).
-Only the unrolled encoder is ported: `TPU.SCAN_ENCODER`, `TPU.SHARD_TOKENS` and
-remat are TPU devices.
+`TPU.REMAT_ENCODER` / `TPU.REMAT_POLICY` recompute the encoder layers in the
+backward (`MSDeformAttnTransformerEncoderOnly`). Only the unrolled encoder is
+ported: `TPU.SCAN_ENCODER` and `TPU.SHARD_TOKENS` are TPU devices.
 
 In a bfloat16 compute region (`TPU.COMPUTE_DTYPE bfloat16`) the module follows
 its reference, the JAX package (`msdeformattn.py:285-332`), and departs on
@@ -22,12 +23,14 @@ bfloat16.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ...ops.ms_deform_attn import MSDeformAttn
 from ...utils import float32_region, region_dtype
@@ -75,15 +78,38 @@ class MSDeformAttnTransformerEncoder(nn.Module):
         self.layers = nn.ModuleList(layers)
 
 
+# what `REMAT_POLICY dots` keeps from the forward: the outputs of matrix
+# products, as jax.checkpoint_policies.dots_saveable does
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 class MSDeformAttnTransformerEncoderOnly(nn.Module):
-    """Reference MSDeformAttnTransformerEncoderOnly (:23-89), unrolled."""
+    """Reference MSDeformAttnTransformerEncoderOnly (:23-89), unrolled.
+
+    `remat` (TPU.REMAT_ENCODER, the JAX package's `msdeformattn.py:197-205`)
+    recomputes each encoder layer in the backward instead of keeping its
+    activations (`torch.utils.checkpoint`, non-reentrant), wherever autograd
+    records (`torch.is_grad_enabled()`; the model stays in `.eval()` while it
+    trains). `remat_policy` (TPU.REMAT_POLICY): "dots" keeps the outputs of
+    matrix products and recomputes the rest (selective checkpointing, the
+    JAX package's `dots_saveable`); any other value recomputes everything.
+    Autocast's state is replayed in the recompute; the layers draw nothing at
+    random, so the RNG state is not kept."""
 
     def __init__(self, d_model: int = 256, nhead: int = 8, num_encoder_layers: int = 6,
                  dim_feedforward: int = 1024, num_feature_levels: int = 3,
                  enc_n_points: int = 4, sampling_engine: str = "packed2x2",
-                 pallas_weighting: bool = False):
+                 pallas_weighting: bool = False, remat: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
         self.d_model = d_model
+        self.remat = remat
+        self.remat_policy = remat_policy
         self.encoder = MSDeformAttnTransformerEncoder([
             MSDeformAttnTransformerEncoderLayer(d_model, dim_feedforward, num_feature_levels,
                                                 nhead, enc_n_points, sampling_engine,
@@ -111,8 +137,23 @@ class MSDeformAttnTransformerEncoderOnly(nn.Module):
         ref = ref.expand(src_flat.shape[0], -1, -1, -1)
         out = src_flat
         for layer in self.encoder.layers:
-            out = layer(out, pos_flat, ref, spatial_shapes)
+            if self.remat and torch.is_grad_enabled():
+                out = ckpt.checkpoint(layer, out, pos_flat, ref, spatial_shapes,
+                                      use_reentrant=False, preserve_rng_state=False,
+                                      **self._remat_context())
+            else:
+                out = layer(out, pos_flat, ref, spatial_shapes)
         return out, spatial_shapes
+
+    def _remat_context(self) -> dict:
+        if self.remat_policy != "dots":
+            return {}
+        if not hasattr(ckpt, "create_selective_checkpoint_contexts"):
+            raise NotImplementedError(
+                f"TPU.REMAT_POLICY dots needs selective activation checkpointing, which torch "
+                f"{torch.__version__} lacks; set TPU.REMAT_POLICY full")
+        return {"context_fn": functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                _save_dots)}
 
 
 @PIXEL_DECODER_REGISTRY.register()
@@ -124,7 +165,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
                  conv_dim: int = 256, mask_dim: int = 256, norm: str = "GN",
                  transformer_in_features: Sequence[str] = ("res3", "res4", "res5"),
                  common_stride: int = 4, maskformer_num_feature_levels: int = 3,
-                 sampling_engine: str = "packed2x2", pallas_weighting: bool = False):
+                 sampling_engine: str = "packed2x2", pallas_weighting: bool = False,
+                 remat: bool = False, remat_policy: str = "full"):
         super().__init__()
         self.conv_dim = conv_dim
         self.in_features = sorted(input_shape, key=lambda k: input_shape[k].stride)
@@ -142,7 +184,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
             num_encoder_layers=transformer_enc_layers,
             dim_feedforward=transformer_dim_feedforward,
             num_feature_levels=len(self.transformer_in_features),
-            sampling_engine=sampling_engine, pallas_weighting=pallas_weighting)
+            sampling_engine=sampling_engine, pallas_weighting=pallas_weighting,
+            remat=remat, remat_policy=remat_policy)
         self.mask_features = Conv2d(conv_dim, mask_dim, kernel_size=1)
         c2_xavier_fill(self.mask_features)
         self.maskformer_num_feature_levels = maskformer_num_feature_levels
@@ -178,6 +221,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
             common_stride=head.COMMON_STRIDE,
             sampling_engine=cfg.TPU.SAMPLING_ENGINE,
             pallas_weighting=cfg.TPU.PALLAS_TAP_WEIGHTING,
+            remat=cfg.TPU.REMAT_ENCODER,
+            remat_policy=cfg.TPU.REMAT_POLICY,
         )
 
     def forward_features(self, features: Dict[str, torch.Tensor]):

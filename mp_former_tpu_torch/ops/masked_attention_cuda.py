@@ -67,21 +67,27 @@ def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def masked_attention_backward_plain(grad_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-                                    v: torch.Tensor, mask: torch.Tensor):
+                                    v: torch.Tensor, mask: torch.Tensor,
+                                    out: torch.Tensor | None = None):
     """The gradients of `masked_attention_plain` with respect to q, k and v,
     written out on tensors (no autograd), in the backward kernel's arithmetic:
     p = softmax of the logits with the blocked ones REPLACED by -1e9, delta =
     rowsum(dO * O), dV = p^T dO, dS = p * (dO v^T - delta) and 0 where the mask
     blocks (the -1e9 is a constant), dQ = dS k / sqrt(D), dK = dS^T q /
     sqrt(D). A row blocked everywhere is uniform over all keys: dV gets dO / S
-    from it, dQ and dK nothing."""
+    from it, dQ and dK nothing. O is recomputed here, or is `out`, the
+    forward's output as the kernel is handed it (rounded to the forward's
+    type): where the weights are spread over many keys, dP - delta cancels
+    and dQ follows the rounding of O (as every backward that takes delta
+    from the stored output does)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     m = mask[:, None] if mask.dim() == 3 else mask
     m = m.bool()
     logits = torch.einsum("bhqd,bhsd->bhqs", q, k) * scale
     p = logits.masked_fill(m, _NEG_INF).softmax(dim=-1)
-    out = torch.einsum("bhqs,bhsd->bhqd", p, v)
-    delta = (grad_out * out).sum(-1, keepdim=True)
+    if out is None:
+        out = torch.einsum("bhqs,bhsd->bhqd", p, v)
+    delta = (grad_out * out.to(grad_out.dtype)).sum(-1, keepdim=True)
     d_v = torch.einsum("bhqs,bhqd->bhsd", p, grad_out)
     d_p = torch.einsum("bhqd,bhsd->bhqs", grad_out, v)
     d_s = (p * (d_p - delta)).masked_fill(m, 0.0)

@@ -6,7 +6,8 @@ to the hand-written kernel K1 (`ops/msda_cuda.py:msda_fwd`, and through
 CPU tensors to its plain version. With `pallas_weighting=True` it takes the JAX package's split
 form instead: a 2x2 patch table, one gathered row per (head, point, query) and
 the tap-weighting kernel K2 (`ops/tap_weighting.py:weight_taps`), batched over
-the B*M head tables. The two routes compute the same function.
+the B*M head tables. The two routes compute the same function; K1 takes heads
+of 32 channels, so CUDA values with other head widths take the second.
 
 `ms_deform_attn_headshare` is the head-shared engine (`TPU.SAMPLING_ENGINE
 headshare`): all heads sample at the same locations, so one gathered row
@@ -32,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .msda_cuda import MSDeformAttnFunction, ms_deform_attn_plain, msda_fwd
+from .msda_cuda import CHANNELS as K1_CHANNELS, MSDeformAttnFunction, ms_deform_attn_plain, msda_fwd
 from .tap_weighting import weight_taps
 
 SAMPLING_ENGINES = ("packed2x2", "pallas", "headshare")
@@ -103,17 +104,19 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
     """value (B, S, M, D), sampling_locations (B, Q, M, L, P, 2) in [0, 1] as
     (x, y), attention_weights (B, Q, M, L, P) -> (B, Q, M * D).
     `pallas_weighting` (TPU.PALLAS_TAP_WEIGHTING) takes the patch-table gather
-    and K2 instead of K1. The JAX package's types (`ms_deform_attn.py:56`):
-    value in the compute type, the result in value's type, the sampling
-    arithmetic in float32, so locations and weights arrive in (or are cast
-    to) float32 when value is bfloat16."""
+    and K2 instead of K1; so does a CUDA value whose heads are not K1's 32
+    channels wide (the frozen synthetic recipe's 128 channels in 8 heads),
+    since that route computes the same function at any width. The JAX
+    package's types (`ms_deform_attn.py:56`): value in the compute type, the
+    result in value's type, the sampling arithmetic in float32, so locations
+    and weights arrive in (or are cast to) float32 when value is bfloat16."""
     if len(spatial_shapes) != sampling_locations.shape[3]:
         raise ValueError(f"ms_deform_attn: {len(spatial_shapes)} spatial shapes for "
                          f"L={sampling_locations.shape[3]} levels")
     work = torch.promote_types(value.dtype, torch.float32)
     sampling_locations = sampling_locations.to(work)
     attention_weights = attention_weights.to(work)
-    if pallas_weighting:
+    if pallas_weighting or (value.is_cuda and value.shape[-1] != K1_CHANNELS):
         return _ms_deform_attn_tap_weighting(value, spatial_shapes, sampling_locations,
                                              attention_weights)
     if value.is_cuda:

@@ -33,6 +33,8 @@ from .cuda_build import DTYPE_CODES, check_inputs, launch
 # (plain counters: a run shows that its path went through the kernels)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+# the channels a head the two kernels take (`csrc/msda_fwd.cu`, `msda_bwd.cu`: kD)
+CHANNELS = 32
 
 
 def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -180,8 +182,8 @@ def _check_shapes(name: str, value, spatial_shapes, sampling_locations, attentio
     """The shape rules both kernels share; returns (B, S, Q, M, L, P, D) and
     the level sizes as a tuple."""
     B, S, M, D = value.shape
-    if D != 32:
-        raise ValueError(f"{name}: the kernel takes 32 channels per head, got {D}")
+    if D != CHANNELS:
+        raise ValueError(f"{name}: the kernel takes {CHANNELS} channels per head, got {D}")
     Q, L, P = sampling_locations.shape[1], sampling_locations.shape[3], sampling_locations.shape[4]
     if sampling_locations.shape != (B, Q, M, L, P, 2):
         raise ValueError(f"{name}: sampling_locations {tuple(sampling_locations.shape)} "

@@ -111,5 +111,14 @@ def busy_ms(fn: Callable[[], object], calls: int = 3) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    return sum(e.self_device_time_total for e in device) / 1e3 / calls
+    return device_busy_us(prof.key_averages()) / 1e3 / calls
+
+
+def device_busy_us(events) -> float:
+    """The card's busy time in `torch.profiler` key averages: the device time
+    of every kernel and copy, summed. A `record_function` range (such as
+    `engine/train_step.py`'s `stage::<name>`) shows on the card as a span
+    over its kernels, not as time of its own: left out."""
+    return sum(e.self_device_time_total for e in events
+               if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("stage::"))

@@ -182,6 +182,23 @@ def test_attention_backward_plain_float64_gradcheck():
         assert _rel(g, w) <= 1e-9
 
 
+def test_attention_backward_plain_takes_delta_from_the_output_handed_in():
+    """`out=` (the forward's output as the kernel is handed it): the output
+    recomputed in float64 gives the default's gradients; the same output
+    rounded to bfloat16 moves dq and dk (through delta) and leaves dv."""
+    q, k, v, mask, grad_out = (torch.from_numpy(a) for a in
+                               _attn_inputs(2, 1, 2, 4, 300, 8, True, np.float64))
+    out = mac.masked_attention_plain(q, k, v, mask)
+    want = mac.masked_attention_backward_plain(grad_out, q, k, v, mask)
+    got = mac.masked_attention_backward_plain(grad_out, q, k, v, mask, out=out)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-12
+    rounded = mac.masked_attention_backward_plain(grad_out, q, k, v, mask,
+                                                  out=out.to(torch.bfloat16))
+    errs = [_rel(g, w) for g, w in zip(rounded, want)]
+    assert errs[0] > 1e-6 and errs[1] > 1e-6 and errs[2] == 0.0
+
+
 def test_cross_attention_gradients_match_jax():
     """The port's MultiheadAttention (CPU: K3's plain version and autograd)
     against the JAX module's einsum branch, which the JAX package trains

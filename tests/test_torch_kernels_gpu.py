@@ -730,8 +730,9 @@ def test_msda_backward_kernel_on_the_encoders_tokens(cuda, dtype, tol, B, M, sha
 def test_loader_fed_trainer_launches_the_training_kernels(cuda, tmp_path):
     """The released training recipe at full width, fed by `build_train_loader`
     from a dataset on disk (LSJ at 128x128, B = 2, 100 target slots): each
-    step launches K1 6, K1 backward 6, K3 9 and K3 backward 9 times, K2 never,
-    and the loader hands over pinned batches."""
+    step launches K1 12 times (6 layers, recomputed in the backward as
+    TPU.REMAT_ENCODER's default says), K1 backward 6, K3 9 and K3 backward 9
+    times, K2 never, and the loader hands over pinned batches."""
     from mp_former_tpu_torch.config import add_deeplab_config, add_maskformer2_config, get_cfg
     from mp_former_tpu_torch.data.catalog import DatasetCatalog
     from mp_former_tpu_torch.data.datasets.coco import register_coco_instances
@@ -763,8 +764,87 @@ def test_loader_fed_trainer_launches_the_training_kernels(cuda, tmp_path):
     before = [getattr(m, a) for m, a in counters]
     trainer.train()
     launches = [getattr(m, a) - b for (m, a), b in zip(counters, before)]
-    assert launches == [12, 12, 18, 18, 0]
+    assert cfg.TPU.REMAT_ENCODER
+    assert launches == [24, 12, 18, 18, 0]
     assert pinned == [True, True]
+
+
+def _released_training(device, overrides=()):
+    """The released training recipe at full width with seeded weights, its
+    trainer and criterion, and B = 4 seeded images of 128x128."""
+    from chip_smoke import CONFIG, TRAIN_OVERRIDES, load_cfg, seeded_model
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.engine.trainer import Trainer
+
+    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "SOLVER.IMS_PER_BATCH", "4", *overrides])
+    batches = synthetic_batches(4, 128, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, 5, seed=0)
+    trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device=device)
+    return cfg, trainer.model, trainer.criterion, next(batches).to(device)
+
+
+def _counts():
+    return {"msda_fwd": msda_cuda.LAUNCHES, "msda_bwd": msda_cuda.BWD_LAUNCHES,
+            "masked_attn_fwd": mac.LAUNCHES, "masked_attn_bwd": mac.BWD_LAUNCHES,
+            "tap_weight_fwd": tw.LAUNCHES, "tap_weight_bwd": tw.BWD_LAUNCHES}
+
+
+def test_remat_on_and_off_on_the_card(cuda, monkeypatch):
+    """Step 0 of the released training recipe with the encoder recomputed in
+    the backward and without: K1 launches 12 and 6 times, its backward 6
+    times either way; the losses within 1e-6 relative (CUDA's cross-entropy
+    reduction adds in no fixed order), the gradients within 1e-5 of each
+    parameter's largest entry (K1 backward's float32 atomics)."""
+    from chip_smoke import loss_and_gradients
+
+    # float32 numerics: with TF32 cuDNN picks its convolutions by the free
+    # memory, which remat changes, and rounds them to 10 bits
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, model, criterion, batch = _released_training(cuda)
+    encoder = model.sem_seg_head.pixel_decoder.transformer
+    assert encoder.remat and encoder.remat_policy == "full"
+    runs, assignments = {}, None
+    for remat in (True, False):
+        encoder.remat = remat
+        before = _counts()
+        runs[remat] = loss_and_gradients(torch, model, criterion, batch, assignments)
+        assignments = runs[remat][2]  # the second run gets the first one's
+        launches = {k: v - before[k] for k, v in _counts().items()}
+        assert launches == {"msda_fwd": 12 if remat else 6, "msda_bwd": 6,
+                            "masked_attn_fwd": 9, "masked_attn_bwd": 9, "tap_weight_fwd": 0,
+                            "tap_weight_bwd": 0}
+    assert runs[True][0].keys() == runs[False][0].keys()
+    for k, v in runs[False][0].items():
+        assert abs(runs[True][0][k] - v) <= 1e-6 * abs(v), k
+    on, off = runs[True][1], runs[False][1]
+    assert on.keys() == off.keys() and len(on) > 100
+    for name, g in off.items():
+        assert _rel(on[name], g) <= 1e-5, name
+
+
+def test_accumulated_step_matches_the_plain_ops_on_the_card(cuda):
+    """`TPU.GRAD_ACCUM_STEPS 2` on B = 4: step 0 through the kernels (K1 24,
+    K1 backward 12, K3 and K3 backward 18 launches with remat) against the
+    same step through autograd of the plain ops with the same assignments:
+    losses within 1e-3 relative, gradients within 5e-3 of each parameter's
+    largest entry (`chip_smoke.py`'s TRAIN_LOSS_TOL and TRAIN_GRAD_TOL)."""
+    from chip_smoke import (TRAIN_EXPECTED, TRAIN_GRAD_TOL, TRAIN_LOSS_TOL, loss_and_gradients,
+                            plain_ops, step_expected)
+
+    cfg, model, criterion, batch = _released_training(cuda, ["TPU.GRAD_ACCUM_STEPS", "2"])
+    before = _counts()
+    k_losses, k_grads, assignments = loss_and_gradients(torch, model, criterion, batch, accum=2)
+    launches = {k: v - before[k] for k, v in _counts().items()}
+    assert launches == step_expected(TRAIN_EXPECTED, True, 2)
+    assert len(assignments) == 2 and assignments[0].shape[1] == 2
+    with plain_ops():
+        p_losses, p_grads, _ = loss_and_gradients(torch, model, criterion, batch, assignments,
+                                                  accum=2)
+    for k, v in p_losses.items():
+        assert abs(k_losses[k] - v) <= TRAIN_LOSS_TOL * max(abs(v), 1e-6), k
+    assert k_grads.keys() == p_grads.keys()
+    for name, g in p_grads.items():
+        assert _rel(k_grads[name], g) <= TRAIN_GRAD_TOL, name
 
 
 def test_msda_function_in_a_bfloat16_region(cuda):
@@ -967,7 +1047,7 @@ def test_tap_weighting_backward_kernel_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("route", ["headshare", "per_head_tap_weighting"])
+@pytest.mark.parametrize("route", ["headshare", "per_head_tap_weighting", "per_head_16_channels"])
 def test_k2_sampling_routes_train_on_the_card(cuda, dtype, tol, route):
     """The gradients in value, locations and attention weights of both K2
     routes on the card (K2 forward and backward, `index_select`'s
@@ -975,10 +1055,13 @@ def test_k2_sampling_routes_train_on_the_card(cuda, dtype, tol, route):
     and autograd), relative to each gradient's largest entry. Locations are
     kept 0.01 pixel from pixel borders, where the locations' gradient jumps.
     bfloat16: the taps, the folded weights, each level's sum and the
-    gradients are rounded to 8 bits."""
+    gradients are rounded to 8 bits. `per_head_16_channels`: per-head
+    sampling with heads of 16 channels (the frozen synthetic recipe's), which
+    K1 does not take, goes through the patch-table route unasked."""
     shapes = [(25, 34), (13, 17), (7, 9)]
     S = sum(h * w for h, w in shapes)
-    value, loc, attn = _msda_inputs(cuda, 2, S, 8, 32, shapes, 4, seed=13)
+    D = 16 if route == "per_head_16_channels" else 32
+    value, loc, attn = _msda_inputs(cuda, 2, S, 8, D, shapes, 4, seed=13)
     sizes = torch.tensor([[w, h] for h, w in shapes], device=cuda).view(1, 1, 1, 3, 1, 2)
     pix = loc * sizes - 0.5
     loc = (pix.floor() + (pix - pix.floor()).clamp(1e-2, 1 - 1e-2) + 0.5) / sizes
@@ -989,13 +1072,13 @@ def test_k2_sampling_routes_train_on_the_card(cuda, dtype, tol, route):
             return ms_deform_attn_headshare(v, shapes, lo, a)
     else:
         def fn(v, lo, a):
-            return ms_deform_attn(v, shapes, lo, a, pallas_weighting=True)
-    grad_out = torch.randn((2, S, 256), device=cuda)
+            return ms_deform_attn(v, shapes, lo, a, pallas_weighting=D == 32)
+    grad_out = torch.randn((2, S, 8 * D), device=cuda)
     leaves = [value.to(dtype).requires_grad_(), loc.clone().requires_grad_(),
               attn.clone().requires_grad_()]
-    fwd, bwd = tw.LAUNCHES, tw.BWD_LAUNCHES
+    fwd, bwd, k1 = tw.LAUNCHES, tw.BWD_LAUNCHES, msda_cuda.LAUNCHES
     fn(*leaves).backward(grad_out.to(dtype))
-    assert (tw.LAUNCHES, tw.BWD_LAUNCHES) == (fwd + 3, bwd + 3)
+    assert (tw.LAUNCHES, tw.BWD_LAUNCHES, msda_cuda.LAUNCHES) == (fwd + 3, bwd + 3, k1)
     cpu = [t.detach().cpu().float().requires_grad_() for t in (value, loc, attn)]
     want = torch.autograd.grad(fn(*cpu), cpu, grad_out.cpu())
     for name, leaf, y in zip(("value", "locations", "weights"), leaves, want):

@@ -6,6 +6,7 @@ TEST.EVAL_PERIOD steps through `Trainer.test` -> `run_evaluation`, writes
 closes the loader. The dataset is written by `tools/make_synthetic_coco_torch.py`.
 """
 
+import contextlib
 import json
 import logging
 import math
@@ -134,3 +135,30 @@ def test_test_skips_datasets_the_port_cannot_evaluate(dataset, tmp_path, caplog)
     trainer.cfg = cfg2
     res = trainer.test(max_images=1)
     assert set(res) == {"torch_trainer_val"} and np.isfinite(res["torch_trainer_val"]["segm"]["AP"])
+
+
+def test_run_step_wraps_each_stage(tmp_path):
+    """`Trainer.run_step(batch, stage=...)` enters `stage(name)` around each
+    stage of `engine/train_step.py:train_step`, micro-batch by micro-batch,
+    and computes what the step computes without it; by default the stages
+    are `record_function` ranges that a profiler trace of the step shows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+
+    cfg = _cfg(tmp_path, ["TPU.GRAD_ACCUM_STEPS", "2"])
+    batch = next(synthetic_batches(2, 64, 4, 5, seed=0))
+    seen = []
+
+    @contextlib.contextmanager
+    def stage(name):
+        seen.append(name)
+        yield
+
+    got = Trainer(cfg, iter(()), model=_seeded_model(cfg), device="cpu").run_step(batch, stage)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        want = Trainer(cfg, iter(()), model=_seeded_model(cfg), device="cpu").run_step(batch)
+    micro = ["forward", "matcher_costs", "matcher_host", "losses", "backward"]
+    assert seen == micro * 2 + ["optimizer"]
+    assert {f"stage::{s}" for s in seen} <= {e.key for e in prof.key_averages()}
+    assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)

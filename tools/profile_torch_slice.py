@@ -5,7 +5,8 @@
                                          [--height 480 --width 640]
                                          [--dtype float32|bfloat16]
     python3 tools/profile_torch_slice.py --train [--recipe released|tpu] [--requests 3]
-                                         [--dtype float32|bfloat16]
+                                         [--dtype float32|bfloat16] [--remat on|off]
+                                         [--accum 1] [--batch 8] [--size 512]
     python3 tools/profile_torch_slice.py --train-inputs [--requests 3]
 
 Builds the released R50 COCO instance recipe (K1 and K3), or with `--recipe
@@ -26,15 +27,21 @@ copy kernels per request, and the time by model stage (record_function ranges).
 (the released training recipe at full width and depth, B = 8 images of 512x512
 from the seeded generator, float32, TF32 off; with `--recipe tpu` the TPU
 recipe's step of phase `train_tpu`, head-shared sampling through K2 and its
-backward): after 2 warm steps it times
+backward; `--batch` images of `--size` pixels a side, `--accum` micro-batches
+a step (TPU.GRAD_ACCUM_STEPS), the encoder recomputed in the backward unless
+`--remat off` (TPU.REMAT_ENCODER)): after 2 warm steps it times
 `--requests` steps stage by stage on the host clock with a synchronise after
-each stage (forward, matcher costs, the host's assignment solve, losses,
-backward, clipping and optimizer), then traces as many steps with
-`torch.profiler` and prints device busy time per step, the port's kernels
-per launch and their share of the busy time, the device time of
-`index_select`, `index_add_`, `cat` and `pad` (in the TPU recipe the gathers
+each stage (forward, matcher costs, the host's assignment solve with the
+costs' copy to the host, losses, backward, clipping and optimizer: the
+stages of `engine/train_step.py:train_step`, which `Trainer.run_step` runs
+with a synchronising `stage`), then traces as many `Trainer.run_step` steps
+with `torch.profiler` (the step's own `stage::` ranges) and prints device
+busy time per step, the port's kernels per launch and their share of the
+busy time, the device time of `index_select`, `index_add_`, `cat` and `pad`
+(in the TPU recipe the gathers
 in front of K2, their backward and the patch tables), the peak memory of a
-step and the top ops by device time.
+step and the top ops by device time. Where a step runs out of device memory
+it prints the peak reached and the error, and raises.
 
 `--train-inputs` asks where the step of `chip_smoke.py`'s `train_coco` phase
 (the same recipe fed by `build_train_loader` from its dataset on disk: LSJ,
@@ -78,49 +85,39 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = ("forward", "matcher_costs", "matcher_host", "losses", "backward", "optimizer")
 
 
-def train_step_in_stages(torch, trainer, batch, between):
-    """`engine/train_step.py:train_step` with `between(stage)` called as a
-    context around each stage."""
-    model, criterion = trainer.model, trainer.criterion
-    targets = batch.targets
-    num_masks = targets.valid.sum().float().clamp(min=1.0)
-    with between("forward"):
-        outputs = model(batch.images, targets, generator=trainer.generator)
-    with between("matcher_costs"):
-        costs = criterion.layer_costs(outputs, targets, trainer.generator)
-        costs = costs.cpu()
-    with between("matcher_host"):
-        assignments = criterion.assign(costs).to(batch.images.device)
-    with between("losses"):
-        losses = criterion(outputs, targets, trainer.generator, num_masks=num_masks,
-                           assignments=assignments)
-        total = criterion.weighted_total(losses)
-    with between("backward"):
-        trainer.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-    with between("optimizer"):
-        if trainer.clip_gradients is not None:
-            trainer.clip_gradients([p for g in trainer.optimizer.param_groups
-                                    for p in g["params"]])
-        trainer.optimizer.step()
-        trainer.scheduler.step()
-    return total
+def profile_training(torch, card: str, steps: int, dtype: str, recipe: str, remat: bool,
+                     accum: int, batch_size: int, size: int) -> int:
+    """The `--train` report; on running out of device memory, the peak
+    reached and the error, then the error raised."""
+    try:
+        return _profile_training(torch, card, steps, dtype, recipe, remat, accum, batch_size,
+                                 size)
+    except torch.cuda.OutOfMemoryError as e:
+        print(f"card: {card}  training step of the {recipe} recipe, B={batch_size} at "
+              f"{size}x{size}, accum {accum}, remat {remat}, TPU.COMPUTE_DTYPE {dtype}: "
+              f"out of device memory at a peak of "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated: "
+              f"{str(e).splitlines()[0]}", flush=True)
+        raise
 
 
-def profile_training(torch, card: str, steps: int, dtype: str, recipe: str) -> int:
+def _profile_training(torch, card: str, steps: int, dtype: str, recipe: str, remat: bool,
+                      accum: int, batch_size: int, size: int) -> int:
     import contextlib
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from chip_smoke import (CONFIG, SEED, TPU_CONFIG, TRAIN_BATCH, TRAIN_MAX_INSTANCES,
-                            TRAIN_OVERRIDES, TRAIN_SIZE, load_cfg, seeded_model)
+    from chip_smoke import (CONFIG, SEED, TPU_CONFIG, TRAIN_MAX_INSTANCES, TRAIN_OVERRIDES,
+                            load_cfg, seeded_model)
     from mp_former_tpu_torch.data.synthetic import synthetic_batches
     from mp_former_tpu_torch.engine.trainer import Trainer
 
     cfg = load_cfg(TPU_CONFIG if recipe == "tpu" else CONFIG,
-                   [*TRAIN_OVERRIDES, "TPU.COMPUTE_DTYPE", dtype, "OUTPUT_DIR",
-                    os.path.join(REPO, "output", "profile_train")])
-    batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                   [*TRAIN_OVERRIDES, "TPU.COMPUTE_DTYPE", dtype, "TPU.REMAT_ENCODER", str(remat),
+                    "TPU.GRAD_ACCUM_STEPS", str(accum), "SOLVER.IMS_PER_BATCH", str(batch_size),
+                    "INPUT.IMAGE_SIZE", str(size),
+                    "OUTPUT_DIR", os.path.join(REPO, "output", "profile_train")])
+    batches = synthetic_batches(batch_size, size, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
                                 TRAIN_MAX_INSTANCES, seed=SEED)
     trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
     for _ in range(2):
@@ -142,7 +139,7 @@ def profile_training(torch, card: str, steps: int, dtype: str, recipe: str) -> i
         batch = next(batches).to("cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        train_step_in_stages(torch, trainer, batch, synchronised)
+        trainer.run_step(batch, stage=synchronised)
         whole.append(time.perf_counter() - t0)
     plain = []
     torch.cuda.reset_peak_memory_stats()
@@ -154,8 +151,9 @@ def profile_training(torch, card: str, steps: int, dtype: str, recipe: str) -> i
         torch.cuda.synchronize()
         plain.append(time.perf_counter() - t0)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"card: {card}  training step of the {recipe} recipe, B={TRAIN_BATCH} at "
-          f"{TRAIN_SIZE}x{TRAIN_SIZE}, TPU.COMPUTE_DTYPE {dtype}, TF32 off")
+    print(f"card: {card}  training step of the {recipe} recipe, B={batch_size} at "
+          f"{size}x{size}, TPU.GRAD_ACCUM_STEPS {accum}, TPU.REMAT_ENCODER {remat}, "
+          f"TPU.COMPUTE_DTYPE {dtype}, TF32 off")
     print(f"peak memory allocated in a step: {peak_gb:.2f} GiB")
     print(f"step seconds, Trainer.run_step (batch copy included): {[round(t, 4) for t in plain]}")
     print(f"step seconds with a synchronise after every stage: {[round(t, 4) for t in whole]}")
@@ -164,12 +162,12 @@ def profile_training(torch, card: str, steps: int, dtype: str, recipe: str) -> i
         print(f"  {stage:14s} {mean * 1e3:8.2f} ms  "
               f"({100 * mean * steps / sum(whole):4.1f}% of the synchronised step)")
 
+    # the step's own stage::<name> ranges (engine/train_step.py)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             batch = next(batches).to("cuda")
             with record_function("step"):
-                train_step_in_stages(torch, trainer, batch,
-                                     lambda stage: record_function(f"stage::{stage}"))
+                trainer.run_step(batch)
         torch.cuda.synchronize()
     events = prof.key_averages()
     ranges = ("step", "stage::")
@@ -342,8 +340,7 @@ def compare_train_inputs(torch, card: str, steps: int, rounds: int = 3) -> int:
                 stage_s[_name][stage].append(time.perf_counter() - t0)
 
             with conditions(name, probe=False):
-                train_step_in_stages(torch, trainer, next(src).to("cuda", non_blocking=True),
-                                     synchronised)
+                trainer.run_step(next(src), stage=synchronised)
     print(f"card: {card}  training step, B={TRAIN_BATCH} at {TRAIN_SIZE}x{TRAIN_SIZE}, float32, "
           f"TF32 off; {steps} steps x {rounds} rounds a source, in turns; torch intra-op "
           f"threads {threads}, CPU cores {os.cpu_count()}, GIL switch interval {interval} s")
@@ -402,6 +399,11 @@ def main() -> int:
     ap.add_argument("--width", type=int, default=640)
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                     help="TPU.COMPUTE_DTYPE for serving and --train")
+    ap.add_argument("--remat", choices=("on", "off"), default="on",
+                    help="--train: TPU.REMAT_ENCODER (the recipes' default: on)")
+    ap.add_argument("--accum", type=int, default=1, help="--train: TPU.GRAD_ACCUM_STEPS")
+    ap.add_argument("--batch", type=int, default=8, help="--train: images a step")
+    ap.add_argument("--size", type=int, default=512, help="--train: image side in pixels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice: needs a CUDA card")
@@ -415,7 +417,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.train:
-        return profile_training(torch, card, args.requests, args.dtype, args.recipe)
+        return profile_training(torch, card, args.requests, args.dtype, args.recipe,
+                                args.remat == "on", args.accum, args.batch, args.size)
     if args.train_inputs:
         return compare_train_inputs(torch, card, args.requests)
     if args.dtype == "float32":
