@@ -55,7 +55,10 @@ result line):
     1024 / 4096) and at B = 1, Q = 100, S = 13600: per-head masks with a DN
     block, a fully blocked row, strided views; two calls give equal bits; the
     forward that writes the row statistics against the plain version, its
-    output and the statistics;
+    output, the statistics and the float32 output the backward takes delta
+    from; in bfloat16 also where delta matters most (weights spread over 4096
+    keys, dO orthogonal to O): each gradient no further from the float32
+    plain backward than autograd of the plain bfloat16 forward;
 12a. K2's backward kernel (`K2_bwd`) against `weight_taps_backward_plain` at
     both call shapes of a training step of the TPU recipe (B = 8, 512x512,
     5376 queries: head-shared rows, M = 8, and the per-head patch tables, B * M
@@ -969,6 +972,54 @@ def phase_k1_bwd(torch, card: str) -> dict:
     return res
 
 
+def bf16_reference_errs(torch, go, q, k, v, mask, want) -> list:
+    """How far autograd of the plain forward in bfloat16 (the arithmetic of
+    the einsum form the JAX package trains through,
+    `mp_former_tpu/models/transformer_decoder/primitives.py:72-80`) lies from
+    the float32 gradients `want`: the bound of K3's bfloat16 backward."""
+    from mp_former_tpu_torch.ops import masked_attention_cuda as mac
+
+    leaves = [t.detach().bfloat16().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(mac.masked_attention_plain(*leaves, mask), leaves, go.bfloat16())
+    return [rel_err(x, w) for x, w in zip(ref, want)]
+
+
+def spread_delta_check(torch, card: str, g) -> None:
+    """K3's bfloat16 backward where delta = rowsum(dO * O) matters most: the
+    weights spread over 4096 keys, k and v sharing an offset (as the
+    decoder's features do), dO with no component along O, so that dP - delta
+    nearly cancels and dQ sums delta's error over the keys. The kernel takes
+    delta from the forward's float32 output; each gradient must lie no
+    further from the float32 plain backward than autograd of the plain
+    bfloat16 forward does (`bf16_reference_errs`)."""
+    from mp_former_tpu_torch.ops import masked_attention_cuda as mac
+
+    B, H, Q, S, D = 8, 8, 120, 4096, 32
+    q = 0.3 * torch.randn((B, H, Q, D), generator=g, device="cuda")
+    k = (torch.randn((1, H, 1, D), generator=g, device="cuda")
+         + torch.randn((B, H, S, D), generator=g, device="cuda"))
+    v = (3.0 * torch.randn((1, H, 1, D), generator=g, device="cuda")
+         + torch.randn((B, H, S, D), generator=g, device="cuda"))
+    mask = torch.rand((B, Q, S), generator=g, device="cuda") < 0.3
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    out = mac.masked_attention_plain(q.float(), k.float(), v.float(), mask)
+    go = torch.randn((B, H, Q, D), generator=g, device="cuda")
+    go = (go - (go * out).sum(-1, keepdim=True) / (out * out).sum(-1, keepdim=True) * out
+          ).bfloat16()
+    want = mac.masked_attention_backward_plain(go.float(), q.float(), k.float(), v.float(), mask)
+    bounds = bf16_reference_errs(torch, go, q, k, v, mask, want)
+    _, stats, out32 = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+    errs = [rel_err(x, w) for x, w in zip(mac.masked_attn_bwd(go, q, k, v, mask, out32, stats),
+                                          want)]
+    log("K3_bwd", dtype="bfloat16", shape=f"B{B}xH{H}xQ{Q}xS{S}xD{D}",
+        inputs="weights spread, shared offsets of k and v, dO orthogonal to O",
+        rel_err_dq_dk_dv=[f"{e:.2e}" for e in errs],
+        bound_bf16_autograd=[f"{e:.2e}" for e in bounds], card=repr(card))
+    if not all(e <= b for e, b in zip(errs, bounds)):
+        raise AssertionError(f"K3 backward bfloat16 on spread weights: {errs} against the float32 "
+                             f"plain backward, beyond the bfloat16 reference's {bounds}")
+
+
 def phase_k3_bwd(torch, card: str) -> dict:
     import torch.nn.functional as F
 
@@ -992,7 +1043,11 @@ def phase_k3_bwd(torch, card: str) -> dict:
             mask = shared.expand(B, H, Q, S).clone()
             mask[:, :, :DN] = torch.rand((B, H, DN, S), generator=g, device="cuda") < 0.9
             mask[:, :, 0] = True
-            out, stats = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+            out, stats, out32 = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+            # the float32 output the backward takes delta from: out before its rounding
+            if not torch.equal(out32.to(dtype), out):
+                raise AssertionError(f"K3 forward with statistics {name} S={S}: the float32 "
+                                     "output does not round to the output")
             # the forward that writes the statistics is an instantiation of its
             # own: its output against the plain version, and the statistics
             # against the plain logits' row maximum (base 2, relative: a row
@@ -1007,7 +1062,7 @@ def phase_k3_bwd(torch, card: str) -> dict:
             max_err = ((stats[..., 0] - row_max).abs() / row_max.abs().clamp(min=1.0)).max().item()
             sum_err = (stats[..., 1].log2() - log2_sum).abs().max().item()
             del logits, row_max, log2_sum
-            got = mac.masked_attn_bwd(go, q, k, v, mask, out, stats)
+            got = mac.masked_attn_bwd(go, q, k, v, mask, out32, stats)
             torch.cuda.synchronize()
             want = mac.masked_attention_backward_plain(go.float(), q.float(), k.float(),
                                                        v.float(), mask)
@@ -1015,11 +1070,11 @@ def phase_k3_bwd(torch, card: str) -> dict:
             abs_err = max((x.float() - w).abs().max().item() for x, w in zip(got, want))
             blocked_row_dq = got[0][:, :, 0].abs().max().item()
             # dq is summed over the key chunks in a fixed order: two calls, equal bits
-            again = mac.masked_attn_bwd(go, q, k, v, mask, out, stats)
+            again = mac.masked_attn_bwd(go, q, k, v, mask, out32, stats)
             reproducible = all(torch.equal(a, b) for a, b in zip(got, again))
             del again
             tiled_errs = [rel_err(x, w) for x, w in zip(
-                got, mac.masked_attention_backward_tiled(go, q, k, v, mask, out, stats))]
+                got, mac.masked_attention_backward_tiled(go, q, k, v, mask, out32, stats))]
             # through the Function, against autograd of the plain forward
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             mac.masked_attention(*leaves, mask).backward(go)
@@ -1047,7 +1102,7 @@ def phase_k3_bwd(torch, card: str) -> dict:
             if not lib_err <= AUTOGRAD_TOL[name]:
                 raise AssertionError(f"K3 backward {name} S={S}: the library call computes "
                                      f"another function (relative error {lib_err})")
-            t = timed(lambda: mac.masked_attn_bwd(go, q, k, v, mask, out, stats),
+            t = timed(lambda: mac.masked_attn_bwd(go, q, k, v, mask, out32, stats),
                       lambda: mac.masked_attention_backward_plain(go, q, k, v, mask),
                       calls=10, plain_calls=2)
             # a backward cannot be captured apart from its forward (the engine ties
@@ -1068,7 +1123,7 @@ def phase_k3_bwd(torch, card: str) -> dict:
             # bound, float32 accuracy on the tensor cores is 3xTF32: three times
             # the operations at the TF32 peak
             flops = 5 * 2.0 * B * H * Q * S * D
-            n_bytes = nbytes(q, k, v, out, go, mask, stats, *got)
+            n_bytes = nbytes(q, k, v, out32, go, mask, stats, *got)
             bnd = (bound(n_bytes, 3 * flops, "tf32") if dtype == torch.float32
                    else bound(n_bytes, flops, name))
             log("K3_bwd", dtype=name, shape=f"B{B}xH{H}xQ{Q}xS{S}xD{D}",
@@ -1100,7 +1155,9 @@ def phase_k3_bwd(torch, card: str) -> dict:
                 raise AssertionError(f"K3 backward {name} S={S}: {auto_errs} against autograd "
                                      "of the plain forward")
             per_shape.append({"max_abs_err": abs_err, **t, **bnd})
-            del q, k, v, go, mask, shared, additive, out, stats, got, lib_leaves, lib_out
+            del q, k, v, go, mask, shared, additive, out, out32, stats, got, lib_leaves, lib_out
+        if dtype == torch.bfloat16:
+            spread_delta_check(torch, card, g)
         # a training step visits each of the three training lengths three times:
         # report their mean per call (the S = 13600 shape is checked, not averaged)
         train = per_shape[:3]
@@ -1360,8 +1417,9 @@ def hold_recorded(torch, phase: str, recorded: dict, card: str) -> None:
     through its wrapper on the same inputs on the card and held against the
     kernel's plain version: a forward within TOL (`scaled_err`), a backward
     within BWD_TOL (K2's within K2_BWD_TOL) of each gradient's largest entry
-    (K3's on the forward output the kernel is handed, as it takes it). The
-    launches made here are not counted."""
+    (K3's in bfloat16 within the larger of BWD_TOL and the distance of
+    autograd of the plain bfloat16 forward, each against the float32 plain
+    backward). The launches made here are not counted."""
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
     from mp_former_tpu_torch.ops import msda_cuda
     from mp_former_tpu_torch.ops import tap_weighting as tw
@@ -1401,17 +1459,20 @@ def hold_recorded(torch, phase: str, recorded: dict, card: str) -> None:
             errs = [scaled_err(out, mac.masked_attention_plain(*f32(q, k, v), mask))]
             tol = TOL[name]
         elif kernel == "masked_attn_bwd":
-            go, q, k, v, mask, out, stats = args
+            go, q, k, v, mask, out32, stats = args
             name, shape = dtype_of(q), "B{}xH{}xQ{}xS{}xD{}".format(*q.shape[:3], *k.shape[2:])
             got = mac.masked_attn_bwd(*args)
-            # the kernel takes delta from the forward's output it is handed: so
-            # does the plain version here; the distance from the plain version
-            # that recomputes the output in float32 is logged beside it
-            errs = [rel_err(x, y) for x, y in zip(
-                got, mac.masked_attention_backward_plain(*f32(go, q, k, v), mask, out=out))]
-            extra["rel_errs_vs_recomputed_output"] = [f"{rel_err(x, y):.2e}" for x, y in zip(
-                got, mac.masked_attention_backward_plain(*f32(go, q, k, v), mask))]
+            # against the float32 plain backward, which recomputes the output;
+            # in bfloat16 within BWD_TOL, or no further than autograd of the
+            # plain bfloat16 forward lies from it
+            want = mac.masked_attention_backward_plain(*f32(go, q, k, v), mask)
+            errs = [rel_err(x, y) for x, y in zip(got, want)]
             tol = BWD_TOL[name]
+            if name == "bfloat16":
+                refs = bf16_reference_errs(torch, go, q, k, v, mask, want)
+                extra["rel_errs_bf16_autograd"] = [f"{e:.2e}" for e in refs]
+                tol = [max(tol, e) for e in refs]
+            del want
         elif kernel == "tap_weight_fwd":
             taps, w, P, M, D = args
             name, shape = dtype_of(taps), f"B{taps.shape[0]}xPQ{taps.shape[1]}xTMD{taps.shape[2]}"
@@ -1425,9 +1486,11 @@ def hold_recorded(torch, phase: str, recorded: dict, card: str) -> None:
                 tw.tap_weight_bwd(*args), tw.weight_taps_backward_plain(*f32(taps, w, g), P, M, D))]
             tol = K2_BWD_TOL[name]
         torch.cuda.synchronize()
-        log(phase, hold=kernel, dtype=name, shape=shape, errs=[f"{e:.2e}" for e in errs], tol=tol,
-            against="the plain version on the step's own inputs", **extra, card=repr(card))
-        if not max(errs) <= tol:
+        tols = tol if isinstance(tol, list) else [tol] * len(errs)
+        log(phase, hold=kernel, dtype=name, shape=shape, errs=[f"{e:.2e}" for e in errs],
+            tol=[f"{t:.2e}" for t in tols], against="the plain version on the step's own inputs",
+            **extra, card=repr(card))
+        if not all(e <= t for e, t in zip(errs, tols)):
             raise AssertionError(f"{phase}: {kernel} {name} at {shape} against its plain version "
                                  f"on the step's inputs: {errs}, above {tol}")
         torch.cuda.empty_cache()

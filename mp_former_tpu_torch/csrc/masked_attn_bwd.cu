@@ -23,9 +23,15 @@
 // A row whose keys are all blocked is uniform over all keys in the forward
 // (every logit is -1e9): dV receives dO / S from it, dQ and dK nothing.
 //
-//   q, out, d_out  logical (B, H, Q, D)    k, v  logical (B, H, S, D)    D = 32
+//   q, d_out  logical (B, H, Q, D)    k, v  logical (B, H, S, D)    D = 32
 //           float32 or bfloat16, each with its own batch, head and row stride in
 //           elements (last dimension contiguous, rows on 16-byte boundaries)
+//   out     logical (B, H, Q, D), float32 whatever the input type: the forward's
+//           output before its rounding (masked_attn_fwd.cu's out32 in bfloat16,
+//           out itself in float32). delta = dO . O is subtracted from every dP
+//           of the row; where the weights spread over many keys the two nearly
+//           cancel, and a delta from an O rounded to bfloat16 would move every
+//           dS of the row alike, which dQ = dS k sums coherently
 //   mask    1 byte per entry, 1 = blocked, (B, Q, S) (mask_sh = 0) or
 //           (B, H, Q, S), contiguous, any alignment
 //   stats   (B * H, Q, 2) float32 from the forward: the row's maximum score in
@@ -50,8 +56,8 @@
 //   TF32 big and small halves, k pre-scaled by log2(e) / sqrt(D)), and whose
 //   dK and dV it accumulates in registers and writes once, without atomics.
 // * The block walks the queries in tiles of 32 rows, key tile after key tile
-//   in one pipeline: the tile's q, dO and O rows, its row statistics and its
-//   mask bytes arrive by cp.async in a ring of 2 stages. The block then
+//   in one pipeline: the tile's q, dO and (float32) O rows, its row statistics
+//   and its mask bytes arrive by cp.async in a ring of 2 stages. The block then
 //   computes each row's delta = dO . O (4 threads a row) and, in float32,
 //   splits the q and dO tiles into (big, small) pairs once for all warps.
 // * Per warp and tile, with the forward's products: S^T = K q^T and dP^T = V
@@ -91,9 +97,11 @@ constexpr int kDsPitch = kKeyTile + 4;     // float32 dS tile: pairs a query row
 constexpr int kDsPitchBf16 = kKeyTile + 8; // bfloat16 dS tile: elements a query row (144 bytes)
 constexpr int kDqPitch = kD + 4;           // floats a row of the dQ accumulator
 
-// one stage: q, dO and O tiles (32 rows each), the rows' statistics, the mask tile
+// one stage: q and dO tiles, the float32 O tile (32 rows each), the rows'
+// statistics, the mask tile
 template <typename T> struct Stage {
-  static constexpr int bytes = 3 * kQT * Pitch<T>::bytes + kQT * 8 + kQT * kMaskPitch;
+  static constexpr int bytes =
+      2 * kQT * Pitch<T>::bytes + kQT * Pitch<float>::bytes + kQT * 8 + kQT * kMaskPitch;
 };
 // what a block holds besides the stages and the dQ accumulator: the split q and
 // dO tiles (float32), the K tile (split, or as it is), the dS tile, the rows'
@@ -257,7 +265,7 @@ masked_attn_bwd_keys(const Params p) {
   const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* ob = static_cast<const T*>(p.out) + b * p.o_sb + h * p.o_sh;
+  const float* ob = static_cast<const float*>(p.out) + b * p.o_sb + h * p.o_sh;
   const T* gb = static_cast<const T*>(p.d_out) + b * p.g_sb + h * p.g_sh;
   const uint8_t* mb = p.mask + b * p.mask_sb + h * p.mask_sh;
   const float* stats = p.stats + (long long)bh * p.Q * 2;
@@ -281,17 +289,33 @@ masked_attn_bwd_keys(const Params p) {
   auto load_stage = [&](int it) {
     const int kt = it / qtiles, qt = it % qtiles;
     unsigned char* st = smem + (it % kStages) * kStage;
-    unsigned char* ss = st + 3 * kQT * kPitch;
+    unsigned char* os = st + 2 * kQT * kPitch;
+    unsigned char* ss = os + kQT * Pitch<float>::bytes;
     unsigned char* ms = ss + kQT * 8;
     const int q0 = row0 + qt * kQT, nq = min(kQT, row_end - q0);
     const int key0 = s_begin + kt * kKeyTile, nk = min(kKeyTile, s_end - key0);
-    for (int i = tid; i < 3 * kQT * kUnits; i += kThreads) {
-      const int which = i / (kQT * kUnits), r = (i / kUnits) % kQT, u = i % kUnits;
+    // the q, dO and O rows; O is float32, 8 units of 16 bytes a row
+    auto row_units = [&](int which, int r, int u) {
       const long long row = q0 + min(r, nq - 1);
-      const T* src = which == 0 ? qb + row * p.q_sr : which == 1 ? gb + row * p.g_sr
-                                                                 : ob + row * p.o_sr;
+      const void* src = which == 0 ? static_cast<const void*>(qb + row * p.q_sr)
+                        : which == 1 ? static_cast<const void*>(gb + row * p.g_sr)
+                                     : static_cast<const void*>(ob + row * p.o_sr);
       cp_async16(st + (which * kQT + r) * kPitch + u * 16,
-                 reinterpret_cast<const unsigned char*>(src) + u * 16, r < nq ? 16 : 0);
+                 static_cast<const unsigned char*>(src) + u * 16, r < nq ? 16 : 0);
+    };
+    if constexpr (kUnits == 8) {  // float32: one pitch for all three
+      for (int i = tid; i < 3 * kQT * 8; i += kThreads)
+        row_units(i / (kQT * 8), (i / 8) % kQT, i % 8);
+    } else {
+      for (int i = tid; i < 2 * kQT * kUnits; i += kThreads)
+        row_units(i / (kQT * kUnits), (i / kUnits) % kQT, i % kUnits);
+      for (int i = tid; i < kQT * 8; i += kThreads) {
+        const int r = i / 8, u = i % 8;
+        cp_async16(os + r * Pitch<float>::bytes + u * 16,
+                   reinterpret_cast<const unsigned char*>(ob + (q0 + min(r, nq - 1)) * p.o_sr) +
+                       u * 16,
+                   r < nq ? 16 : 0);
+      }
     }
     if (tid < kQT)
       cp_async8(ss + tid * 8, stats + 2LL * (q0 + min(tid, nq - 1)), tid < nq ? 8 : 0);
@@ -360,13 +384,14 @@ masked_attn_bwd_keys(const Params p) {
     const unsigned char* q_raw = st;
     const unsigned char* g_raw = st + kQT * kPitch;
     const unsigned char* o_raw = st + 2 * kQT * kPitch;
-    const float2* st_rows = reinterpret_cast<const float2*>(st + 3 * kQT * kPitch);
-    const unsigned char* ms = st + 3 * kQT * kPitch + kQT * 8;
+    const float2* st_rows =
+        reinterpret_cast<const float2*>(o_raw + kQT * Pitch<float>::bytes);
+    const unsigned char* ms = reinterpret_cast<const unsigned char*>(st_rows) + kQT * 8;
     const int q0 = row0 + qt * kQT, nq = min(kQT, row_end - q0);
     if (tid < 4 * kQT) {  // each row's (maximum, 1 / sum, delta = dO . O, mask offset): 4 threads a row
       const int r = tid >> 2, part = tid & 3;
       float o8[8], g8[8];
-      load8(o8, reinterpret_cast<const T*>(o_raw + r * kPitch) + part * 8);
+      load8(o8, reinterpret_cast<const float*>(o_raw + r * Pitch<float>::bytes) + part * 8);
       load8(g8, reinterpret_cast<const T*>(g_raw + r * kPitch) + part * 8);
       float x = 0.f;
       #pragma unroll
@@ -543,7 +568,7 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 }  // namespace
 
 // The 15 strides are in elements: (batch, head, row) of q, k, v, out and
-// d_out. chunk: keys a block walks, a positive multiple of 64. part: float32
+// d_out. out: float32 whatever `dtype` says (see the top of this file). chunk: keys a block walks, a positive multiple of 64. part: float32
 // scratch of chunks * B * H * Q * D floats (chunks = ceil(S / chunk)),
 // required when chunks > 1 and unused when chunks is 1. dq: B * Q * H * D
 // elements of the input type. dk, dv: B * S * H * D elements of the input

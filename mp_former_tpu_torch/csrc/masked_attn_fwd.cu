@@ -102,6 +102,7 @@ struct Params {
   void* out;
   float* part;  // (B*H, chunks, Q, D) accumulators, then (B*H, chunks, Q) maxima, then sums
   float* stats;  // (B*H, Q, 2): each row's maximum (base 2) and sum, for the backward; or null
+  float* out32;  // bfloat16 with stats: out in float32, before its rounding, for the backward
   long long q_sb, q_sh, q_sr, k_sb, k_sh, k_sr, v_sb, v_sh, v_sr, o_sb, o_sh, o_sr;
   long long mask_sb, mask_sh;
   int H, Q, S, chunk, chunks;
@@ -109,8 +110,8 @@ struct Params {
 };
 
 // grid (chunks, B * H, ceil(Q / 128)), block 32 * min(8, ceil(Q / 16)) threads.
-// kStats: also write each row's maximum and sum (p.stats), for the backward; a
-// template parameter, so that the serving instantiation carries none of it
+// kStats: also write each row's maximum and sum (p.stats) and, in bfloat16, out
+// before its rounding (p.out32), for the backward; a template parameter, so that the serving instantiation carries none of it
 // (as a run-time branch on p.stats it cost the forward 5-25% on an H100).
 template <typename T, bool kStats>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
@@ -305,6 +306,11 @@ masked_attn_tiles(const Params p) {
       const int col = nt * 8 + 2 * t;
       if (lo_ok) store2(ob + row_lo * p.o_sr + col, o[nt][0] * inv_lo, o[nt][1] * inv_lo);
       if (hi_ok) store2(ob + row_hi * p.o_sr + col, o[nt][2] * inv_hi, o[nt][3] * inv_hi);
+      if constexpr (kStats && sizeof(T) == 2) {  // float32 out is its own copy
+        float* o32 = p.out32 + b * p.o_sb + h * p.o_sh;
+        if (lo_ok) store2(o32 + row_lo * p.o_sr + col, o[nt][0] * inv_lo, o[nt][1] * inv_lo);
+        if (hi_ok) store2(o32 + row_hi * p.o_sr + col, o[nt][2] * inv_hi, o[nt][3] * inv_hi);
+      }
     }
     if constexpr (kStats) {
       if (t == 0) {
@@ -367,11 +373,14 @@ masked_attn_merge(const Params p, int BH) {
     if (lane == 0) reinterpret_cast<float2*>(p.stats)[row] = make_float2(m_all, l_all);
   }
   const int b = (int)(bh / p.H), h = (int)(bh % p.H);
-  T* dst = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh + qi * p.o_sr + lane;
-  if constexpr (sizeof(T) == 4)
+  const long long at = b * p.o_sb + h * p.o_sh + qi * p.o_sr + lane;
+  T* dst = static_cast<T*>(p.out) + at;
+  if constexpr (sizeof(T) == 4) {
     *dst = a / l_all;
-  else
+  } else {
     *dst = __float2bfloat16(a / l_all);
+    if constexpr (kStats) p.out32[at] = a / l_all;
+  }
 }
 
 template <typename T, bool kStats>
@@ -413,11 +422,16 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 // maximum, which the backward kernel (masked_attn_bwd.cu) recomputes the
 // softmax from. (One log-sum-exp would not do: a row whose keys are all masked
 // has maximum -1e9 log2 e, where float32 steps by 128 and log2 of the sum is
-// lost.) dtype: 0 = float32, 1 = bfloat16. Returns the first failing launch's
-// cudaError_t (0 = cudaSuccess); the launches are asynchronous on `stream`.
+// lost.) out32: with stats in bfloat16, float32 memory with out's strides that
+// receives out before its rounding, from which the backward takes delta =
+// rowsum(dO * O): where the weights spread over many keys, dP - delta cancels,
+// and a delta from the rounded out would carry its rounding into every dS of
+// the row alike; unused otherwise. dtype: 0 = float32, 1 = bfloat16. Returns
+// the first failing launch's cudaError_t (0 = cudaSuccess); the launches are
+// asynchronous on `stream`.
 extern "C" int masked_attn_fwd(const void* q, const void* k, const void* v, const void* mask,
-                               void* part, void* out, void* stats, int B, int H, int Q, int S,
-                               int D,
+                               void* part, void* out, void* stats, void* out32, int B, int H,
+                               int Q, int S, int D,
                                long long q_sb, long long q_sh, long long q_sr,
                                long long k_sb, long long k_sh, long long k_sr,
                                long long v_sb, long long v_sh, long long v_sr,
@@ -431,6 +445,7 @@ extern "C" int masked_attn_fwd(const void* q, const void* k, const void* v, cons
   p.out = out;
   p.part = static_cast<float*>(part);
   p.stats = static_cast<float*>(stats);
+  p.out32 = static_cast<float*>(out32);
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_sr = q_sr;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_sr = k_sr;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_sr = v_sr;
@@ -441,6 +456,7 @@ extern "C" int masked_attn_fwd(const void* q, const void* k, const void* v, cons
   p.scale_log2 = kLog2e / sqrtf((float)kD);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool with_stats = stats != nullptr;
+  if (with_stats && dtype == 1 && out32 == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)(with_stats ? launch<float, true>(p, B, s) : launch<float, false>(p, B, s));
   if (dtype == 1)

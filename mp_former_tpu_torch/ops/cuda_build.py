@@ -116,7 +116,7 @@ def library() -> ctypes.CDLL:
     lib.msda_fwd.restype = i
     lib.msda_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.msda_bwd.restype = i
-    lib.masked_attn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, *[ll] * 14, i, i, p]
+    lib.masked_attn_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, *[ll] * 14, i, i, p]
     lib.masked_attn_fwd.restype = i
     lib.masked_attn_bwd.argtypes = [*[p] * 11, i, i, i, i, i, *[ll] * 17, i, i, p]
     lib.masked_attn_bwd.restype = i

@@ -40,7 +40,8 @@ from .cuda_build import DTYPE_CODES, check_inputs, launch, sm_count
 
 # launches of the forward since the last reset (one per call: the tile kernel
 # and, where the keys are split, the merge kernel together), and of the
-# backward (one per call: its delta kernel and its key kernel together)
+# backward (one per call: its key kernel and, where the keys are split, its
+# merge kernel together)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
@@ -75,22 +76,24 @@ def masked_attention_backward_plain(grad_out: torch.Tensor, q: torch.Tensor, k: 
     rowsum(dO * O), dV = p^T dO, dS = p * (dO v^T - delta) and 0 where the mask
     blocks (the -1e9 is a constant), dQ = dS k / sqrt(D), dK = dS^T q /
     sqrt(D). A row blocked everywhere is uniform over all keys: dV gets dO / S
-    from it, dQ and dK nothing. O is recomputed here, or is `out`, the
-    forward's output as the kernel is handed it (rounded to the forward's
-    type): where the weights are spread over many keys, dP - delta cancels
-    and dQ follows the rounding of O (as every backward that takes delta
-    from the stored output does)."""
+    from it, dQ and dK nothing. delta is taken in float32 (float64 for
+    float64 inputs) from O recomputed here in that type, or from `out`, the
+    forward's output as the kernel is handed it (its float32 copy, before the
+    rounding to bfloat16): where the weights are spread over many keys, dP -
+    delta cancels, and an O rounded to bfloat16 moves every dS of a row alike,
+    which dQ sums coherently."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     m = mask[:, None] if mask.dim() == 3 else mask
     m = m.bool()
     logits = torch.einsum("bhqd,bhsd->bhqs", q, k) * scale
     p = logits.masked_fill(m, _NEG_INF).softmax(dim=-1)
+    acc = torch.promote_types(grad_out.dtype, torch.float32)
     if out is None:
-        out = torch.einsum("bhqs,bhsd->bhqd", p, v)
-    delta = (grad_out * out.to(grad_out.dtype)).sum(-1, keepdim=True)
+        out = torch.einsum("bhqs,bhsd->bhqd", p.to(acc), v.to(acc))
+    delta = (grad_out.to(acc) * out.to(acc)).sum(-1, keepdim=True)
     d_v = torch.einsum("bhqs,bhqd->bhsd", p, grad_out)
     d_p = torch.einsum("bhqd,bhsd->bhqs", grad_out, v)
-    d_s = (p * (d_p - delta)).masked_fill(m, 0.0)
+    d_s = (p * (d_p - delta).to(p.dtype)).masked_fill(m, 0.0)
     d_q = torch.einsum("bhqs,bhsd->bhqd", d_s, k) * scale
     d_k = torch.einsum("bhqs,bhqd->bhsd", d_s, q) * scale
     return d_q, d_k, d_v
@@ -133,7 +136,9 @@ def masked_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key beyond the end of S -inf and its value row is zero), float32 products
     as 3xTF32 and bfloat16 products with the weights rounded to bfloat16, and
     the chunks merged by their maxima. `with_stats` also returns the (B, H, Q,
-    2) row statistics the kernel writes for the backward. Not on any main path:
+    2) row statistics the kernel writes for the backward and the output in
+    float32, before its rounding to the input type: (out, stats, out32). Not
+    on any main path:
     the tests hold it against the plain version and the JAX function,
     `chip_smoke.py` holds the kernel against it."""
     B, H, Q, D = q.shape
@@ -191,9 +196,10 @@ def masked_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         weights = [torch.exp2(m - m_all) for m, _, _ in parts]
         l_all = sum(l * w for (_, l, _), w in zip(parts, weights))
         out = sum(o * w[..., None] for (_, _, o), w in zip(parts, weights)) / l_all[..., None]
-    out = out[:, :, :Q].to(q.dtype)
+    out32 = out[:, :, :Q]
+    out = out32.to(q.dtype)
     if with_stats:
-        return out, torch.stack([m_all, l_all], -1)[:, :, :Q].contiguous()
+        return out, torch.stack([m_all, l_all], -1)[:, :, :Q].contiguous(), out32
     return out
 
 
@@ -201,8 +207,8 @@ def masked_attention_backward_tiled(grad_out: torch.Tensor, q: torch.Tensor, k: 
                                     v: torch.Tensor, mask: torch.Tensor, out: torch.Tensor,
                                     stats: torch.Tensor, chunk: int | None = None,
                                     sms: int = 132):
-    """The backward kernel's arithmetic in plain PyTorch, for the (out, stats)
-    of the forward: per chunk of keys (by default the wrapper's choice for a
+    """The backward kernel's arithmetic in plain PyTorch, for the stats and the
+    float32 output (out32) of the forward: per chunk of keys (by default the wrapper's choice for a
     card of `sms` SMs) and 64-key tile, the queries in 32-row tiles; delta =
     dO . O in float32; S^T = (k log2(e) / sqrt(D)) q^T and dP^T = v dO^T, P = 2^(S
     - max) / sum (a blocked score is -1e9 log2 e, a key beyond S weighs 0), dS =
@@ -220,6 +226,9 @@ def masked_attention_backward_tiled(grad_out: torch.Tensor, q: torch.Tensor, k: 
     if chunk <= 0 or chunk % BWD_KEY_TILE:
         raise ValueError(f"masked_attention_backward_tiled: chunk {chunk} is no multiple of "
                          f"{BWD_KEY_TILE}")
+    if out.dtype != torch.float32:
+        raise ValueError("masked_attention_backward_tiled: out must be the forward's float32 "
+                         f"output, got {out.dtype}")
     single = q.dtype == torch.float32
     scale = 1.0 / math.sqrt(D)
     rows = -(-Q // BWD_QUERY_TILE) * BWD_QUERY_TILE
@@ -323,9 +332,12 @@ def masked_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch K3 on CUDA tensors (forward only); raises on anything it does
     not take, and if a launch fails. `chunk` is the number of keys a block
     walks, a multiple of 64; by default chosen from the shape and the card's
-    SM count. `with_stats` also returns the (B, H, Q, 2) float32 row statistics
-    the backward kernel needs (each row's maximum score in the kernel's base-2
-    domain and the sum of its weights relative to it); serving does not ask."""
+    SM count. `with_stats` returns (out, stats, out32): also the (B, H, Q, 2)
+    float32 row statistics the backward kernel needs (each row's maximum score
+    in the kernel's base-2 domain and the sum of its weights relative to it)
+    and the output in float32, from which the backward takes delta (out itself
+    in float32; in bfloat16 a float32 copy the kernel writes before rounding,
+    with out's strides); serving does not ask."""
     global LAUNCHES
     device, (B, H, Q, S, D), (mask_sb, mask_sh) = _check_attention("masked_attn_fwd", q, k, v,
                                                                    mask)
@@ -342,14 +354,18 @@ def masked_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if chunks > 1 else None)
     stats = (torch.empty((B, H, Q, 2), dtype=torch.float32, device=device)
              if with_stats else None)
+    out32 = out
+    if with_stats and q.dtype != torch.float32:
+        out32 = torch.empty_strided(out.shape, out.stride(), dtype=torch.float32, device=device)
     launch("masked_attn_fwd", device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
            None if part is None else part.data_ptr(), out.data_ptr(),
            None if stats is None else stats.data_ptr(),
+           out32.data_ptr() if out32 is not out else None,
            B, H, Q, S, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
            Q * H * D, D, H * D, mask_sb, mask_sh, chunk, DTYPE_CODES[q.dtype])
     LAUNCHES += 1
-    return (out, stats) if with_stats else out
+    return (out, stats, out32) if with_stats else out
 
 
 def _bwd_chunk_size(S: int, parallel_blocks: int, sms: int) -> int:
@@ -366,9 +382,9 @@ def _bwd_chunk_size(S: int, parallel_blocks: int, sms: int) -> int:
 def masked_attn_bwd(grad_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor, out: torch.Tensor, stats: torch.Tensor,
                     chunk: int | None = None):
-    """Launch K3's backward on CUDA tensors: (dq, dk, dv) for the `out` and
-    `stats` that `masked_attn_fwd(..., with_stats=True)` returned on the same
-    q, k, v and mask. The gradients are logical (B, H, N, D) and lie in memory
+    """Launch K3's backward on CUDA tensors: (dq, dk, dv) for the `stats` and
+    the float32 `out` (out32) that `masked_attn_fwd(..., with_stats=True)`
+    returned on the same q, k, v and mask. The gradients are logical (B, H, N, D) and lie in memory
     as (B, N, H, D), like the projections they belong to. `chunk`: the keys a
     block walks, a multiple of 64, by default chosen from the shape and the
     card's SM count. Where the keys are split, each block writes its dq into a
@@ -380,7 +396,14 @@ def masked_attn_bwd(grad_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v:
     if strides[-1] != 1 or any(st * grad_out.element_size() % 16 for st in strides[:-1]):
         grad_out = grad_out.contiguous()
     device, (B, H, Q, S, D), (mask_sb, mask_sh) = _check_attention(
-        "masked_attn_bwd", q, k, v, mask, more=(out, grad_out))
+        "masked_attn_bwd", q, k, v, mask, more=(grad_out,))
+    if out.dtype != torch.float32:
+        raise ValueError("masked_attn_bwd: out must be the forward's float32 output (the third "
+                         f"result of masked_attn_fwd(..., with_stats=True)), got {out.dtype}")
+    check_inputs("masked_attn_bwd", (out,), (torch.float32,), align=16, strided=1)
+    if out.shape != q.shape or out.device != device:
+        raise ValueError(f"masked_attn_bwd: out {tuple(out.shape)} on {out.device} does not "
+                         f"match q {tuple(q.shape)} on {device}")
     if stats.shape != (B, H, Q, 2) or stats.dtype != torch.float32 or not stats.is_contiguous() \
             or stats.device != device:
         raise ValueError(f"masked_attn_bwd: stats must be the forward's contiguous float32 "
@@ -410,22 +433,22 @@ def masked_attn_bwd(grad_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v:
 
 class MaskedAttentionFunction(torch.autograd.Function):
     """K3 with its gradient: `masked_attn_fwd` forward (with the row
-    statistics), `masked_attn_bwd` backward, on CUDA tensors.
-    apply(q, k, v, mask)."""
+    statistics and the float32 output), `masked_attn_bwd` backward, on CUDA
+    tensors. apply(q, k, v, mask)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask):
         q, k, v = q.detach(), k.detach(), v.detach()
-        out, stats = masked_attn_fwd(q, k, v, mask, with_stats=True)
-        ctx.save_for_backward(q, k, v, mask, out, stats)
+        out, stats, out32 = masked_attn_fwd(q, k, v, mask, with_stats=True)
+        ctx.save_for_backward(q, k, v, mask, out32, stats)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        q, k, v, mask, out, stats = ctx.saved_tensors
-        # the saved output is the graph's own tensor: the kernel takes it detached
-        dq, dk, dv = masked_attn_bwd(grad_out, q, k, v, mask, out.detach(), stats)
+        q, k, v, mask, out32, stats = ctx.saved_tensors
+        # in float32 the saved output is the graph's own tensor: the kernel takes it detached
+        dq, dk, dv = masked_attn_bwd(grad_out, q, k, v, mask, out32.detach(), stats)
         return dq, dk, dv, None
 
 

@@ -582,14 +582,47 @@ def test_masked_attention_backward_kernel_matches_plain(cuda, dtype, tol, per_he
                                                mask)
     m = mask.to(torch.uint8) if as_uint8 else mask
     for views in ((q, k, v, grad_out), tuple(t.contiguous() for t in (q, k, v, grad_out))):
-        out, stats = mac.masked_attn_fwd(*views[:3], m, with_stats=True)
+        out, stats, out32 = mac.masked_attn_fwd(*views[:3], m, with_stats=True)
+        assert out32.dtype == torch.float32 and (out32 is out) == (dtype == torch.float32)
         before = mac.BWD_LAUNCHES
-        got = mac.masked_attn_bwd(views[3], *views[:3], m, out, stats)
+        got = mac.masked_attn_bwd(views[3], *views[:3], m, out32, stats)
         assert mac.BWD_LAUNCHES == before + 1
         for name, x, w in zip("qkv", got, want):
             assert x.dtype == dtype and x.shape == w.shape, name
             assert _rel(x, w) <= tol, name
         assert got[0][:, :, 0].abs().max().item() == 0  # nothing to the q of a blocked row
+
+
+def test_masked_attention_backward_kernel_bfloat16_takes_delta_from_the_float32_output(cuda):
+    """The kernel takes delta = rowsum(dO * O) from the forward's float32
+    output. With the weights spread over 4096 keys and k and v sharing an
+    offset, dP - delta nearly cancels and dQ sums delta's error coherently;
+    from the output rounded to bfloat16, dq lay ~10x further from the float32
+    gradient than autograd of the plain bfloat16 forward (the arithmetic of
+    the einsum form the JAX package trains through). Each gradient must lie
+    within that distance (tests/test_torch_masked_attention_bwd_tiled.py holds
+    the tiled arithmetic to the JAX package's bfloat16 vjp on the CPU)."""
+    B, H, Q, S, D = 2, 8, 120, 4096, 32
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = 0.3 * torch.randn((B, H, Q, D), generator=g, device=cuda)
+    k = (torch.randn((1, H, 1, D), generator=g, device=cuda)
+         + torch.randn((B, H, S, D), generator=g, device=cuda))
+    v = (3.0 * torch.randn((1, H, 1, D), generator=g, device=cuda)
+         + torch.randn((B, H, S, D), generator=g, device=cuda))
+    mask = torch.rand((B, Q, S), generator=g, device=cuda) < 0.3
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    out = mac.masked_attention_plain(q.float(), k.float(), v.float(), mask)
+    grad_out = torch.randn((B, H, Q, D), generator=g, device=cuda)
+    grad_out = (grad_out - (grad_out * out).sum(-1, keepdim=True)
+                / (out * out).sum(-1, keepdim=True) * out).bfloat16()
+    want = mac.masked_attention_backward_plain(grad_out.float(), q.float(), k.float(), v.float(),
+                                               mask)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    reference = torch.autograd.grad(mac.masked_attention_plain(*leaves, mask), leaves, grad_out)
+    _, stats, out32 = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+    got = mac.masked_attn_bwd(grad_out, q, k, v, mask, out32, stats)
+    for name, x, w, r in zip("qkv", got, want, reference):
+        assert _rel(x, w) <= _rel(r, w), name
 
 
 def test_masked_attention_function_passes_gradients_and_counts_launches(cuda):
@@ -622,7 +655,7 @@ def test_masked_attention_backward_kernel_against_finite_differences(cuda):
     mask = torch.rand((B, H, Q, S), generator=g, device=cuda) < 0.5
     mask[:, :, 0] = True
     grad_out = torch.randn((B, H, Q, 32), generator=g, device=cuda)
-    out, stats = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+    out, stats, _ = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
     grads = mac.masked_attn_bwd(grad_out, q, k, v, mask, out, stats)
     eps = 1e-2
     for i in range(3):
@@ -638,8 +671,11 @@ def test_masked_attention_backward_kernel_against_finite_differences(cuda):
 
 def test_masked_attention_backward_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, mask = _attn_inputs(cuda, 1, 2, 5, 40, 32)
-    out, stats = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+    out, stats, _ = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
     grad_out = torch.randn_like(out)
+    with pytest.raises(ValueError, match="float32 output"):
+        bf = [t.bfloat16() for t in (grad_out, q, k, v)]
+        mac.masked_attn_bwd(*bf, mask, out.bfloat16(), stats)
     with pytest.raises(ValueError, match="stats"):
         mac.masked_attn_bwd(grad_out, q, k, v, mask, out, stats[:, :, :3].contiguous())
     with pytest.raises(ValueError, match="expected"):
@@ -677,19 +713,19 @@ def test_masked_attention_backward_kernel_at_the_edges(cuda, dtype, tol, per_hea
     grad_out = torch.randn((B, Q, H, 32), generator=g, device=cuda).to(dtype).transpose(1, 2)
     mask = torch.rand((B, H, Q, S) if per_head else (B, Q, S), generator=g, device=cuda) < 0.7
     mask[..., 0, :] = True
-    out, stats = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+    _, stats, out32 = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
     want = mac.masked_attention_backward_plain(grad_out.float(), q.float(), k.float(), v.float(),
                                                mask)
-    tiled = mac.masked_attention_backward_tiled(grad_out, q, k, v, mask, out, stats)
+    tiled = mac.masked_attention_backward_tiled(grad_out, q, k, v, mask, out32, stats)
     for chunk in (None, 64, 128, -(-S // 64) * 64):
-        got = mac.masked_attn_bwd(grad_out, q, k, v, mask, out, stats, chunk=chunk)
+        got = mac.masked_attn_bwd(grad_out, q, k, v, mask, out32, stats, chunk=chunk)
         for name, x, w, t in zip("qkv", got, want, tiled):
             assert x.dtype == dtype and x.shape == w.shape, name
             assert rel(x, w) <= tol, (name, chunk)
             assert rel(x, t) <= tol, (name, chunk)
         assert got[0][:, :, 0].abs().max().item() == 0
-    again = mac.masked_attn_bwd(grad_out, q, k, v, mask, out, stats)
-    first = mac.masked_attn_bwd(grad_out, q, k, v, mask, out, stats)
+    again = mac.masked_attn_bwd(grad_out, q, k, v, mask, out32, stats)
+    first = mac.masked_attn_bwd(grad_out, q, k, v, mask, out32, stats)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 

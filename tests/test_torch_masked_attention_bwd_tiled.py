@@ -49,8 +49,8 @@ def _inputs(seed, B, Q, S, per_head):
 def _tiled(q, k, v, g, mask, dtype=torch.float32, **kw):
     q, k, v, g = (torch.from_numpy(a).to(dtype) for a in (q, k, v, g))
     mask = torch.from_numpy(mask)
-    out, stats = mac.masked_attention_tiled(q, k, v, mask, with_stats=True)
-    return mac.masked_attention_backward_tiled(g, q, k, v, mask, out, stats, **kw)
+    _, stats, out32 = mac.masked_attention_tiled(q, k, v, mask, with_stats=True)
+    return mac.masked_attention_backward_tiled(g, q, k, v, mask, out32, stats, **kw)
 
 
 def _plain(q, k, v, g, mask):
@@ -65,21 +65,24 @@ def _rel(got, want):
     return np.abs(got - want).max() / max(np.abs(want).max(), 1.0)
 
 
-def _jax_vjp(q, k, v, g, mask):
+def _jax_vjp(q, k, v, g, mask, dtype=jnp.float32):
     """The gradients of primitives.MultiheadAttention's einsum path with
-    identity projections, i.e. of masked attention of q, k, v themselves."""
+    identity projections, i.e. of masked attention of q, k, v themselves, in
+    the module's compute type `dtype` (bfloat16: the JAX package's bfloat16
+    training arithmetic), returned as float32."""
     B, _, Q, _ = q.shape
     mask4 = jnp.asarray(np.broadcast_to(mask[:, None] if mask.ndim == 3 else mask,
                                         (B, H, Q, k.shape[2])))
     eye = {"kernel": np.eye(H * D, dtype=np.float32), "bias": np.zeros(H * D, np.float32)}
     params = {name: eye for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
-    module = JaxMultiheadAttention(H * D, H)
+    module = JaxMultiheadAttention(H * D, H, dtype=dtype)
 
     def flat(a):
-        return jnp.asarray(a).transpose(0, 2, 1, 3).reshape(a.shape[0], a.shape[2], H * D)
+        a = jnp.asarray(a).transpose(0, 2, 1, 3).reshape(a.shape[0], a.shape[2], H * D)
+        return a.astype(dtype)
 
     def unflat(a, n):
-        return np.asarray(a).reshape(B, n, H, D).transpose(0, 2, 1, 3)
+        return np.asarray(a.astype(jnp.float32)).reshape(B, n, H, D).transpose(0, 2, 1, 3)
 
     @jax.jit
     def vjp(a, b, c, grad):
@@ -132,6 +135,37 @@ def test_backward_tiled_bfloat16_rounds_like_the_kernel():
     for x, w in zip(got, want):
         assert x.dtype == torch.bfloat16
         assert _rel(x.float(), w) <= TOL_BF16
+
+
+def test_backward_tiled_bfloat16_takes_delta_from_the_float32_output():
+    """delta = rowsum(dO * O) is subtracted from every dP of a row. With the
+    weights spread over 1024 keys and k and v sharing an offset (as the
+    decoder's keys and values do), dP - delta nearly cancels, and dQ = dS k
+    sums any error of delta coherently over the keys. Taken from the output
+    rounded to bfloat16, delta's error put dq ~10x further from the float32
+    gradient than the JAX package's own bfloat16 gradient (the einsum form's
+    jax.vjp, which takes delta as the sum of P dP); taken from the forward's
+    float32 output, the tiled backward lies within that bound for each of dq,
+    dk and dv. dO has no component along O (delta = 0 in exact arithmetic),
+    so that delta's own rounding in the JAX arithmetic does not set the
+    bound."""
+    B, Q, S = 1, 32, 1024
+    rng = np.random.RandomState(0)
+    q = 0.3 * rng.randn(B, H, Q, D)
+    k = rng.randn(1, H, 1, D) + rng.randn(B, H, S, D)
+    v = 3.0 * rng.randn(1, H, 1, D) + rng.randn(B, H, S, D)
+    mask = rng.rand(B, Q, S) < 0.3
+    q, k, v = (torch.from_numpy(a.astype(np.float32)).bfloat16().float() for a in (q, k, v))
+    out = mac.masked_attention_plain(q, k, v, torch.from_numpy(mask))
+    g = torch.from_numpy(rng.randn(B, H, Q, D).astype(np.float32))
+    g = (g - (g * out).sum(-1, keepdim=True) / (out * out).sum(-1, keepdim=True) * out)
+    q, k, v, g = (t.bfloat16().float().numpy() for t in (q, k, v, g))
+    want = _plain(q, k, v, g, mask)
+    jax_bf16 = _jax_vjp(q, k, v, g, mask, jnp.bfloat16)
+    got = _tiled(q, k, v, g, mask, dtype=torch.bfloat16)
+    for name, x, w, j in zip("qkv", got, want, jax_bf16):
+        assert x.dtype == torch.bfloat16
+        assert _rel(x.float(), w) <= _rel(j, w), name
 
 
 @pytest.mark.parametrize("S,Q,pairs,chunk", [(256, 120, 64, 64), (1024, 120, 64, 256),

@@ -244,7 +244,7 @@ def backward(lib, card: str, seed: int, variants: bool = False) -> dict:
                 B, H, Q, S).clone()
             mask[:, :, :DN] = torch.rand((B, H, DN, S), generator=g, device="cuda") < 0.9
             mask[:, :, 0] = True
-            out, stats = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+            out, stats, out32 = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
             want = mac.masked_attention_backward_plain(go.float(), q.float(), k.float(),
                                                        v.float(), mask)
             gc = go.contiguous()
@@ -266,7 +266,7 @@ def backward(lib, card: str, seed: int, variants: bool = False) -> dict:
                 return dq.to(dtype).transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
             def port(chunk=None):
-                return mac.masked_attn_bwd(go, q, k, v, mask, out, stats, chunk=chunk)
+                return mac.masked_attn_bwd(go, q, k, v, mask, out32, stats, chunk=chunk)
 
             kernels = {"first": first, "port": port}
             chunks = [c for c in BWD_CHUNKS if c < S + 64]
