@@ -5,7 +5,10 @@ passes, e.g. `data/synthetic.py`), writes `metrics.json` lines with the
 reference's loss keys and `data_time`, calls hooks, evaluates every
 TEST.EVAL_PERIOD steps (`test`), saves and resumes with `torch.save`, keeping
 the last 3 checkpoints. `TPU.GRAD_ACCUM_STEPS` splits each step into that many
-micro-batches (`train_step.py`). It runs on `cuda` unless the caller passes
+micro-batches (`train_step.py`). With `TPU.PROFILE_DIR` set, steps start+5 to
+start+7 of a `train()` call run under `torch.profiler` (the JAX trainer's
+trace window, `mp_former_tpu/engine/trainer.py:202-205`), exported as a Chrome
+trace into that directory. It runs on `cuda` unless the caller passes
 `device="cpu"`, and raises when asked for `cuda` and there is none.
 """
 
@@ -107,6 +110,25 @@ class Trainer:
         return self.iteration
 
     # -- the loop ------------------------------------------------------------
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof, self.iteration
+
+    def _stop_profile(self, prof, first: int) -> str:
+        prof.stop()
+        profile_dir = self.cfg.TPU.PROFILE_DIR
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"steps_{first}-{self.iteration - 1}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        logger.info("profiled steps %d-%d into %s", first, self.iteration - 1, path)
+        return path
+
     def run_step(self, batch: Batch, stage: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
         """One step; `stage(name)`, where given, wraps each stage of it
         (`train_step`)."""
@@ -124,7 +146,8 @@ class Trainer:
         at the end (losses, `lr`, `data_time`, `time`), `hooks` called as
         `h(step, trainer)`, a checkpoint every
         SOLVER.CHECKPOINT_PERIOD steps and at the end, an evaluation every
-        TEST.EVAL_PERIOD steps."""
+        TEST.EVAL_PERIOD steps. With TPU.PROFILE_DIR set, a profiler trace of
+        the steps start+5 to start+7 (fewer where the run ends before)."""
         if start_iter is not None:
             self.iteration = start_iter
         os.makedirs(self.output_dir, exist_ok=True)
@@ -132,12 +155,18 @@ class Trainer:
         loader = self.train_loader
         if loader is None:
             loader = build_train_loader(self.cfg, pin_memory=self.device.type == "cuda")
+        profiling = None  # (profiler, its first step) while a trace is recorded
         try:
             batches = iter(loader)
             first, t_data = self.iteration, 0.0
             last_line, t_line = self.iteration - 1, time.perf_counter()
             while self.iteration < self.max_iter:
                 step = self.iteration
+                if self.cfg.TPU.PROFILE_DIR and step == first + 5:
+                    profiling = self._start_profile()
+                if profiling is not None and step == first + 8:
+                    self._stop_profile(*profiling)
+                    profiling = None
                 t0 = time.perf_counter()
                 batch = next(batches)
                 t_data += time.perf_counter() - t0
@@ -167,8 +196,13 @@ class Trainer:
                 eval_period = self.cfg.TEST.EVAL_PERIOD
                 if eval_period and (step + 1) % eval_period == 0:
                     self.test(max_images=self.cfg.TEST.get("MAX_EVAL_IMAGES"))
+            if profiling is not None:
+                self._stop_profile(*profiling)
+                profiling = None
             self.save(self.max_iter)
         finally:
+            if profiling is not None:
+                profiling[0].stop()
             if loader is not self.train_loader:
                 loader.close()
 

@@ -162,3 +162,26 @@ def test_run_step_wraps_each_stage(tmp_path):
     assert seen == micro * 2 + ["optimizer"]
     assert {f"stage::{s}" for s in seen} <= {e.key for e in prof.key_averages()}
     assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_profile_dir_traces_steps_five_to_seven(tmp_path):
+    """TPU.PROFILE_DIR (the JAX trainer's trace window, steps start+5 to
+    start+7): set, nine steps leave one Chrome trace of those steps in the
+    directory; empty, nothing is recorded."""
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+
+    traces = tmp_path / "profile"
+    for profile_dir in (str(traces), ""):
+        cfg = _cfg(tmp_path / "out", ["SOLVER.MAX_ITER", "9", "TPU.PROFILE_DIR", profile_dir])
+        trainer = Trainer(cfg, synthetic_batches(2, 64, 4, 5, seed=0), model=_seeded_model(cfg),
+                          device="cpu")
+        started = []
+        start = trainer._start_profile
+        trainer._start_profile = lambda: started.append(trainer.iteration) or start()
+        trainer.train()
+        assert trainer.iteration == 9 and started == ([5] if profile_dir else [])
+    assert [p.name for p in traces.iterdir()] == ["steps_5-7.pt.trace.json"]
+    trace = json.loads((traces / "steps_5-7.pt.trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert "stage::forward" in names and "stage::optimizer" in names
+
