@@ -132,7 +132,26 @@ result line):
     second step's launches held against the plain versions at their own
     shapes as in phase 17, then `--eval-only --resume` on 4 val images (K1
     6, K3 9 an image); s/step, device busy ms of the last step, peak memory,
-    data_time and segm AP.
+    data_time and segm AP;
+19. `eval_panoptic` (slice 4, A16a): the COCO panoptic recipe at full width
+    (133 classes, 100 queries, 9 decoder layers, seeded weights) over phase
+    14's 8 val images, written again as a COCO panoptic dataset whose ground
+    truth is the model's own predictions through the plain ops
+    (OBJECT_MASK_THRESHOLD 0.0, OVERLAP_THRESHOLD 0.3, as
+    tests/test_e2e_pq_miou_oracle.py; fails if the plain ops make no
+    segment or no thing segment); `run_evaluation` through the kernels
+    (instance, semantic and panoptic post-processing from one forward; K1 6
+    and K3 9 launches an image) scores PQ and mIoU of at least 98, AP beside
+    them; the seconds an image of the forward, each task's post-processing
+    and each evaluator;
+20. `train_panoptic`: the panoptic launcher as its users launch it,
+    `train_net.main` with the overrides of
+    run_50ep_no_noise_all_ly_panoptic.sh at its own batch (16 images, LSJ at
+    1024, `coco_panoptic_lsj`) from the panoptic split of phase 14's dataset,
+    as phase 18 (3 steps, the launches a step, the second step's held against
+    the plain versions), then `--eval-only --resume` on 4 images of
+    `coco_2017_val_panoptic_with_sem_seg` at the recipe's thresholds: finite
+    PQ, mIoU and AP.
 
 Every training phase recomputes the pixel decoder's encoder layers in the
 backward, as the recipes' `TPU.REMAT_ENCODER` default says: K1 (or K2) runs
@@ -1417,9 +1436,10 @@ def hold_recorded(torch, phase: str, recorded: dict, card: str) -> None:
     through its wrapper on the same inputs on the card and held against the
     kernel's plain version: a forward within TOL (`scaled_err`), a backward
     within BWD_TOL (K2's within K2_BWD_TOL) of each gradient's largest entry
-    (K3's in bfloat16 within the larger of BWD_TOL and the distance of
-    autograd of the plain bfloat16 forward, each against the float32 plain
-    backward). The launches made here are not counted."""
+    (K3's in float32 on the float32 output the kernel is handed; in bfloat16
+    against the float32 plain backward, within the larger of BWD_TOL and the
+    distance of autograd of the plain bfloat16 forward). The launches made
+    here are not counted."""
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
     from mp_former_tpu_torch.ops import msda_cuda
     from mp_former_tpu_torch.ops import tap_weighting as tw
@@ -1462,17 +1482,25 @@ def hold_recorded(torch, phase: str, recorded: dict, card: str) -> None:
             go, q, k, v, mask, out32, stats = args
             name, shape = dtype_of(q), "B{}xH{}xQ{}xS{}xD{}".format(*q.shape[:3], *k.shape[2:])
             got = mac.masked_attn_bwd(*args)
-            # against the float32 plain backward, which recomputes the output;
-            # in bfloat16 within BWD_TOL, or no further than autograd of the
-            # plain bfloat16 forward lies from it
-            want = mac.masked_attention_backward_plain(*f32(go, q, k, v), mask)
-            errs = [rel_err(x, y) for x, y in zip(got, want)]
+            # bfloat16: against the float32 plain backward, which recomputes the
+            # output, within BWD_TOL or no further than autograd of the plain
+            # bfloat16 forward lies from it. float32: on the float32 output the
+            # kernel is handed (where the weights spread over 16384 keys, dq
+            # follows the last bits of O: the recomputed output's distance is
+            # logged beside it)
+            recomputed = mac.masked_attention_backward_plain(*f32(go, q, k, v), mask)
             tol = BWD_TOL[name]
             if name == "bfloat16":
-                refs = bf16_reference_errs(torch, go, q, k, v, mask, want)
+                errs = [rel_err(x, y) for x, y in zip(got, recomputed)]
+                refs = bf16_reference_errs(torch, go, q, k, v, mask, recomputed)
                 extra["rel_errs_bf16_autograd"] = [f"{e:.2e}" for e in refs]
                 tol = [max(tol, e) for e in refs]
-            del want
+            else:
+                errs = [rel_err(x, y) for x, y in zip(
+                    got, mac.masked_attention_backward_plain(*f32(go, q, k, v), mask, out=out32))]
+                extra["rel_errs_vs_recomputed_output"] = [
+                    f"{rel_err(x, y):.2e}" for x, y in zip(got, recomputed)]
+            del recomputed
         elif kernel == "tap_weight_fwd":
             taps, w, P, M, D = args
             name, shape = dtype_of(taps), f"B{taps.shape[0]}xPQ{taps.shape[1]}xTMD{taps.shape[2]}"
@@ -1711,14 +1739,16 @@ def uncompressed_rle(mask) -> dict:
 def write_coco(root: str) -> dict:
     """The phase's dataset; every 5th annotation's polygons become
     uncompressed RLE and every 11th (from the 4th) a crowd annotation, so that
-    every branch of the mapper and the evaluator runs."""
+    every branch of the mapper and the evaluator runs. The same images also in
+    the COCO panoptic layout (`--panoptic`: id maps, semantic maps, json) for
+    phases eval_panoptic and train_panoptic."""
     from mp_former_tpu_torch.native import polygons_to_mask
     from tools.make_synthetic_coco_torch import write_dataset
 
     counts = {}
     for split, n, size, seed in (("train2017", COCO_TRAIN_IMAGES, 640, SEED),
                                  ("val2017", COCO_VAL_IMAGES, 480, SEED + 1)):
-        path = write_dataset(root, n, size, COCO_CLASSES, split, seed)
+        path = write_dataset(root, n, size, COCO_CLASSES, split, seed, panoptic=True)
         with open(path) as f:
             data = json.load(f)
         for k, a in enumerate(data["annotations"]):
@@ -1806,6 +1836,7 @@ def phase_train_coco(torch, card: str) -> dict:
 
     from mp_former_tpu_torch.data.catalog import MetadataCatalog
     from mp_former_tpu_torch.data.datasets.coco import register_all_coco
+    from mp_former_tpu_torch.data.datasets.register_all import register_all_coco_panoptic
     from mp_former_tpu_torch.data.loader import build_train_loader
     from mp_former_tpu_torch.data.synthetic import synthetic_batch
     from mp_former_tpu_torch.engine.trainer import Trainer
@@ -1818,13 +1849,15 @@ def phase_train_coco(torch, card: str) -> dict:
     kinds = write_coco(COCO_ROOT)
     log("train_coco", dataset=os.path.relpath(COCO_ROOT, REPO), annotations=kinds,
         write_s=f"{time.perf_counter() - t0:.2f}")
-    # the two names under this root, before anything imports the builtin
+    # the names under this root, before anything imports the builtin
     # registrations (which would register them under $DETECTRON2_DATASETS)
     register_all_coco(COCO_ROOT)
-    for name in ("coco_2017_train", "coco_2017_val"):
-        if not MetadataCatalog.get(name).json_file.startswith(COCO_ROOT):
-            raise AssertionError(f"train_coco: {name} is registered elsewhere: "
-                                 f"{MetadataCatalog.get(name).json_file}")
+    register_all_coco_panoptic(COCO_ROOT)
+    for name in ("coco_2017_train", "coco_2017_val", "coco_2017_train_panoptic",
+                 "coco_2017_val_panoptic_with_sem_seg"):
+        meta = MetadataCatalog.get(name)
+        if not (meta.get("json_file") or meta.get("panoptic_json")).startswith(COCO_ROOT):
+            raise AssertionError(f"train_coco: {name} is registered elsewhere: {vars(meta)}")
     cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "INPUT.IMAGE_SIZE", str(TRAIN_SIZE),
                             "SOLVER.MAX_ITER", str(COCO_STEPS),
                             "SOLVER.CHECKPOINT_PERIOD", str(COCO_CHECKPOINT_PERIOD),
@@ -2277,7 +2310,8 @@ def phase_train_tpu_bs16(torch, card: str) -> dict:
     return launches
 
 
-def phase_train_net(torch, card: str, accum: int) -> tuple:
+def phase_train_net(torch, card: str, accum: int, config: str = CONFIG,
+                    phase: str = "") -> tuple:
     """The released recipe launched as its users launch it: `train_net.main`
     with the overrides of run_50ep_no_noise_all_ly.sh, full width and depth,
     its own batch (16 images, LSJ at 1024) from phase train_coco's dataset
@@ -2288,7 +2322,12 @@ def phase_train_net(torch, card: str, accum: int) -> tuple:
     and an evaluated image; step TRAIN_NET_HOLD_STEP keeps one launch of
     each kernel at each of its shapes, held against the plain versions after the step
     (`hold_recorded`); prints s/step, device busy ms of the last step, the
-    peak memory of the steps after the hold, data_time and segm AP."""
+    peak memory of the steps after the hold, data_time and segm AP. With
+    `config` PAN_CONFIG (phase train_panoptic), the COCO panoptic launcher
+    run_50ep_no_noise_all_ly_panoptic.sh (the same overrides): 133 classes,
+    `coco_panoptic_lsj` from the panoptic split of phase train_coco's
+    dataset, and the evaluation of the val split with semantic ground truth
+    at the recipe's own thresholds also gives finite PQ and mIoU."""
     import shutil
 
     from torch.profiler import ProfilerActivity, profile
@@ -2297,10 +2336,10 @@ def phase_train_net(torch, card: str, accum: int) -> tuple:
     from mp_former_tpu_torch.engine.trainer import Trainer
     from mp_former_tpu_torch.utils.cuda_timing import device_busy_us
 
-    phase = f"train_net_accum{accum}"
+    phase = phase or f"train_net_accum{accum}"
     out_dir = os.path.join(REPO, "output", f"chip_smoke_{phase}")
     shutil.rmtree(out_dir, ignore_errors=True)
-    opts = ["--config-file", os.path.join(REPO, CONFIG)]
+    opts = ["--config-file", os.path.join(REPO, config)]
     overrides = [*RELEASED_SH, "SOLVER.MAX_ITER", str(TRAIN_NET_STEPS),
                  "TPU.GRAD_ACCUM_STEPS", str(accum), "SEED", str(SEED), "OUTPUT_DIR", out_dir]
     parse = train_net.default_argument_parser().parse_args
@@ -2363,14 +2402,188 @@ def phase_train_net(torch, card: str, accum: int) -> tuple:
                                     str(TRAIN_NET_EVAL_IMAGES), *overrides]))
     launches_eval = kernel_counts(backward=True)
     expected_eval = {k: TRAIN_NET_EVAL_IMAGES * v for k, v in COCO_EVAL_EXPECTED.items()}
-    ap = results["segm"]["AP"]
+    scores = {"segm_AP": results["segm"]["AP"]}
+    if config == PAN_CONFIG:
+        scores.update(PQ=results.get("panoptic_seg", {}).get("All", {}).get("PQ", math.nan),
+                      mIoU=results.get("sem_seg", {}).get("mIoU", math.nan))
     log(phase, evaluated=TRAIN_NET_EVAL_IMAGES, launches=launches_eval, expected=expected_eval,
-        segm_AP=f"{ap:.4f}")
-    if launches_eval != expected_eval or not np.isfinite(ap):
+        results=sorted(results), **{k: f"{v:.4f}" for k, v in scores.items()}, card=repr(card))
+    if launches_eval != expected_eval or not all(np.isfinite(v) for v in scores.values()):
         raise AssertionError(f"{phase}: evaluation launches {launches_eval}, expected "
-                             f"{expected_eval}; AP {ap}")
+                             f"{expected_eval}; {scores}")
     log(phase, ok=True)
     return launches, launches_eval
+
+
+# launched by run_50ep_no_noise_all_ly_panoptic.sh, whose overrides are
+# RELEASED_SH (byte-identical DN flags)
+PAN_CONFIG = "configs/coco/panoptic-segmentation/maskformer2_R50_bs16_50ep.yaml"
+PAN_THINGS = 80  # COCO panoptic's 133 classes: 80 things first, then 53 stuff
+PAN_ORACLE_ROOT = os.path.join(REPO, "output", "chip_smoke_panoptic_oracle")
+PAN_ORACLE_NAME = "chip_smoke_panoptic_oracle"
+# the oracle's thresholds (tests/test_e2e_pq_miou_oracle.py): random weights
+# score near 1 / (K + 1), so every query is kept, and the overlap rule runs
+PAN_ORACLE_OVERRIDES = ["MODEL.MASK_FORMER.TEST.OBJECT_MASK_THRESHOLD", "0.0",
+                        "MODEL.MASK_FORMER.TEST.OVERLAP_THRESHOLD", "0.3"]
+# PQ and mIoU through the kernels against ground truth made by the plain
+# ops: 100 up to the pixels whose logits the two paths put on either side of
+# a threshold (sigmoid 0.5, the argmax), which phase train_coco finds rare
+PAN_ORACLE_MIN = 98.0
+
+
+def write_panoptic_oracle(torch, cfg, model, records) -> tuple:
+    """`records` (val images with their height and width) rewritten as a COCO
+    panoptic dataset whose ground truth is the model's own predictions
+    through the plain ops at the oracle's thresholds: the id maps and
+    segments, the thing segments as instances (uncompressed RLE), the
+    semantic argmax; all 133 classes, the first PAN_THINGS things. Registered
+    as PAN_ORACLE_NAME; returns (segments, instances) counted."""
+    import shutil
+
+    from mp_former_tpu_torch.data.datasets.register_all import register_coco_panoptic
+    from mp_former_tpu_torch.engine.eval_loop import read_image
+    from mp_former_tpu_torch.engine.predictor import Predictor
+
+    num_classes = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+    is_thing = np.arange(num_classes) < PAN_THINGS
+    predictor = Predictor(cfg, model=model, device="cuda", is_thing=is_thing)
+    shutil.rmtree(PAN_ORACLE_ROOT, ignore_errors=True)
+    for d in ("pan", "sem", "annotations"):
+        os.makedirs(os.path.join(PAN_ORACLE_ROOT, d))
+    images, pan_annotations, instances = [], [], []
+    for rec in records:
+        image = read_image(rec)
+        with plain_ops():
+            out = predictor(image, (rec["height"], rec["width"]),
+                            tasks=["semantic", "panoptic"], sem_seg_labels=True)
+        pan_map, segments = out["panoptic_seg"]
+        stem = os.path.basename(rec["file_name"])
+        np.save(os.path.join(PAN_ORACLE_ROOT, "pan", stem), pan_map.astype(np.uint32))
+        np.save(os.path.join(PAN_ORACLE_ROOT, "sem", stem), out["sem_seg"].astype(np.uint8))
+        images.append({"id": rec["image_id"], "file_name": stem, "height": rec["height"],
+                       "width": rec["width"]})
+        segs = [{"id": seg["id"], "category_id": seg["category_id"] + 1, "iscrowd": 0,
+                 "area": int((pan_map == seg["id"]).sum())} for seg in segments]
+        pan_annotations.append({"image_id": rec["image_id"], "file_name": stem,
+                                "segments_info": segs})
+        instances += [{"id": len(instances) + 1, "image_id": rec["image_id"],
+                       "category_id": seg["category_id"] + 1, "iscrowd": 0, "bbox": [0, 0, 1, 1],
+                       "area": int((pan_map == seg["id"]).sum()),
+                       "segmentation": uncompressed_rle(pan_map == seg["id"])}
+                      for seg in segments if seg["isthing"]]
+    categories = [{"id": c + 1, "name": f"class-{c}", "isthing": int(is_thing[c])}
+                  for c in range(num_classes)]
+    ann = os.path.join(PAN_ORACLE_ROOT, "annotations")
+    for kind, annotations in (("panoptic", pan_annotations), ("instances", instances)):
+        with open(os.path.join(ann, f"{kind}_val2017.json"), "w") as f:
+            json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
+    register_coco_panoptic(PAN_ORACLE_NAME, os.path.join(ann, "panoptic_val2017.json"),
+                           os.path.dirname(records[0]["file_name"]),
+                           os.path.join(PAN_ORACLE_ROOT, "pan"),
+                           semseg_root=os.path.join(PAN_ORACLE_ROOT, "sem"),
+                           instances_json=os.path.join(ann, "instances_val2017.json"),
+                           ignore_label=255)
+    return sum(len(a["segments_info"]) for a in pan_annotations), len(instances)
+
+
+def postprocess_seconds(torch, cfg, model, records) -> dict:
+    """Mean host seconds an image of each part of a dataset evaluation,
+    synchronised after each: the forward, each task's post-processing on the
+    card and the host (the panoptic one with its sequential merge loop), and
+    each task's evaluator `process`."""
+    from mp_former_tpu_torch.data.catalog import MetadataCatalog
+    from mp_former_tpu_torch.engine import predictor as pred
+    from mp_former_tpu_torch.engine.eval_loop import read_image
+    from mp_former_tpu_torch.evaluation.build import build_evaluator, is_thing_array
+
+    t = cfg.MODEL.MASK_FORMER.TEST
+    k = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+    is_thing = is_thing_array(cfg, MetadataCatalog.get(PAN_ORACLE_NAME))
+    predictor = pred.Predictor(cfg, model=model, device="cuda", is_thing=is_thing)
+    evset = build_evaluator(cfg, PAN_ORACLE_NAME)
+    evset.reset()
+    entries = {e.task: e for e in evset.entries}
+    times = {}
+
+    def clock(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.setdefault(key, []).append(time.perf_counter() - t0)
+        return out
+
+    for rec in records:
+        image = read_image(rec)
+        hw = (rec["height"], rec["width"])
+        logits, masks, size = clock("forward", lambda: predictor.forward_raw(image))
+        with torch.inference_mode():
+            inst = clock("post_instance", lambda: pred.postprocess_instance(
+                logits, masks, size, *hw, k, cfg.TEST.DETECTIONS_PER_IMAGE))
+            inst = (inst.scores.float().cpu().numpy(), inst.pred_classes.cpu().numpy(),
+                    inst.pred_masks.cpu().numpy())
+            sem = clock("post_semantic", lambda: pred.postprocess_semantic(
+                logits, masks, size, *hw, pred.semantic_before_inference(cfg)).argmax(0).cpu()
+                .numpy())
+            pan = clock("post_panoptic_with_host_merge", lambda: pred.postprocess_panoptic(
+                logits, masks, size, *hw, k, t.OBJECT_MASK_THRESHOLD, t.OVERLAP_THRESHOLD,
+                is_thing))
+        for task, data in (("instance", inst), ("semantic", sem), ("panoptic", pan)):
+            clock(f"evaluator_{task}", lambda: entries[task].process(rec, data))
+    return {key: mean(v) for key, v in times.items()}
+
+
+def phase_eval_panoptic(torch, card: str) -> dict:
+    """Slice 4 (A16a), scored: the COCO panoptic recipe at full width (133
+    classes, seeded weights) over phase train_coco's 8 val images, whose
+    ground truth is rewritten from the model's own plain-op predictions at the
+    oracle's thresholds (`write_panoptic_oracle`); then `run_evaluation`
+    through the kernels, counted: K1 6 and K3 9 launches an image; PQ and
+    mIoU at least PAN_ORACLE_MIN, AP printed beside them; then each part's
+    seconds an image (`postprocess_seconds`)."""
+    from mp_former_tpu_torch.data.catalog import DatasetCatalog
+    from mp_former_tpu_torch.engine.eval_loop import run_evaluation
+
+    cfg = load_cfg(PAN_CONFIG, [*RELEASED_SH, *PAN_ORACLE_OVERRIDES])
+    if (cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, cfg.MODEL.MASK_FORMER.NUM_OBJECT_QUERIES) != (133, 100):
+        raise AssertionError("eval_panoptic: the recipe's width changed")
+    model = seeded_model(torch, cfg).to("cuda").eval()
+    records = DatasetCatalog.get("coco_2017_val_panoptic_with_sem_seg")[:COCO_VAL_IMAGES]
+    t0 = time.perf_counter()
+    n_segments, n_instances = write_panoptic_oracle(torch, cfg, model, records)
+    log("eval_panoptic", images=len(records), oracle_segments=n_segments,
+        oracle_instances=n_instances, write_s=f"{time.perf_counter() - t0:.2f}")
+    # at random weights the queries' masks are nearly one map (correlation 0.998
+    # between queries at the reference init), so a few segments win the argmax:
+    # PQ holds those, mIoU every pixel
+    if n_segments == 0 or n_instances == 0:
+        raise AssertionError(f"eval_panoptic: the plain ops made {n_segments} segments and "
+                             f"{n_instances} thing segments: the oracle would be vacuous")
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        results = run_evaluation(cfg, model, PAN_ORACLE_NAME)
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts(backward=True)
+    expected = {k: len(records) * v for k, v in COCO_EVAL_EXPECTED.items()}
+    pq, miou, ap = (results["panoptic_seg"]["All"]["PQ"], results["sem_seg"]["mIoU"],
+                    results["segm"]["AP"])
+    log("eval_panoptic", launches=launches, expected=expected, PQ=f"{pq:.4f}",
+        PQ_things=f"{results['panoptic_seg']['Things']['PQ']:.4f}",
+        PQ_stuff=f"{results['panoptic_seg']['Stuff']['PQ']:.4f}", mIoU=f"{miou:.4f}",
+        segm_AP=f"{ap:.4f}", min_PQ_mIoU=PAN_ORACLE_MIN,
+        s_per_image=f"{seconds / len(records):.4f}", card=repr(card))
+    if launches != expected:
+        raise AssertionError(f"eval_panoptic: kernel launches {launches}, expected {expected}")
+    if not (pq >= PAN_ORACLE_MIN and miou >= PAN_ORACLE_MIN and np.isfinite(ap)):
+        raise AssertionError(f"eval_panoptic: PQ {pq}, mIoU {miou} through the kernels against "
+                             f"the plain ops' own predictions, below {PAN_ORACLE_MIN}; AP {ap}")
+    parts = postprocess_seconds(torch, cfg, model, records)
+    log("eval_panoptic", seconds_per_image={k: f"{v:.4f}" for k, v in parts.items()},
+        canvas="800x800 (480x480 images at MIN_SIZE_TEST 800)", card=repr(card))
+    restore_kernel_counts(launches)
+    log("eval_panoptic", ok=True)
+    return {"launches": launches, "PQ": pq, "mIoU": miou, "AP": ap, "seconds": parts}
 
 
 def main() -> int:
@@ -2438,11 +2651,19 @@ def main() -> int:
         train_net_paths[f"train_net_accum{a}"], train_net_paths[f"train_net_accum{a}_eval"] = \
             phase_train_net(torch, card, a)
         torch.cuda.empty_cache()
+    # slice 4 (A16a): COCO panoptic, scored against its own plain-op predictions,
+    # then the panoptic launcher at its own batch
+    eval_panoptic = phase_eval_panoptic(torch, card)
+    torch.cuda.empty_cache()
+    train_net_paths["train_panoptic"], train_net_paths["train_panoptic_eval"] = \
+        phase_train_net(torch, card, 1, PAN_CONFIG, "train_panoptic")
+    torch.cuda.empty_cache()
     by_path = {"slice": s1, "slice2": s2, "tap_weighting_route": route, "train": train,
                "train_coco": train_coco, "slice_bf16": s1_bf16, "slice2_bf16": s2_bf16,
                "eval_bf16": eval_bf16, "train_bf16": train_bf16, "train_tpu": train_tpu,
                "train_tpu_bf16": train_tpu_bf16, "accum": accum, "remat": remat,
-               "train_tpu_bs16": train_tpu_bs16, **train_net_paths}
+               "train_tpu_bs16": train_tpu_bs16, "eval_panoptic": eval_panoptic["launches"],
+               **train_net_paths}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",

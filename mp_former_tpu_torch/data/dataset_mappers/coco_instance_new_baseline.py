@@ -12,7 +12,7 @@ JAX package's, so that a batch is a few dense tensors.
 No cv2: the image comes through `engine/eval_loop.py::read_image` (a `.npy`
 file, the record's own array, or cv2 where installed), BGR -> RGB is a
 channel flip, and the nearest resize of RLE masks is cv2's INTER_NEAREST
-index rule in numpy.
+index rule in numpy (`transforms.resize_nearest`).
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ from ...engine.eval_loop import read_image
 from ...evaluation.coco_eval import rle_to_mask
 from ...native import polygons_to_mask
 from ...utils.registry import DATASET_MAPPER_REGISTRY
-from ..transforms import (TransformRecord, apply_record_to_image, block_any_pool, lsj_transform,
-                          resolve_gt_mask_stride)
+from ..transforms import (TransformRecord, apply_record_to_image, apply_to_sem_seg,
+                          block_any_pool, lsj_transform, resolve_gt_mask_stride)
 
 
 def _mask_from_segmentation(seg, rec: TransformRecord, stride: int = 1) -> Optional[np.ndarray]:
@@ -41,31 +41,11 @@ def _mask_from_segmentation(seg, rec: TransformRecord, stride: int = 1) -> Optio
             polys.append((pts / stride).reshape(-1))
         return polygons_to_mask(polys, h, w)
     if isinstance(seg, dict) and isinstance(seg.get("counts"), list):  # uncompressed RLE
-        m = _transform_bitmask(rle_to_mask(seg), rec)
+        m = apply_to_sem_seg(rle_to_mask(seg), rec, False)
         if stride > 1:
             m = block_any_pool(m, stride)[:h, :w]
         return m
     return None
-
-
-def resize_nearest(mask: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
-    """cv2.resize(..., INTER_NEAREST): source index floor(dst * (1 / (dst_n /
-    src_n))) in float64, clipped to the last row or column (the reciprocal
-    of the ratio, not src_n / dst_n, which rounds otherwise on some sizes)."""
-    h, w = mask.shape
-    ys = np.minimum(np.floor(np.arange(new_h) * (1.0 / (new_h / h))).astype(np.int64), h - 1)
-    xs = np.minimum(np.floor(np.arange(new_w) * (1.0 / (new_w / w))).astype(np.int64), w - 1)
-    return mask[ys[:, None], xs[None, :]]
-
-
-def _transform_bitmask(mask: np.ndarray, rec: TransformRecord) -> np.ndarray:
-    m = mask[:, ::-1] if rec.flip else mask
-    m = resize_nearest(m, int(round(m.shape[0] * rec.scale_y)), int(round(m.shape[1] * rec.scale_x)))
-    y0, x0 = int(-rec.ty), int(-rec.tx)
-    crop = m[y0: y0 + rec.out_h, x0: x0 + rec.out_w]
-    canvas = np.zeros((rec.out_h, rec.out_w), dtype=bool)
-    canvas[: crop.shape[0], : crop.shape[1]] = crop
-    return canvas
 
 
 def _masks_to_boxes_np(masks: np.ndarray) -> np.ndarray:

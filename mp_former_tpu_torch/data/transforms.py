@@ -1,7 +1,8 @@
 """Host-side augmentations of the LSJ recipe (the parts of
-`mp_former_tpu/data/transforms.py` that `coco_instance_lsj` needs): RandomFlip
--> ResizeScale(MIN_SCALE..MAX_SCALE of IMAGE_SIZE) -> FixedSizeCrop
-(IMAGE_SIZE^2, padded with 128), as d2's transforms the reference uses.
+`mp_former_tpu/data/transforms.py` that `coco_instance_lsj` and
+`coco_panoptic_lsj` need): RandomFlip -> ResizeScale(MIN_SCALE..MAX_SCALE of
+IMAGE_SIZE) -> FixedSizeCrop (IMAGE_SIZE^2, padded with 128), as d2's
+transforms the reference uses.
 
 A transform is drawn as a `TransformRecord`, which re-applies the geometric
 map to coordinates, polygons, masks and the image. The draws from the
@@ -11,6 +12,8 @@ state gives the same record. The image is resized with `F.interpolate`
 to uint8; cv2 computes uint8 in fixed point, so a pixel may differ from the
 JAX package's by a grey level. Polygons are rasterised by
 `native.polygons_to_mask` (pycocotools' rule, the JAX package's native route).
+Integer maps (masks, panoptic id maps, semantic maps) are resized by
+`resize_nearest`, cv2's INTER_NEAREST index rule in numpy.
 """
 
 from __future__ import annotations
@@ -98,6 +101,31 @@ def apply_record_to_image(img: np.ndarray, rec: TransformRecord,
     y0, x0 = int(-rec.ty), int(-rec.tx)
     crop = out[y0: y0 + rec.out_h, x0: x0 + rec.out_w]
     canvas = np.full((rec.out_h, rec.out_w, out.shape[2]), pad_value, dtype=out.dtype)
+    canvas[: crop.shape[0], : crop.shape[1]] = crop
+    return canvas
+
+
+def resize_nearest(mask: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """cv2.resize(..., INTER_NEAREST) of a 2-D map of any type: source index
+    floor(dst * (1 / (dst_n / src_n))) in float64, clipped to the last row or
+    column (the reciprocal of the ratio, not src_n / dst_n, which rounds
+    otherwise on some sizes)."""
+    h, w = mask.shape
+    ys = np.minimum(np.floor(np.arange(new_h) * (1.0 / (new_h / h))).astype(np.int64), h - 1)
+    xs = np.minimum(np.floor(np.arange(new_w) * (1.0 / (new_w / w))).astype(np.int64), w - 1)
+    return mask[ys[:, None], xs[None, :]]
+
+
+def apply_to_sem_seg(sem: np.ndarray, rec: TransformRecord, ignore) -> np.ndarray:
+    """A 2-D map through the record (`mp_former_tpu/data/dataset_mappers/
+    mask_former_mappers.py:30-40 _apply_to_sem_seg`): flip, nearest resize,
+    crop, and pad with `ignore`."""
+    out = sem[:, ::-1] if rec.flip else sem
+    out = resize_nearest(out, int(round(sem.shape[0] * rec.scale_y)),
+                         int(round(sem.shape[1] * rec.scale_x)))
+    y0, x0 = int(-rec.ty), int(-rec.tx)
+    crop = out[y0: y0 + rec.out_h, x0: x0 + rec.out_w]
+    canvas = np.full((rec.out_h, rec.out_w), ignore, dtype=sem.dtype)
     canvas[: crop.shape[0], : crop.shape[1]] = crop
     return canvas
 

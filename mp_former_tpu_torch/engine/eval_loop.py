@@ -1,10 +1,11 @@
 """Dataset evaluation: records through `Predictor` into an evaluator (d2's
-inference_on_dataset; `mp_former_tpu/engine/eval_loop.py:inference_on_dataset`
-for the instance task), and `run_evaluation` of a registered dataset with the
-evaluators its `evaluator_type` names (`Trainer.test` calls it).
+inference_on_dataset; `mp_former_tpu/engine/eval_loop.py:inference_on_dataset`,
+one task), and `run_evaluation` of a registered dataset with the evaluators
+its `evaluator_type` names (`Trainer.test` calls it).
 
-Each record is decoded, preprocessed on the device, run through the model and
-post-processed in the reference's order by `Predictor`, one image at a time.
+Each record is decoded, preprocessed on the device, run through the model
+once and post-processed in the reference's order by `Predictor` for every task
+its evaluators ask for (instance, semantic, panoptic), one image at a time.
 The JAX package's streamed and bucketed evaluation (`TPU.EVAL_STREAM`,
 `TPU.EVAL_BUCKET_STEP`) and its mesh sharding amortise costs of the TPU runtime
 and are not ported: the canvas is the resized image padded to a multiple of 32.
@@ -12,15 +13,16 @@ and are not ported: the canvas is the resized image padded to a multiple of 32.
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .predictor import Predictor
+from .predictor import TASK_KEYS, Predictor
 
 logger = logging.getLogger(__name__)
 
@@ -50,11 +52,11 @@ def read_image(record: dict) -> Optional[np.ndarray]:
     return cv2.imread(path, cv2.IMREAD_COLOR)
 
 
-def _predict(predictor: Predictor, records: List[dict],
+def _predict(predictor: Predictor, records: List[dict], tasks: Sequence[str],
              max_images: Optional[int] = None) -> Iterator[Tuple[dict, Dict]]:
-    """(record, instances) for each readable record, at most `max_images`;
-    predictions at the record's height and width (the image's own where the
-    record has none)."""
+    """(record, the predictor's outputs of `tasks`) for each readable record,
+    at most `max_images`; predictions at the record's height and width (the
+    image's own where the record has none), "sem_seg" as the argmax labels."""
     n = 0
     t0 = time.perf_counter()
     for rec in records:
@@ -64,22 +66,38 @@ def _predict(predictor: Predictor, records: List[dict],
         if image is None:
             continue
         out_hw = (rec.get("height") or image.shape[0], rec.get("width") or image.shape[1])
-        yield rec, predictor(image, out_hw)["instances"]
+        yield rec, predictor(image, out_hw, tasks=tasks, sem_seg_labels=True)
         n += 1
         if n % 50 == 0:
             logger.info("eval %d images (%.2f s/img)", n, (time.perf_counter() - t0) / n)
 
 
 def inference_on_dataset(cfg, predictor: Predictor, records: List[dict], evaluator,
-                         max_images: Optional[int] = None) -> Dict:
-    """Instance segmentation over `records` (at most `max_images` of them);
-    returns the evaluator's summary."""
-    if not cfg.MODEL.MASK_FORMER.TEST.INSTANCE_ON:
-        raise NotImplementedError("the port evaluates instance segmentation only so far")
+                         max_images: Optional[int] = None, task: str = "instance",
+                         is_thing: Optional[np.ndarray] = None,
+                         sem_seg_loader: Optional[Callable[[dict], np.ndarray]] = None) -> Dict:
+    """One task over `records` (at most `max_images` of them) into one
+    evaluator; returns its summary. task: "instance" (`evaluator.process(
+    image_id, scores, classes, masks)`), "semantic" (`evaluator.process(pred,
+    gt)` with `sem_seg_loader(record) -> (H, W)` ground truth) or "panoptic"
+    (`evaluator.process_prediction(record, id_map, segments)`, the thing
+    classes `is_thing`, by default the predictor's)."""
+    if task == "semantic" and sem_seg_loader is None:
+        raise ValueError("inference_on_dataset(task='semantic') needs a sem_seg_loader")
+    if is_thing is not None:
+        predictor = copy.copy(predictor)
+        predictor.is_thing = np.asarray(is_thing, bool)
     evaluator.reset()
     n = 0
-    for rec, inst in _predict(predictor, records, max_images):
-        evaluator.process(rec["image_id"], inst["scores"], inst["classes"], list(inst["masks"]))
+    for rec, out in _predict(predictor, records, [task], max_images):
+        if task == "instance":
+            inst = out["instances"]
+            evaluator.process(rec["image_id"], inst["scores"], inst["classes"],
+                              list(inst["masks"]))
+        elif task == "semantic":
+            evaluator.process(out["sem_seg"], sem_seg_loader(rec))
+        else:
+            evaluator.process_prediction(rec, *out["panoptic_seg"])
         n += 1
     results = evaluator.evaluate()
     logger.info("evaluated %d images: %s", n, results)
@@ -91,30 +109,32 @@ def run_evaluation(cfg, model: torch.nn.Module, dataset_name: str,
     """Evaluate one registered dataset with its evaluator family (reference
     Trainer.test + build_evaluator, train_net.py:142-222;
     `mp_former_tpu/engine/eval_loop.py:run_evaluation`): one `Predictor`
-    forward per image, on the model's own device. The tasks come from the
-    evaluators, not from MASK_FORMER.TEST's switches. `max_images` caps the
-    records, so an unreadable one shrinks the evaluated set, as in the JAX
-    package."""
-    from ..data.catalog import DatasetCatalog
-    from ..evaluation.build import build_evaluator
+    forward per image, on the model's own device, post-processed for every
+    task of the evaluators (`EvaluatorSet.tasks`), with the dataset's thing
+    classes for the panoptic fusion. `max_images` caps the records, so an
+    unreadable one shrinks the evaluated set, as in the JAX package."""
+    from ..data.catalog import DatasetCatalog, MetadataCatalog
+    from ..evaluation.build import build_evaluator, is_thing_array
 
     records = DatasetCatalog.get(dataset_name)
     evset = build_evaluator(cfg, dataset_name, records)
     if max_images is not None:
         records = records[:max_images]
-    # the evaluators' one task so far, "instance", whatever INSTANCE_ON says
-    pcfg = cfg.clone()
-    pcfg.defrost()
-    pcfg.MODEL.MASK_FORMER.TEST.INSTANCE_ON = True
-    predictor = Predictor(pcfg, model=model, device=next(model.parameters()).device)
+    predictor = Predictor(cfg, model=model, device=next(model.parameters()).device,
+                          is_thing=is_thing_array(cfg, MetadataCatalog.get(dataset_name)))
+    tasks = evset.tasks
     evset.reset()
     n = 0
     t0 = time.perf_counter()
-    for rec, inst in _predict(predictor, records):
-        evset.process(rec, {"instance": (inst["scores"], inst["classes"], inst["masks"])})
+    for rec, out in _predict(predictor, records, tasks):
+        outputs = {t: out[TASK_KEYS[t]] for t in tasks}
+        if "instance" in outputs:
+            inst = outputs["instance"]
+            outputs["instance"] = (inst["scores"], inst["classes"], inst["masks"])
+        evset.process(rec, outputs)
         n += 1
     results = evset.evaluate()
     dt = time.perf_counter() - t0
-    logger.info("evaluated %d images of %s in %.1f s (%.2f img/s): %s", n, dataset_name, dt,
-                n / max(dt, 1e-9), results)
+    logger.info("evaluated %d images of %s (%s) in %.1f s (%.2f img/s): %s", n, dataset_name,
+                ", ".join(tasks), dt, n / max(dt, 1e-9), results)
     return results

@@ -114,7 +114,10 @@ def eval_weights(cfg, resume: bool) -> str:
 
 def evaluate(cfg, model, max_images=None) -> dict:
     """Every DATASETS.TEST entry through `run_evaluation` (d2's
-    DefaultTrainer.test), keyed by dataset name where there are several."""
+    DefaultTrainer.test), keyed by dataset name where there are several: the
+    merged results of the dataset's evaluators ({"segm": ...} for COCO
+    instances; {"panoptic_seg", "segm", "sem_seg"} for COCO panoptic with the
+    three TEST switches on)."""
     from .data.datasets import builtin  # noqa: F401  (registration)
     from .engine.eval_loop import run_evaluation
 
@@ -127,8 +130,8 @@ def evaluate(cfg, model, max_images=None) -> dict:
             continue
         results.update(r if len(cfg.DATASETS.TEST) == 1 else {name: r})
     if not results:
-        logger.warning("no eval task ran: the port evaluates the instance task of COCO-format "
-                       "datasets so far (ROADMAP A16)")
+        logger.warning("no eval task ran: the port evaluates COCO instance and COCO panoptic "
+                       "datasets so far (the others: ROADMAP A16b)")
     return results
 
 

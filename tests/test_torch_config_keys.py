@@ -1,0 +1,70 @@
+"""Every config key the JAX package reads is read by the port too, or is set
+aside below with the reason it is not: a key a recipe sets and the port
+ignores without a word would change nothing where the user expects a change
+(ROADMAP §C: faults C3, C4 and C7 were such keys).
+
+The reads are found in the sources: `cfg.A.B.C`, `cfg.A.get("B")`,
+`getattr(cfg.A, "B")`, and `x.C` where `x = cfg.A.B` in the same file (the
+config packages themselves, which declare every key, are not scanned). The
+set-aside list must equal what the scan finds: a key that the port starts
+reading leaves it, and a new key ignored without a word fails here.
+"""
+
+import pathlib
+import re
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PATH = r"(?:[A-Z][A-Z0-9_]*)(?:\.[A-Z][A-Z0-9_]*)*"
+READ = re.compile(r"\bcfg\.(" + PATH + r")")
+ALIAS = re.compile(r"^\s*(\w+)\s*=\s*(?:self\.)?cfg\.(" + PATH + r")\s*(?:#.*)?$", re.M)
+GET = re.compile(r"\bcfg\.(" + PATH + r")\.get\(\s*[\"']([A-Z][A-Z0-9_]*)[\"']")
+GETATTR = re.compile(r"getattr\(\s*cfg\.(" + PATH + r")\s*,\s*[\"']([A-Z][A-Z0-9_]*)[\"']")
+
+SWIN = {f"MODEL.SWIN.{k}" for k in (
+    "APE", "DEPTHS", "DROP_PATH_RATE", "EMBED_DIM", "MLP_RATIO", "NUM_HEADS", "OUT_FEATURES",
+    "PATCH_NORM", "PATCH_SIZE", "QKV_BIAS", "QK_SCALE", "USE_CHECKPOINT", "WINDOW_SIZE")}
+SET_ASIDE = {
+    # A16b: the semantic, panoptic and instance mappers of ADE20K, Cityscapes and
+    # Mapillary Vistas (mask_former_mappers.py)
+    "A16b": {"INPUT.COLOR_AUG_SSD", "INPUT.CROP.ENABLED", "INPUT.CROP.SINGLE_CATEGORY_MAX_AREA",
+             "INPUT.CROP.SIZE", "INPUT.CROP.TYPE", "INPUT.MAX_SIZE_TRAIN", "INPUT.MIN_SIZE_TRAIN",
+             "INPUT.MIN_SIZE_TRAIN_SAMPLING", "INPUT.SIZE_DIVISIBILITY"},
+    "A17 Swin": SWIN,
+    # A18: StandardTransformerDecoder's encoder, the DN_RATIO modes
+    "A18": {"MODEL.MASK_FORMER.ENC_LAYERS", "MODEL.MASK_FORMER.DN_RATIO"},
+    "A19 test-time augmentation": {"TEST.AUG.FLIP", "TEST.AUG.MAX_SIZE", "TEST.AUG.MIN_SIZES"},
+    "A20 video": {"INPUT.SAMPLING_FRAME_NUM", "INPUT.SAMPLING_FRAME_RANGE",
+                  "INPUT.SAMPLING_FRAME_SHUFFLE"},
+    # A21 distributed: the device mesh and token sharding
+    "A21": {"TPU.MESH_AXES", "TPU.MESH_SHAPE", "TPU.SHARD_TOKENS"},
+    "A14h auction matcher": {"TPU.MATCHER_HOST_EXACT"},
+    # TPU-runtime workarounds, not ported on purpose (ROADMAP §A)
+    "TPU runtime": {"TPU.FUSED_MASKED_ATTN", "TPU.POINT_MATMUL_SAMPLING", "TPU.DONATE",
+                    "TPU.SPLIT_STEP", "TPU.HOST_ACCUM", "TPU.EVAL_STREAM", "TPU.EVAL_BUCKET_STEP",
+                    "TPU.SCAN_ENCODER"},
+    # stored by the JAX head and never used (mp_former_tpu/models/meta_arch/
+    # mask_former_head.py:47-48; IGNORE_VALUE is read by the evaluators)
+    "stored, unused": {"MODEL.SEM_SEG_HEAD.LOSS_WEIGHT"},
+}
+
+
+def _reads(package: str) -> set:
+    found = set()
+    for path in (ROOT / package).rglob("*.py"):
+        if path.parent.name == "config":
+            continue
+        src = path.read_text()
+        found |= set(READ.findall(src))
+        found |= {f"{a}.{b}" for a, b in GET.findall(src) + GETATTR.findall(src)}
+        for name, base in ALIAS.findall(src):
+            found |= {f"{base}.{k}" for k in re.findall(rf"\b{name}\.({PATH})", src)}
+    # a read of A.B.C also names the nodes A and A.B: keys are the leaves
+    return {k for k in found if not any(o.startswith(k + ".") for o in found)}
+
+
+def test_every_key_the_jax_package_reads_is_read_or_set_aside():
+    ignored = _reads("mp_former_tpu") - _reads("mp_former_tpu_torch")
+    set_aside = set().union(*SET_ASIDE.values())
+    assert ignored - set_aside == set(), "read by the JAX package, ignored by the port"
+    assert set_aside - ignored == set(), "set aside, but read by the port (or by neither)"
+    assert "TPU.PROFILE_DIR" in _reads("mp_former_tpu_torch")

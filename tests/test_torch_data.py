@@ -29,7 +29,8 @@ from mp_former_tpu_torch.config import add_deeplab_config, add_maskformer2_confi
 from mp_former_tpu_torch.data import transforms
 from mp_former_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
 from mp_former_tpu_torch.data.dataset_mappers.coco_instance_new_baseline import (
-    COCOInstanceNewBaselineDatasetMapper, resize_nearest)
+    COCOInstanceNewBaselineDatasetMapper)
+from mp_former_tpu_torch.data.transforms import resize_nearest
 from mp_former_tpu_torch.data.datasets.coco import load_coco_json, register_all_coco
 from mp_former_tpu_torch.data.loader import TrainLoader, build_train_loader, collate
 from mp_former_tpu_torch.native import polygons_to_mask

@@ -185,3 +185,42 @@ def test_profile_dir_traces_steps_five_to_seven(tmp_path):
     names = {e.get("name") for e in trace["traceEvents"]}
     assert "stage::forward" in names and "stage::optimizer" in names
 
+
+def test_trainer_trains_and_tests_the_panoptic_recipe(tmp_path):
+    """The panoptic launcher's recipe on SMALL widths from a tiny dataset of
+    `tools/make_synthetic_coco_torch.py --panoptic`, registered as
+    `register_all_coco_panoptic` registers the `_with_sem_seg` splits: 2
+    steps through the `coco_panoptic_lsj` mapper, then `Trainer.test` on the
+    val split scores PQ, mIoU and AP (the three TEST switches of the YAML)."""
+    from mp_former_tpu_torch.data.datasets.register_all import register_coco_panoptic
+
+    root = tmp_path / "data"
+    names = {}
+    for split, n, size, seed in (("train2017", 4, 80, 0), ("val2017", 2, 64, 1)):
+        write_dataset(str(root), images=n, size=size, classes=4, split=split, seed=seed,
+                      panoptic=True)
+        names[split] = f"torch_trainer_panoptic_{split}_{tmp_path.name}"
+        coco = root / "coco"
+        register_coco_panoptic(names[split], str(coco / f"annotations/panoptic_{split}.json"),
+                               str(coco / split), str(coco / f"panoptic_{split}"),
+                               semseg_root=str(coco / f"panoptic_semseg_{split}"),
+                               instances_json=str(coco / f"annotations/instances_{split}.json"),
+                               ignore_label=255)
+    cfg = get_cfg()
+    add_deeplab_config(cfg)
+    add_maskformer2_config(cfg)
+    cfg.merge_from_file("configs/coco/panoptic-segmentation/maskformer2_R50_bs16_50ep.yaml")
+    cfg.merge_from_list([*SMALL, *TRAIN[:-4], "MODEL.SEM_SEG_HEAD.NUM_CLASSES", "5",
+                         "SOLVER.MAX_ITER", "2", "OUTPUT_DIR", str(tmp_path / "out"),
+                         "DATASETS.TRAIN", f"('{names['train2017']}',)",
+                         "DATASETS.TEST", f"('{names['val2017']}',)"])
+    assert cfg.INPUT.DATASET_MAPPER_NAME == "coco_panoptic_lsj"
+    trainer = Trainer(cfg, model=_seeded_model(cfg), device="cpu")
+    trainer.train()
+    assert trainer.iteration == 2
+    lines = [json.loads(x) for x in (tmp_path / "out" / "metrics.json").read_text().splitlines()]
+    assert all(math.isfinite(v) for x in lines for v in x.values())
+    res = trainer.test()
+    assert set(res) == {"panoptic_seg", "sem_seg", "segm"}
+    assert math.isfinite(res["panoptic_seg"]["All"]["PQ"]) and math.isfinite(res["sem_seg"]["mIoU"])
+    assert math.isfinite(res["segm"]["AP"])

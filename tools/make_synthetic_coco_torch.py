@@ -13,11 +13,28 @@ agree exactly. A later object paints over an earlier one; the earlier one's
 polygon stays whole, as in the cv2 tool.
 
     python tools/make_synthetic_coco_torch.py --root /tmp/synth_coco \
-        [--images 200] [--size 640] [--classes 20] [--split train2017] [--seed 0]
+        [--images 200] [--size 640] [--classes 20] [--split train2017] [--seed 0] [--panoptic]
 
 writes `$ROOT/coco/<split>/<id>.npy` and
 `$ROOT/coco/annotations/instances_<split>.json`: the layout that
 `coco_2017_train` / `coco_2017_val` read with DETECTRON2_DATASETS=$ROOT.
+
+`--panoptic` (after `tools/make_synthetic_coco.py --panoptic`) also writes the
+COCO panoptic layout that `coco_2017_{train,val}_panoptic[_with_sem_seg]`
+read: the shape classes are things (ids 1..classes), the whole background is
+one segment of one stuff class "background" (id classes + 1, `isthing 0`),
+and each painted object a segment of its class, its area counted after the
+objects painted over it (a segment painted over entirely is left out).
+- `coco/panoptic_<split>/<id>.npy`: the id map, (H, W) uint32 segment ids
+  (the PNG's R + 256 G + 65536 B), 0 = no segment;
+- `coco/annotations/panoptic_<split>.json`: images, categories (with
+  `isthing`) and per image `segments_info` ({id, category_id, iscrowd, area,
+  bbox}), the id map's file name under `file_name`;
+- `coco/panoptic_semseg_<split>/<id>.npy`: the semantic map, (H, W) uint8
+  contiguous class ids, things first, then stuff, 255 where no segment lies
+  (the rule of `datasets/prepare_coco_semantic_annos_from_panoptic_annos.py`).
+The draws are those of the instance dataset: the same seed gives the same
+images and instance json with or without `--panoptic`.
 """
 
 import argparse
@@ -80,20 +97,41 @@ def smooth_background(small: np.ndarray, size: int) -> np.ndarray:
     return np.round(out).astype(np.uint8)
 
 
+def semantic_map(ids: np.ndarray, segments, categories) -> np.ndarray:
+    """(H, W) uint8 contiguous class ids from an id map and its segments:
+    categories ordered things first, then stuff, each by id; 255 where no
+    segment lies (`datasets/prepare_coco_semantic_annos_from_panoptic_annos.py:
+    21-35`)."""
+    order = sorted(categories, key=lambda c: (not c["isthing"], c["id"]))
+    contiguous = {c["id"]: i for i, c in enumerate(order)}
+    out = np.full(ids.shape, 255, np.uint8)
+    for seg in segments:
+        out[ids == seg["id"]] = contiguous[seg["category_id"]]
+    return out
+
+
 def write_dataset(root: str, images: int = 200, size: int = 640, classes: int = 20,
-                  split: str = "train2017", seed: int = 0) -> str:
-    """Write the split; returns the path of its json."""
+                  split: str = "train2017", seed: int = 0, panoptic: bool = False) -> str:
+    """Write the split (with `panoptic`, its panoptic id maps, json and
+    semantic maps too); returns the path of its instance json."""
     img_dir = os.path.join(root, "coco", split)
     ann_dir = os.path.join(root, "coco", "annotations")
-    os.makedirs(img_dir, exist_ok=True)
-    os.makedirs(ann_dir, exist_ok=True)
+    pan_dir = os.path.join(root, "coco", f"panoptic_{split}")
+    sem_dir = os.path.join(root, "coco", f"panoptic_semseg_{split}")
+    for d in (img_dir, ann_dir) + ((pan_dir, sem_dir) if panoptic else ()):
+        os.makedirs(d, exist_ok=True)
+    categories = [{"id": c + 1, "name": f"shape-{c}", "isthing": 1} for c in range(classes)]
+    categories.append({"id": classes + 1, "name": "background", "isthing": 0})
     rng = np.random.RandomState(seed)
     s = size
-    image_list, annotations = [], []
+    image_list, annotations, pan_annotations = [], [], []
     aid = 1
     for i in range(images):
         noise = rng.rand(s // 16, s // 16, 3)
         img = smooth_background((noise * 80 + 40).astype(np.uint8), s)
+        ids = np.ones((s, s), np.uint32)  # the background: segment 1
+        segments = [{"id": 1, "category_id": classes + 1, "iscrowd": 0,
+                     "bbox": [0.0, 0.0, float(s), float(s)]}]
         for _ in range(rng.randint(3, 9)):
             c = int(rng.randint(classes))
             color = class_color(c, classes)
@@ -118,20 +156,36 @@ def write_dataset(root: str, images: int = 200, size: int = 640, classes: int = 
             if not mask.any():
                 continue
             img[mask] = col
+            bbox = [float(x0), float(y0), float(x1 - x0), float(y1 - y0)]
             annotations.append({
-                "id": aid, "image_id": i + 1, "category_id": c + 1,
-                "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                "id": aid, "image_id": i + 1, "category_id": c + 1, "bbox": bbox,
                 "area": float(mask.sum()), "iscrowd": 0, "segmentation": [polygon],
             })
             aid += 1
+            ids[mask] = len(segments) + 1
+            segments.append({"id": len(segments) + 1, "category_id": c + 1, "iscrowd": 0,
+                             "bbox": bbox})
         fn = f"{i + 1:012d}.npy"
         np.save(os.path.join(img_dir, fn), img)
         image_list.append({"id": i + 1, "file_name": fn, "height": s, "width": s})
+        if panoptic:
+            # areas after the objects painted over earlier ones
+            area = np.bincount(ids.reshape(-1), minlength=len(segments) + 1)
+            segments = [dict(seg, area=float(area[seg["id"]])) for seg in segments
+                        if area[seg["id"]]]
+            np.save(os.path.join(pan_dir, fn), ids)
+            np.save(os.path.join(sem_dir, fn), semantic_map(ids, segments, categories))
+            pan_annotations.append({"image_id": i + 1, "file_name": fn,
+                                    "segments_info": segments})
     data = {"images": image_list, "annotations": annotations,
-            "categories": [{"id": c + 1, "name": f"shape-{c}"} for c in range(classes)]}
+            "categories": [{"id": c["id"], "name": c["name"]} for c in categories[:-1]]}
     out = os.path.join(ann_dir, f"instances_{split}.json")
     with open(out, "w") as f:
         json.dump(data, f)
+    if panoptic:
+        with open(os.path.join(ann_dir, f"panoptic_{split}.json"), "w") as f:
+            json.dump({"images": image_list, "annotations": pan_annotations,
+                       "categories": categories}, f)
     return out
 
 
@@ -143,8 +197,11 @@ def main(argv=None):
     p.add_argument("--classes", type=int, default=20)
     p.add_argument("--split", default="train2017")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--panoptic", action="store_true",
+                   help="also write the panoptic id maps, json and semantic maps")
     args = p.parse_args(argv)
-    out = write_dataset(args.root, args.images, args.size, args.classes, args.split, args.seed)
+    out = write_dataset(args.root, args.images, args.size, args.classes, args.split, args.seed,
+                        args.panoptic)
     with open(out) as f:
         n_ann = len(json.load(f)["annotations"])
     print(f"{args.images} images, {n_ann} annotations -> {out}")
