@@ -16,6 +16,11 @@ result line):
    decoder hands it and on contiguous copies, with masks shared by the heads
    and per head, fully masked rows, a batch of two, and against the plain
    function that repeats the kernel's tiles and 3xTF32 products;
+4a. `test_canvases`: K1 and K3 at the test canvases of the Cityscapes
+   (1024x2048: K1 on 43008 queries, K3 on 32768 keys) and Mapillary Vistas
+   (1536x2048: 64512 and 49152) recipes, float32 and bfloat16, against their
+   plain versions at phase K1's and K3's limits, timed beside the bound and
+   SDPA;
 5. K2 (tap weighting) against its plain version at both call shapes of the
    800x1088 canvas, float32 and bfloat16, and at a ragged small shape;
 6. the row-gather kernels against their plain versions at the shapes of
@@ -151,7 +156,31 @@ result line):
     as phase 18 (3 steps, the launches a step, the second step's held against
     the plain versions), then `--eval-only --resume` on 4 images of
     `coco_2017_val_panoptic_with_sem_seg` at the recipe's thresholds: finite
-    PQ, mIoU and AP.
+    PQ, mIoU and AP;
+21. `write_segm` (slice 4, A16b): ADE20K (16 + 4 images of 512x683),
+    Cityscapes (8 + 4 of 1024x2048) and Mapillary Vistas (8 + 4 of
+    1536x2048) in their own layouts, `.npy` files, written by
+    `tools/make_synthetic_segm_torch.py` under `output/chip_smoke_segm/`
+    ($DETECTRON2_DATASETS of the whole run, so the builtin names read them);
+22. `eval_cityscapes`: the Cityscapes panoptic recipe at full width (19
+    classes, the vanilla decoder, the three TEST switches, seeded weights)
+    over the 4 val images, their ground truth (labelTrainIds, labelIds,
+    panoptic ids and json, instanceIds) rewritten from the model's own
+    plain-op predictions under `output/chip_smoke_cityscapes_oracle/`;
+    `run_evaluation` through the kernels (K1 6 and K3 9 launches an image):
+    PQ, the Cityscapes IoU and the Cityscapes AP at least 98; the seconds an
+    image of each part;
+23. `train_ade20k_sem`, `train_cityscapes_inst`, `train_mapillary_pan`: the
+    ADE20K semantic, Cityscapes instance and Mapillary Vistas panoptic
+    recipes through `train_net.main` as their YAML says (16 crops of
+    512x512 through `mask_former_semantic`, of 512x1024 through
+    `mask_former_instance` with the polygons of `_gtFine_polygons.json`, of
+    1024x1024 through `mask_former_panoptic`; colour augmentation,
+    WarmupPolyLR), as phase 18 (3 steps, the launches, the second step's held
+    against the plain versions), then `--eval-only --resume` on 4 val images
+    at the recipe's test size: finite mIoU; AP; PQ and mIoU (of
+    `mapillary_vistas_panoptic_val_with_sem_seg`; the recipe switches
+    instance inference off).
 
 Every training phase recomputes the pixel decoder's encoder layers in the
 backward, as the recipes' `TPU.REMAT_ENCODER` default says: K1 (or K2) runs
@@ -426,6 +455,102 @@ def phase_k3(torch, card: str) -> dict:
     return res
 
 
+# the canvases of the Cityscapes (1024x2048) and Mapillary Vistas (a 4:3
+# image at MIN_SIZE_TEST 2048 capped by MAX_SIZE_TEST 2048: 1536x2048) test
+# resolutions: K1's levels res5, res4, res3 (its queries are their pixels) and
+# K3's keys at the largest, the 1/8 level
+TEST_CANVASES = {"cityscapes": (1024, 2048), "mapillary": (1536, 2048)}
+
+
+def canvas_levels(h: int, w: int) -> list:
+    return [(h // s, w // s) for s in (32, 16, 8)]
+
+
+def phase_test_canvases(torch, card: str) -> dict:
+    """K1 and K3 at the test canvases of the Cityscapes and Mapillary Vistas
+    recipes, float32 and bfloat16, against their plain versions at the
+    limits of phases K1 and K3 (TOL): K1 on one image's 43008 and 64512
+    queries, K3 on 100 queries over the 1/8 level's 32768 and 49152 keys
+    with a mask shared by the heads, as the decoder hands it; each timed
+    beside its plain version, its bound and, for K3, SDPA."""
+    import torch.nn.functional as F
+
+    from mp_former_tpu_torch.ops import masked_attention_cuda as mac
+    from mp_former_tpu_torch.ops import msda_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    M, D, P, H, Q = 8, 32, 4, 8, 100
+    res = {}
+    for canvas, (h, w) in TEST_CANVASES.items():
+        shapes = canvas_levels(h, w)
+        L, S = len(shapes), sum(a * b for a, b in shapes)
+        value = torch.randn((1, S, M, D), generator=g, device="cuda")
+        loc = torch.rand((1, S, M, L, P, 2), generator=g, device="cuda") * 1.2 - 0.1
+        attn = torch.randn((1, S, M, L * P), generator=g, device="cuda").softmax(-1)
+        attn = attn.view(1, S, M, L, P)
+        sizes = torch.tensor([[b, a] for a, b in shapes], device="cuda").view(1, 1, 1, L, 1, 2)
+        base = (loc * sizes - 0.5).floor()
+        on_map = ((base >= -1) & (base <= sizes - 1)).all(-1).sum().item()
+        keys = shapes[-1][0] * shapes[-1][1]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            v, lo, a = (t.to(dtype).contiguous() for t in (value, loc, attn))
+            got = msda_cuda.msda_fwd(v, shapes, lo, a)
+            want = msda_cuda.ms_deform_attn_plain(v.float(), shapes, lo.float(), a.float())
+            torch.cuda.synchronize()
+            k1_err = (got.float() - want).abs().max().item()
+            del want
+            k1_t = timed(lambda: msda_cuda.msda_fwd(v, shapes, lo, a),
+                         lambda: msda_cuda.ms_deform_attn_plain(v, shapes, lo, a), plain_calls=2)
+            k1_b = bound(nbytes(v, lo, a, got), on_map * 5 * 2 * D, name)
+            log("test_canvases", kernel="K1", canvas=f"{canvas} {h}x{w}", dtype=name,
+                shape=f"B1xQ{S}xM{M}xD{D}xL{L}xP{P}", max_abs_err=f"{k1_err:.3e}",
+                tol=TOL[name], **fmt_times(k1_t), bound_ms=f"{k1_b['bound_ms']:.4f}",
+                bound_by=k1_b["bound_by"], card=repr(card))
+            del got
+            q, k, vv = (torch.randn((1, n, H * D), generator=g, device="cuda").to(dtype)
+                        .view(1, n, H, D).transpose(1, 2) for n in (Q, keys, keys))
+            mask = torch.rand((1, Q, keys), generator=g, device="cuda") < 0.7
+            mask[:, :5] = True  # fully masked rows
+            want = mac.masked_attention_plain(q.float(), k.float(), vv.float(), mask)
+            k3_err = (mac.masked_attn_fwd(q, k, vv, mask).float() - want).abs().max().item()
+            additive = torch.zeros((1, 1, Q, keys), dtype=dtype, device="cuda")
+            additive.masked_fill_(mask[:, None], -1e9)
+            lib_err = (F.scaled_dot_product_attention(q, k, vv, attn_mask=additive).float()
+                       - want).abs().max().item()
+            del want
+            k3_t = timed(lambda: mac.masked_attn_fwd(q, k, vv, mask),
+                         lambda: mac.masked_attention_plain(q, k, vv, mask),
+                         lambda: F.scaled_dot_product_attention(q, k, vv, attn_mask=additive),
+                         plain_calls=5)
+            flops = 4.0 * H * Q * keys * D
+            n_bytes = nbytes(q, k, vv, mask) + q.numel() * q.element_size()
+            k3_b = (bound(n_bytes, 3 * flops, "tf32") if dtype == torch.float32
+                    else bound(n_bytes, flops, name))
+            log("test_canvases", kernel="K3", canvas=f"{canvas} {h}x{w}", dtype=name,
+                shape=f"B1xH{H}xQ{Q}xS{keys}xD{D}", max_abs_err=f"{k3_err:.3e}",
+                library_max_abs_err=f"{lib_err:.3e}", tol=TOL[name], **fmt_times(k3_t),
+                bound_ms=f"{k3_b['bound_ms']:.5f}", bound_by=k3_b["bound_by"],
+                library="F.scaled_dot_product_attention", card=repr(card))
+            if not max(k1_err, k3_err, lib_err) <= TOL[name]:
+                raise AssertionError(f"test_canvases {canvas} {name}: K1 {k1_err}, K3 {k3_err}, "
+                                     f"SDPA {lib_err} against the plain versions, above "
+                                     f"{TOL[name]}")
+            res[("K1", canvas, name)] = {"queries": S, "max_abs_err": k1_err, **k1_t, **k1_b}
+            res[("K3", canvas, name)] = {"keys": keys, "max_abs_err": k3_err, **k3_t, **k3_b}
+            del q, k, vv, mask, additive
+        del value, loc, attn
+        torch.cuda.empty_cache()
+    log("test_canvases", ok=True)
+    return res
+
+
+def test_canvas_rows(res: dict, kernel: str) -> list:
+    """`phase_test_canvases`' measurements of one kernel, for the JSON line."""
+    return [{"canvas": canvas, "dtype": dtype, **row}
+            for (k, canvas, dtype), row in res.items() if k == kernel]
+
+
 def phase_k2(torch, card: str) -> dict:
     from mp_former_tpu_torch.ops import tap_weighting as tw
 
@@ -511,16 +636,20 @@ def phase_row_gather(torch, card: str) -> dict:
     return {"launches": launches, **res}
 
 
-def load_cfg(config: str, overrides):
+def load_cfg(config: str, overrides, released_decoder: bool = True):
+    """The recipe `config` with `overrides`; `released_decoder`: with the DN
+    decoder, as eval.sh runs the released recipe (the ADE20K, Cityscapes
+    and Mapillary Vistas recipes run their own, the vanilla one)."""
     from mp_former_tpu_torch.config import get_cfg, add_deeplab_config, add_maskformer2_config
 
     cfg = get_cfg()
     add_deeplab_config(cfg)
     add_maskformer2_config(cfg)
     cfg.merge_from_file(os.path.join(REPO, config))
-    # as eval.sh runs the released recipe
-    cfg.merge_from_list(["MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME",
-                         "MultiScaleMaskedTransformerDecoderMaskDN", *overrides])
+    if released_decoder:
+        cfg.merge_from_list(["MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME",
+                             "MultiScaleMaskedTransformerDecoderMaskDN"])
+    cfg.merge_from_list(list(overrides))
     cfg.freeze()
     return cfg
 
@@ -2310,8 +2439,20 @@ def phase_train_tpu_bs16(torch, card: str) -> dict:
     return launches
 
 
-def phase_train_net(torch, card: str, accum: int, config: str = CONFIG,
-                    phase: str = "") -> tuple:
+def default_scores(config: str):
+    """The scores an evaluation of `config`'s launcher prints: segm AP, and
+    for the COCO panoptic one PQ and mIoU."""
+    def scores(results):
+        out = {"segm_AP": results["segm"]["AP"]}
+        if config == PAN_CONFIG:
+            out.update(PQ=results.get("panoptic_seg", {}).get("All", {}).get("PQ", math.nan),
+                       mIoU=results.get("sem_seg", {}).get("mIoU", math.nan))
+        return out
+    return scores
+
+
+def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: str = "",
+                    recipe=RELEASED_SH, eval_overrides=(), scores=None) -> tuple:
     """The released recipe launched as its users launch it: `train_net.main`
     with the overrides of run_50ep_no_noise_all_ly.sh, full width and depth,
     its own batch (16 images, LSJ at 1024) from phase train_coco's dataset
@@ -2327,7 +2468,10 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG,
     run_50ep_no_noise_all_ly_panoptic.sh (the same overrides): 133 classes,
     `coco_panoptic_lsj` from the panoptic split of phase train_coco's
     dataset, and the evaluation of the val split with semantic ground truth
-    at the recipe's own thresholds also gives finite PQ and mIoU."""
+    at the recipe's own thresholds also gives finite PQ and mIoU. `recipe`:
+    the launcher's overrides of `config` (none for a recipe launched as its
+    YAML says), `eval_overrides` those of the evaluation only, `scores`
+    results -> the finite scores to print (`default_scores`)."""
     import shutil
 
     from torch.profiler import ProfilerActivity, profile
@@ -2340,7 +2484,7 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG,
     out_dir = os.path.join(REPO, "output", f"chip_smoke_{phase}")
     shutil.rmtree(out_dir, ignore_errors=True)
     opts = ["--config-file", os.path.join(REPO, config)]
-    overrides = [*RELEASED_SH, "SOLVER.MAX_ITER", str(TRAIN_NET_STEPS),
+    overrides = [*recipe, "SOLVER.MAX_ITER", str(TRAIN_NET_STEPS),
                  "TPU.GRAD_ACCUM_STEPS", str(accum), "SEED", str(SEED), "OUTPUT_DIR", out_dir]
     parse = train_net.default_argument_parser().parse_args
     seconds, busy = [], []
@@ -2383,7 +2527,11 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG,
     expected = {k: TRAIN_NET_STEPS * v for k, v in per_step.items()}
     with open(os.path.join(out_dir, "metrics.json")) as f:
         lines = [json.loads(x) for x in f.read().splitlines()]
-    log(phase, steps=TRAIN_NET_STEPS, batch=f"{BS16}x{BS16_SIZE}x{BS16_SIZE}", accum=accum,
+    cfg = load_cfg(config, overrides, released_decoder=False)
+    crop = (cfg.INPUT.CROP.SIZE if cfg.INPUT.CROP.ENABLED
+            else (cfg.INPUT.IMAGE_SIZE, cfg.INPUT.IMAGE_SIZE))
+    log(phase, steps=TRAIN_NET_STEPS, batch=f"{cfg.SOLVER.IMS_PER_BATCH}x{crop[0]}x{crop[1]}",
+        mapper=cfg.INPUT.DATASET_MAPPER_NAME, accum=accum,
         remat=remat, launches=launches, expected=expected)
     log(phase, steps_s=[f"{t:.4f}" for t in seconds[:-1]],
         profiled_last_step_s=f"{seconds[-1]:.4f}", device_busy_ms_last_step=f"{busy[0]:.1f}",
@@ -2398,16 +2546,16 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG,
         raise AssertionError(f"{phase}: metrics.json lines {lines}")
 
     reset_kernel_counts()
+    t0 = time.perf_counter()
     results = train_net.main(parse([*opts, "--eval-only", "--resume", "--max-eval-images",
-                                    str(TRAIN_NET_EVAL_IMAGES), *overrides]))
+                                    str(TRAIN_NET_EVAL_IMAGES), *overrides, *eval_overrides]))
+    eval_s = time.perf_counter() - t0
     launches_eval = kernel_counts(backward=True)
     expected_eval = {k: TRAIN_NET_EVAL_IMAGES * v for k, v in COCO_EVAL_EXPECTED.items()}
-    scores = {"segm_AP": results["segm"]["AP"]}
-    if config == PAN_CONFIG:
-        scores.update(PQ=results.get("panoptic_seg", {}).get("All", {}).get("PQ", math.nan),
-                      mIoU=results.get("sem_seg", {}).get("mIoU", math.nan))
+    scores = (scores or default_scores(config))(results)
     log(phase, evaluated=TRAIN_NET_EVAL_IMAGES, launches=launches_eval, expected=expected_eval,
-        results=sorted(results), **{k: f"{v:.4f}" for k, v in scores.items()}, card=repr(card))
+        results=sorted(results), **{k: f"{v:.4f}" for k, v in scores.items()},
+        eval_only_s=f"{eval_s:.2f}", card=repr(card))
     if launches_eval != expected_eval or not all(np.isfinite(v) for v in scores.values()):
         raise AssertionError(f"{phase}: evaluation launches {launches_eval}, expected "
                              f"{expected_eval}; {scores}")
@@ -2486,8 +2634,8 @@ def write_panoptic_oracle(torch, cfg, model, records) -> tuple:
     return sum(len(a["segments_info"]) for a in pan_annotations), len(instances)
 
 
-def postprocess_seconds(torch, cfg, model, records) -> dict:
-    """Mean host seconds an image of each part of a dataset evaluation,
+def postprocess_seconds(torch, cfg, model, records, dataset: str = PAN_ORACLE_NAME) -> dict:
+    """Mean host seconds an image of each part of `dataset`'s evaluation,
     synchronised after each: the forward, each task's post-processing on the
     card and the host (the panoptic one with its sequential merge loop), and
     each task's evaluator `process`."""
@@ -2498,9 +2646,9 @@ def postprocess_seconds(torch, cfg, model, records) -> dict:
 
     t = cfg.MODEL.MASK_FORMER.TEST
     k = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
-    is_thing = is_thing_array(cfg, MetadataCatalog.get(PAN_ORACLE_NAME))
+    is_thing = is_thing_array(cfg, MetadataCatalog.get(dataset))
     predictor = pred.Predictor(cfg, model=model, device="cuda", is_thing=is_thing)
-    evset = build_evaluator(cfg, PAN_ORACLE_NAME)
+    evset = build_evaluator(cfg, dataset)
     evset.reset()
     entries = {e.task: e for e in evset.entries}
     times = {}
@@ -2586,13 +2734,201 @@ def phase_eval_panoptic(torch, card: str) -> dict:
     return {"launches": launches, "PQ": pq, "mIoU": miou, "AP": ap, "seconds": parts}
 
 
+# slice 4 (A16b): the ADE20K, Cityscapes and Mapillary Vistas recipes on
+# datasets written by tools/make_synthetic_segm_torch.py under SEGM_ROOT, which
+# the builtin registrations read ($DETECTRON2_DATASETS, set by `main`)
+SEGM_ROOT = os.path.join(REPO, "output", "chip_smoke_segm")
+# (dataset, split, images, height, width, seed): each dataset's typical size
+SEGM_DATA = [("ade20k", "train", 16, 512, 683, SEED), ("ade20k", "val", 4, 512, 683, SEED + 1),
+             ("cityscapes", "train", 8, 1024, 2048, SEED),
+             ("cityscapes", "val", 4, 1024, 2048, SEED + 1),
+             ("mapillary", "train", 8, 1536, 2048, SEED),
+             ("mapillary", "val", 4, 1536, 2048, SEED + 1)]
+ADE_SEM_CONFIG = "configs/ade20k/semantic-segmentation/maskformer2_R50_bs16_160k.yaml"
+CS_INST_CONFIG = "configs/cityscapes/instance-segmentation/maskformer2_R50_bs16_90k.yaml"
+CS_PAN_CONFIG = "configs/cityscapes/panoptic-segmentation/maskformer2_R50_bs16_90k.yaml"
+MAP_PAN_CONFIG = "configs/mapillary-vistas/panoptic-segmentation/maskformer_R50_bs16_300k.yaml"
+CS_ORACLE_ROOT = os.path.join(REPO, "output", "chip_smoke_cityscapes_oracle")
+CS_ORACLE_NAME = "chip_smoke_cityscapes_oracle"
+CS_THING_BIAS = 3.0
+
+
+def phase_write_segm() -> dict:
+    """SEGM_DATA written by the tool; the builtin names of the three datasets
+    must read them."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mp_former_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
+    from mp_former_tpu_torch.data.datasets import builtin  # noqa: F401  (registration)
+    from tools.make_synthetic_segm_torch import write_dataset
+
+    shutil.rmtree(SEGM_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SEGM_DATA)) as pool:  # numpy leaves the GIL in its loops
+        list(pool.map(lambda spec: write_dataset(SEGM_ROOT, *spec), SEGM_DATA))
+    counts = {}
+    for name in ("ade20k_sem_seg_train", "cityscapes_fine_instance_seg_train",
+                 "cityscapes_fine_panoptic_val", "mapillary_vistas_panoptic_train",
+                 "mapillary_vistas_panoptic_val_with_sem_seg"):
+        root = MetadataCatalog.get(name).get("image_root")
+        if not root.startswith(SEGM_ROOT):
+            raise AssertionError(f"write_segm: {name} is registered at {root}")
+        counts[name] = len(DatasetCatalog.get(name))
+    log("write_segm", root=os.path.relpath(SEGM_ROOT, REPO), records=counts,
+        write_s=f"{time.perf_counter() - t0:.2f}")
+    return counts
+
+
+def write_cityscapes_oracle(torch, cfg, model, records) -> tuple:
+    """`records` (Cityscapes panoptic val records) with ground truth rewritten
+    from the model's own predictions through the plain ops at the oracle's
+    thresholds: labelTrainIds (the semantic argmax) and their labelIds, the
+    panoptic id maps and json (createPanopticImgs' layout, categories by
+    labelId), and instanceIds on which the instance predictions score AP 100
+    (`tools/make_synthetic_segm_torch.py:instance_ids_from_predictions`);
+    registered as CS_ORACLE_NAME over the same images. Returns (segments,
+    painted instances) counted."""
+    import shutil
+
+    from mp_former_tpu_torch.data.catalog import MetadataCatalog
+    from mp_former_tpu_torch.data.datasets.cityscapes_labels import EVAL_LABELS
+    from mp_former_tpu_torch.data.datasets.register_all import register_cityscapes_panoptic
+    from mp_former_tpu_torch.engine.eval_loop import read_image
+    from mp_former_tpu_torch.engine.predictor import Predictor
+    from mp_former_tpu_torch.evaluation.build import is_thing_array
+    from tools.make_synthetic_segm_torch import instance_ids_from_predictions
+
+    meta = MetadataCatalog.get("cityscapes_fine_panoptic_val")
+    predictor = Predictor(cfg, model=model, device="cuda", is_thing=is_thing_array(cfg, meta))
+    shutil.rmtree(CS_ORACLE_ROOT, ignore_errors=True)
+    gt_root = os.path.join(CS_ORACLE_ROOT, "gtFine")
+    pan_dir = os.path.join(gt_root, "cityscapes_panoptic_val")
+    os.makedirs(pan_dir)
+    label_ids = np.array([lab.id for lab in EVAL_LABELS], np.uint8)
+    thing_label_ids = np.array([lab.id if lab.hasInstances else -1 for lab in EVAL_LABELS])
+    images, annotations, predictions, stems = [], [], [], []
+    for rec in records:
+        with plain_ops():
+            out = predictor(read_image(rec), (rec["height"], rec["width"]),
+                            tasks=["instance", "semantic", "panoptic"], sem_seg_labels=True)
+        stem = os.path.basename(rec["file_name"])[: -len("_leftImg8bit.npy")]
+        city = stem.split("_")[0]
+        os.makedirs(os.path.join(gt_root, "val", city), exist_ok=True)
+        base = os.path.join(gt_root, "val", city, stem + "_gtFine_")
+        sem = out["sem_seg"].astype(np.uint8)
+        np.save(base + "labelTrainIds.npy", sem)
+        np.save(base + "labelIds.npy", label_ids[sem])
+        pan_map, segments = out["panoptic_seg"]
+        np.save(os.path.join(pan_dir, stem + "_gtFine_panoptic.npy"), pan_map.astype(np.uint32))
+        images.append({"id": stem, "file_name": stem + "_leftImg8bit.png",
+                       "height": rec["height"], "width": rec["width"]})
+        annotations.append({"image_id": stem, "file_name": stem + "_gtFine_panoptic.png",
+                            "segments_info": [
+                                {"id": seg["id"], "category_id": int(label_ids[seg["category_id"]]),
+                                 "iscrowd": 0, "area": int((pan_map == seg["id"]).sum())}
+                                for seg in segments]})
+        inst = out["instances"]
+        predictions.append((inst["scores"], inst["classes"], inst["masks"]))
+        stems.append(base)
+    for base, ids in zip(stems, instance_ids_from_predictions(predictions, thing_label_ids)):
+        np.save(base + "instanceIds.npy", ids)
+    painted = sum(len(np.unique(np.load(b + "instanceIds.npy"))) - 1 for b in stems)
+    categories = [{"id": lab.id, "name": lab.name, "isthing": int(lab.hasInstances)}
+                  for lab in EVAL_LABELS]
+    with open(os.path.join(gt_root, "cityscapes_panoptic_val.json"), "w") as f:
+        json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
+    register_cityscapes_panoptic(CS_ORACLE_NAME, meta.get("image_root"), gt_root, "val")
+    return sum(len(a["segments_info"]) for a in annotations), painted
+
+
+def phase_eval_cityscapes(torch, card: str) -> dict:
+    """Slice 4 (A16b), scored: the Cityscapes panoptic recipe at full width
+    (19 classes, the vanilla decoder, the three TEST switches, seeded
+    weights) over the 4 synthetic 1024x2048 val images, their ground truth
+    rewritten from the model's own plain-op predictions
+    (`write_cityscapes_oracle`), the thing classes' bias raised by
+    CS_THING_BIAS; `run_evaluation` through the kernels,
+    counted (K1 6 and K3 9 launches an image): PQ, the Cityscapes IoU and
+    the Cityscapes AP at least PAN_ORACLE_MIN; then each part's seconds an
+    image (`postprocess_seconds`)."""
+    from mp_former_tpu_torch.data.catalog import DatasetCatalog
+    from mp_former_tpu_torch.data.datasets.cityscapes_labels import EVAL_LABELS
+    from mp_former_tpu_torch.engine.eval_loop import run_evaluation
+
+    cfg = load_cfg(CS_PAN_CONFIG, PAN_ORACLE_OVERRIDES, released_decoder=False)
+    t = cfg.MODEL.MASK_FORMER.TEST
+    if (cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, cfg.MODEL.MASK_FORMER.NUM_OBJECT_QUERIES,
+            cfg.MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME, t.PANOPTIC_ON, t.INSTANCE_ON,
+            t.SEMANTIC_ON) != (19, 100, "MultiScaleMaskedTransformerDecoder", True, True, True):
+        raise AssertionError("eval_cityscapes: the recipe changed")
+    model = seeded_model(torch, cfg).to("cuda").eval()
+    # at the seeded init all 100 instance predictions are of stuff classes,
+    # which the Cityscapes AP leaves out: the class head's bias of the 8
+    # thing classes is raised, so that the instance task has things to score
+    things = torch.tensor([lab.hasInstances for lab in EVAL_LABELS] + [False], device="cuda")
+    with torch.no_grad():
+        model.sem_seg_head.predictor.class_embed.bias[things] += CS_THING_BIAS
+    records = DatasetCatalog.get("cityscapes_fine_panoptic_val")
+    t0 = time.perf_counter()
+    n_segments, n_instances = write_cityscapes_oracle(torch, cfg, model, records)
+    log("eval_cityscapes", images=len(records), canvas="1024x2048", oracle_segments=n_segments,
+        oracle_instances=n_instances, write_s=f"{time.perf_counter() - t0:.2f}")
+    if n_segments == 0 or n_instances == 0:
+        raise AssertionError(f"eval_cityscapes: the plain ops made {n_segments} segments and "
+                             f"{n_instances} instances: the oracle would be vacuous")
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        results = run_evaluation(cfg, model, CS_ORACLE_NAME)
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts(backward=True)
+    expected = {k: len(records) * v for k, v in COCO_EVAL_EXPECTED.items()}
+    pq, iou, ap = (results["panoptic_seg"]["All"]["PQ"], results["sem_seg"]["IoU"],
+                   results["segm"]["AP"])
+    log("eval_cityscapes", launches=launches, expected=expected, PQ=f"{pq:.4f}",
+        IoU=f"{iou:.4f}", iIoU=f"{results['sem_seg']['iIoU']:.4f}", AP=f"{ap:.4f}",
+        AP50=f"{results['segm']['AP50']:.4f}", minimum=PAN_ORACLE_MIN,
+        s_per_image=f"{seconds / len(records):.4f}", card=repr(card))
+    if launches != expected:
+        raise AssertionError(f"eval_cityscapes: kernel launches {launches}, expected {expected}")
+    if not min(pq, iou, ap) >= PAN_ORACLE_MIN:
+        raise AssertionError(f"eval_cityscapes: PQ {pq}, IoU {iou}, AP {ap} through the kernels "
+                             f"against the plain ops' own predictions, below {PAN_ORACLE_MIN}")
+    parts = postprocess_seconds(torch, cfg, model, records, CS_ORACLE_NAME)
+    log("eval_cityscapes", seconds_per_image={k: f"{v:.4f}" for k, v in parts.items()},
+        canvas="1024x2048", card=repr(card))
+    restore_kernel_counts(launches)
+    log("eval_cityscapes", ok=True)
+    return {"launches": launches, "PQ": pq, "IoU": iou, "AP": ap, "seconds": parts}
+
+
+# the three recipes launched as their users launch them (no overrides but the
+# run's length, seed and directory): one of each mapper kind at its own batch
+SEGM_TRAIN = {
+    "train_ade20k_sem": (ADE_SEM_CONFIG, (), lambda r: {"mIoU": r["sem_seg"]["mIoU"]}),
+    "train_cityscapes_inst": (CS_INST_CONFIG, (), lambda r: {"AP": r["segm"]["AP"],
+                                                             "AP50": r["segm"]["AP50"]}),
+    # the split with the semantic ground truth the reference's records carry;
+    # the recipe switches instance inference off (INSTANCE_ON False): no AP
+    "train_mapillary_pan": (MAP_PAN_CONFIG,
+                            ("DATASETS.TEST", "('mapillary_vistas_panoptic_val_with_sem_seg',)"),
+                            lambda r: {"PQ": r["panoptic_seg"]["All"]["PQ"],
+                                       "mIoU": r["sem_seg"]["mIoU"]}),
+}
+
+
 def main() -> int:
     import torch
 
     card = phase_device(torch)
+    # the builtin registrations (imported by the first training phase) read the
+    # ADE20K, Cityscapes and Mapillary Vistas datasets of phase write_segm
+    os.environ["DETECTRON2_DATASETS"] = SEGM_ROOT
     phase_build()
     k1 = phase_k1(torch, card)
     k3 = phase_k3(torch, card)
+    canvases = phase_test_canvases(torch, card)
     k2 = phase_k2(torch, card)
     gather = phase_row_gather(torch, card)
     # reference numerics: float32 convolutions and matmuls in full float32
@@ -2658,20 +2994,30 @@ def main() -> int:
     train_net_paths["train_panoptic"], train_net_paths["train_panoptic_eval"] = \
         phase_train_net(torch, card, 1, PAN_CONFIG, "train_panoptic")
     torch.cuda.empty_cache()
+    # slice 4 (A16b): ADE20K, Cityscapes and Mapillary Vistas
+    phase_write_segm()
+    eval_cityscapes = phase_eval_cityscapes(torch, card)
+    torch.cuda.empty_cache()
+    for phase, (config, eval_overrides, scores) in SEGM_TRAIN.items():
+        train_net_paths[phase], train_net_paths[phase + "_eval"] = phase_train_net(
+            torch, card, 1, config, phase, recipe=(), eval_overrides=eval_overrides,
+            scores=scores)
+        torch.cuda.empty_cache()
     by_path = {"slice": s1, "slice2": s2, "tap_weighting_route": route, "train": train,
                "train_coco": train_coco, "slice_bf16": s1_bf16, "slice2_bf16": s2_bf16,
                "eval_bf16": eval_bf16, "train_bf16": train_bf16, "train_tpu": train_tpu,
                "train_tpu_bf16": train_tpu_bf16, "accum": accum, "remat": remat,
                "train_tpu_bs16": train_tpu_bs16, "eval_panoptic": eval_panoptic["launches"],
-               **train_net_paths}
+               "eval_cityscapes": eval_cityscapes["launches"], **train_net_paths}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",
          "replaces": "mp_former_tpu/ops/msda_pallas.py:134", "launches": s1["msda_fwd"],
-         **k1["float32"]},
+         **k1["float32"], "at_test_canvases": test_canvas_rows(canvases, "K1")},
         {"name": "masked_attn_fwd", "route": "cuda", "source": csrc + "masked_attn_fwd.cu",
          "replaces": "mp_former_tpu/ops/fused_masked_attention.py:63",
-         "launches": s1["masked_attn_fwd"], **k3["float32"]},
+         "launches": s1["masked_attn_fwd"], **k3["float32"],
+         "at_test_canvases": test_canvas_rows(canvases, "K3")},
         {"name": "tap_weight_fwd", "route": "cuda", "source": csrc + "tap_weight_fwd.cu",
          "replaces": "mp_former_tpu/ops/tap_weighting.py:244", "launches": s2["tap_weight_fwd"],
          **k2[("headshare", "float32")]},

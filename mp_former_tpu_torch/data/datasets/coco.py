@@ -1,6 +1,8 @@
 """COCO-format dataset loading without pycocotools (the record loader and the
 `coco_2017_*` registration of `mp_former_tpu/data/datasets/coco.py`; the
-other datasets are not registered in the port yet).
+ADE20K instance splits are registered through it by `register_all.py`).
+An image the json names `<stem>.jpg` is read from `<stem>.npy` where only
+that is on disk (the `.npy` rule of `register_all.py`).
 
 Produces d2-style per-image records: {file_name, height, width, image_id,
 annotations: [{bbox (xywh), category_id (contiguous), segmentation,
@@ -15,6 +17,7 @@ from collections import defaultdict
 from typing import Dict, List, Optional
 
 from ..catalog import DatasetCatalog, MetadataCatalog
+from .register_all import existing
 
 
 def load_coco_json(json_file: str, image_root: str,
@@ -47,7 +50,7 @@ def load_coco_json(json_file: str, image_root: str,
             # keep the split directory, as d2's LVIS loader does
             fname = "/".join(img["coco_url"].split("/")[-2:])
         rec = {
-            "file_name": os.path.join(image_root, fname),
+            "file_name": existing(os.path.join(image_root, fname)),
             "height": img["height"],
             "width": img["width"],
             "image_id": img["id"],

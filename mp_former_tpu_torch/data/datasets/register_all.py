@@ -1,15 +1,29 @@
-"""COCO panoptic registrations (the port's copy of the COCO panoptic part of
-`mp_former_tpu/data/datasets/register_all.py:62-130,251-272`; reference
-register_coco_panoptic_annos_semseg.py and d2's builtin coco_2017_*_panoptic).
-The ADE20K, Cityscapes and Mapillary registrations wait for a later slice of
-the port (ROADMAP A16b).
+"""Dataset registrations beyond COCO instances (the port's copy of
+`mp_former_tpu/data/datasets/register_all.py`; reference register_*.py and
+the d2 builtins it relies on): COCO panoptic (with semantic ground truth),
+ADE20K semantic, instance and panoptic, Cityscapes semantic, instance and
+panoptic, Mapillary Vistas semantic and panoptic, ADE20K-full and
+COCO-stuff-10k, in the standard d2 layout under $DETECTRON2_DATASETS. LVIS
+(`lvis_v1_*`) is not registered yet (ROADMAP A16c).
 
-Records: {file_name, pan_seg_file_name, segments_info (contiguous category
-ids), image_id, height, width}, with `sem_seg_file_name` where a semantic root
-is given and the instance `annotations` where an instance json is found.
-The id maps and semantic maps may be `.npy` arrays of the same stem
-(`tools/make_synthetic_coco_torch.py --panoptic`): the file names come from
-the panoptic json.
+Every registration sets `evaluator_type` to the value the reference's
+build_evaluator dispatches on (reference train_net.py:142-222) and carries
+the class, colour and isthing tables (`metadata.py`).
+
+Records: panoptic ones {file_name, pan_seg_file_name, segments_info
+(contiguous category ids), image_id, height, width}, with `sem_seg_file_name`
+where a semantic root is given and the instance `annotations` where an
+instance json is found; semantic ones {file_name, sem_seg_file_name,
+image_id, height None, width None}; Cityscapes instance ones with the
+polygons of `_gtFine_polygons.json` as `annotations` and the
+`instance_id_file` / `label_id_file` the evaluators read.
+
+The `.npy` rule (a machine without an image decoder): wherever a file of a
+pair is named `<stem><ext>` (an image, a semantic map, an id map, a
+`_gtFine_instanceIds` or `_gtFine_labelIds` map), `<stem>.npy` serves in its
+place when the file itself is missing: images (H, W, 3) uint8 BGR, maps
+(H, W) integers. On a tree of PNG and JPEG files the records equal the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -19,6 +33,74 @@ import os
 from typing import Dict, List, Optional
 
 from ..catalog import DatasetCatalog, MetadataCatalog
+from . import metadata as M
+from .builtin_meta import ADE20K_150_CLASSES
+from .cityscapes_labels import EVAL_LABELS, INSTANCE_LABELS
+
+
+def npy_twin(path: str) -> str:
+    """`path` with its extension replaced by `.npy` (`x_leftImg8bit.png` ->
+    `x_leftImg8bit.npy`)."""
+    return os.path.splitext(path)[0] + ".npy"
+
+
+def existing(path: str) -> str:
+    """`path`, or its `.npy` twin where only the twin is on disk."""
+    if not os.path.isfile(path):
+        twin = npy_twin(path)
+        if os.path.isfile(twin):
+            return twin
+    return path
+
+
+def _paired_images(files: List[str], image_ext: str):
+    """(file, stem) of each image among `files` (sorted): a name ending in
+    `image_ext`, or in its `.npy` twin where no `image_ext` file has the
+    same stem."""
+    twin_ext = image_ext[: image_ext.rfind(".")] + ".npy"  # ".jpg" -> ".npy"
+    names = set(files)
+    for f in sorted(files):
+        if f.endswith(image_ext):
+            yield f, f[: -len(image_ext)]
+        elif f.endswith(twin_ext) and f[: -len(twin_ext)] + image_ext not in names:
+            yield f, f[: -len(twin_ext)]
+
+
+def _file_pair_records(image_dir: str, gt_dir: str, image_ext: str,
+                       gt_ext: str, gt_key: str) -> List[dict]:
+    """Images paired with the ground truth file of the same stem, recursing
+    into subdirectories (Cityscapes nests a folder a city)
+    (`mp_former_tpu/data/datasets/register_all.py:22-46`, with the `.npy`
+    rule)."""
+    records = []
+    if not os.path.isdir(image_dir):
+        return records
+    i = 0
+    for cur, _dirs, files in sorted(os.walk(image_dir)):
+        rel = os.path.relpath(cur, image_dir)
+        for f, base in _paired_images(files, image_ext):
+            gt = os.path.join(gt_dir, rel, base + gt_ext) if rel != "." \
+                else os.path.join(gt_dir, base + gt_ext)
+            records.append({
+                "file_name": os.path.join(cur, f),
+                gt_key: existing(gt),
+                "image_id": i,
+                "height": None,
+                "width": None,
+            })
+            i += 1
+    return records
+
+
+def register_sem_seg(name: str, image_dir: str, gt_dir: str, classes: List[str],
+                     ignore_label: int = 255, image_ext: str = ".jpg", gt_ext: str = ".png",
+                     evaluator_type: str = "sem_seg", **extra_meta) -> None:
+    DatasetCatalog.register(
+        name, lambda: _file_pair_records(image_dir, gt_dir, image_ext, gt_ext,
+                                         "sem_seg_file_name"))
+    MetadataCatalog.get(name).set(
+        stuff_classes=classes, ignore_label=ignore_label, evaluator_type=evaluator_type,
+        image_root=image_dir, sem_seg_root=gt_dir, **extra_meta)
 
 
 def load_coco_panoptic_json(json_file: str, image_root: str, pan_root: str,
@@ -52,8 +134,9 @@ def load_coco_panoptic_json(json_file: str, image_root: str, pan_root: str,
     for ann in data["annotations"]:
         img = img_by_id[ann["image_id"]]
         rec = {
-            "file_name": os.path.join(image_root, img["file_name"].replace(".png", ".jpg")),
-            "pan_seg_file_name": os.path.join(pan_root, ann["file_name"]),
+            "file_name": existing(
+                os.path.join(image_root, img["file_name"].replace(".png", ".jpg"))),
+            "pan_seg_file_name": existing(os.path.join(pan_root, ann["file_name"])),
             "segments_info": [dict(s, category_id=id_map[s["category_id"]])
                               for s in ann["segments_info"]],
             "image_id": ann["image_id"],
@@ -61,7 +144,7 @@ def load_coco_panoptic_json(json_file: str, image_root: str, pan_root: str,
             "width": img["width"],
         }
         if semseg_root:
-            rec["sem_seg_file_name"] = os.path.join(semseg_root, ann["file_name"])
+            rec["sem_seg_file_name"] = existing(os.path.join(semseg_root, ann["file_name"]))
         if ann["image_id"] in anns_by_img:
             rec["annotations"] = anns_by_img[ann["image_id"]]
         records.append(rec)
@@ -99,3 +182,256 @@ def register_all_coco_panoptic(root: Optional[str] = None) -> None:
                 semseg_root=os.path.join(root, f"coco/panoptic_semseg_{split}"),
                 instances_json=os.path.join(root, f"coco/annotations/instances_{split}.json"),
                 ignore_label=255)
+
+
+# ---------------------------------------------------------------------------
+# Cityscapes (the reference uses the d2 builtins cityscapes_fine_{instance_seg,
+# sem_seg,panoptic}_{train,val})
+# ---------------------------------------------------------------------------
+
+def _poly_bbox(points) -> List[float]:
+    xs = [p[0] for p in points]
+    ys = [p[1] for p in points]
+    return [min(xs), min(ys), max(xs) - min(xs), max(ys) - min(ys)]
+
+
+def load_cityscapes_instances(image_dir: str, gt_dir: str) -> List[dict]:
+    """Instance records from the gtFine polygon annotations (d2
+    load_cityscapes_instances; `mp_former_tpu/data/datasets/
+    register_all.py:133-185`): `category_id` is the contiguous thing index
+    (8 classes), a label with the suffix "group" is a crowd region of its
+    class, and the `_gtFine_instanceIds` / `_gtFine_labelIds` maps of the
+    official evaluation are attached."""
+    name_to_contig = {lab.name: i for i, lab in enumerate(INSTANCE_LABELS)}
+    records = []
+    if not os.path.isdir(image_dir):
+        return records
+    i = 0
+    for cur, _dirs, files in sorted(os.walk(image_dir)):
+        rel = os.path.relpath(cur, image_dir)
+        for f, base in _paired_images(files, "_leftImg8bit.png"):
+            gtp = os.path.join(gt_dir, rel, base + "_gtFine_polygons.json")
+            rec = {
+                "file_name": os.path.join(cur, f),
+                "image_id": i,
+                "instance_id_file": existing(
+                    os.path.join(gt_dir, rel, base + "_gtFine_instanceIds.png")),
+                "label_id_file": existing(
+                    os.path.join(gt_dir, rel, base + "_gtFine_labelIds.png")),
+                "height": 1024,
+                "width": 2048,
+            }
+            i += 1
+            annos = []
+            if os.path.isfile(gtp):
+                with open(gtp) as fh:
+                    poly = json.load(fh)
+                rec["height"] = poly.get("imgHeight", 1024)
+                rec["width"] = poly.get("imgWidth", 2048)
+                for obj in poly.get("objects", []):
+                    label = obj["label"]
+                    iscrowd = 0
+                    if label not in name_to_contig and label.endswith("group"):
+                        label = label[: -len("group")]
+                        iscrowd = 1
+                    if label not in name_to_contig:
+                        continue
+                    annos.append({
+                        "category_id": name_to_contig[label],
+                        "segmentation": [[float(v) for pt in obj["polygon"] for v in pt]],
+                        "iscrowd": iscrowd,
+                        "bbox": _poly_bbox(obj["polygon"]),
+                    })
+            rec["annotations"] = annos
+            records.append(rec)
+    return records
+
+
+def register_cityscapes_instance(name: str, image_dir: str, gt_dir: str) -> None:
+    DatasetCatalog.register(name, lambda: load_cityscapes_instances(image_dir, gt_dir))
+    MetadataCatalog.get(name).set(
+        evaluator_type="cityscapes_instance",
+        thing_classes=[lab.name for lab in INSTANCE_LABELS],
+        image_root=image_dir, gt_root=gt_dir)
+
+
+def _cityscapes_stem(file_name: str) -> str:
+    """`<city>_<seq>_<frame>` of an image or panoptic file name:
+    createPanopticImgs writes `<city>_<seq>_<frame>_leftImg8bit.png`, so both
+    suffixes are stripped before one is added again."""
+    stem = os.path.basename(file_name)
+    for suf in (".jpg", ".png", ".npy"):
+        if stem.endswith(suf):
+            stem = stem[: -len(suf)]
+    for suf in ("_gtFine_panoptic", "_leftImg8bit"):
+        if stem.endswith(suf):
+            stem = stem[: -len(suf)]
+    return stem
+
+
+def register_cityscapes_panoptic(name: str, image_dir: str, gt_dir: str, split: str) -> None:
+    """cityscapes_fine_panoptic_* from gtFine/cityscapes_panoptic_{split}*
+    (cityscapesscripts createPanopticImgs; `mp_former_tpu/data/datasets/
+    register_all.py:203-245`): the image, labelTrainIds, instanceIds and
+    labelIds files are the city-nested siblings of the json's names."""
+    json_file = os.path.join(gt_dir, f"cityscapes_panoptic_{split}.json")
+    pan_root = os.path.join(gt_dir, f"cityscapes_panoptic_{split}")
+
+    def load():
+        if not os.path.isfile(json_file):
+            return []
+        recs = load_coco_panoptic_json(json_file, image_dir, pan_root, name)
+        for r in recs:
+            stem = _cityscapes_stem(r["file_name"])
+            city = stem.split("_")[0]
+            gt = os.path.join(gt_dir, split, city, stem)
+            r["file_name"] = existing(
+                os.path.join(image_dir, split, city, stem + "_leftImg8bit.png"))
+            r["sem_seg_file_name"] = existing(gt + "_gtFine_labelTrainIds.png")
+            r["instance_id_file"] = existing(gt + "_gtFine_instanceIds.png")
+            r["label_id_file"] = existing(gt + "_gtFine_labelIds.png")
+        return recs
+
+    DatasetCatalog.register(name, load)
+    MetadataCatalog.get(name).set(
+        evaluator_type="cityscapes_panoptic_seg",
+        panoptic_json=json_file, panoptic_root=pan_root,
+        stuff_classes=[lab.name for lab in EVAL_LABELS],
+        thing_classes=[lab.name for lab in EVAL_LABELS if lab.hasInstances],
+        thing_map={lab.trainId: lab.hasInstances for lab in EVAL_LABELS},
+        ignore_label=255, image_root=image_dir, gt_root=gt_dir)
+
+
+# ---------------------------------------------------------------------------
+
+def register_all(root: Optional[str] = None) -> None:
+    """COCO panoptic, ADE20K (semantic, instance, panoptic), Cityscapes
+    (semantic, instance, panoptic) and Mapillary Vistas panoptic in the
+    standard layout under `root` ($DETECTRON2_DATASETS, else `datasets`;
+    `mp_former_tpu/data/datasets/register_all.py:248-371` less LVIS, ROADMAP
+    A16c); a name already registered is left as it is."""
+    from .coco import register_coco_instances
+
+    root = root or os.environ.get("DETECTRON2_DATASETS", "datasets")
+    register_all_coco_panoptic(root)
+
+    # ADE20K semantic (SceneParsing-150)
+    for split, dirn in (("train", "training"), ("val", "validation")):
+        name = f"ade20k_sem_seg_{split}"
+        if name not in DatasetCatalog:
+            register_sem_seg(
+                name, os.path.join(root, f"ADEChallengeData2016/images/{dirn}"),
+                os.path.join(root, f"ADEChallengeData2016/annotations_detectron2/{dirn}"),
+                ADE20K_150_CLASSES, stuff_colors=M.ade20k_150_meta()["stuff_colors"])
+
+    # ADE20K instance (reference register_ade20k_instance.py:41-50)
+    ade_inst_meta = M.ade20k_instance_meta()
+    for split, dirn in (("train", "training"), ("val", "validation")):
+        name = f"ade20k_instance_{split}"
+        if name not in DatasetCatalog:
+            register_coco_instances(
+                name, os.path.join(root, f"ADEChallengeData2016/ade20k_instance_{split}.json"),
+                os.path.join(root, f"ADEChallengeData2016/images/{dirn}"))
+            MetadataCatalog.get(name).set(**ade_inst_meta)
+
+    # Cityscapes semantic / instance / panoptic
+    for split in ("train", "val"):
+        img = os.path.join(root, f"cityscapes/leftImg8bit/{split}")
+        gt = os.path.join(root, f"cityscapes/gtFine/{split}")
+        name = f"cityscapes_fine_sem_seg_{split}"
+        if name not in DatasetCatalog:
+            register_sem_seg(
+                name, img, gt, [lab.name for lab in EVAL_LABELS],
+                image_ext="_leftImg8bit.png", gt_ext="_gtFine_labelTrainIds.png",
+                evaluator_type="cityscapes_sem_seg",
+                gt_root=os.path.join(root, "cityscapes/gtFine"))
+        name = f"cityscapes_fine_instance_seg_{split}"
+        if name not in DatasetCatalog:
+            register_cityscapes_instance(name, img, gt)
+        name = f"cityscapes_fine_panoptic_{split}"
+        if name not in DatasetCatalog:
+            register_cityscapes_panoptic(name, os.path.join(root, "cityscapes/leftImg8bit"),
+                                         os.path.join(root, "cityscapes/gtFine"), split)
+
+    # ADE20K panoptic and Mapillary Vistas panoptic (reference
+    # register_ade20k_panoptic.py, register_mapillary_vistas_panoptic.py)
+    ade_pan_meta = M.ade20k_150_meta()
+    map_pan_meta = M.mapillary_panoptic_meta()
+    for name, (jf, ir, pr, et, meta) in {
+        "ade20k_panoptic_train": (
+            "ADEChallengeData2016/ade20k_panoptic_train.json",
+            "ADEChallengeData2016/images/training", "ADEChallengeData2016/ade20k_panoptic_train",
+            "ade20k_panoptic_seg", ade_pan_meta),
+        "ade20k_panoptic_val": (
+            "ADEChallengeData2016/ade20k_panoptic_val.json",
+            "ADEChallengeData2016/images/validation", "ADEChallengeData2016/ade20k_panoptic_val",
+            "ade20k_panoptic_seg", ade_pan_meta),
+        "mapillary_vistas_panoptic_train": (
+            "mapillary_vistas/training/panoptic/panoptic_2018.json",
+            "mapillary_vistas/training/images", "mapillary_vistas/training/panoptic",
+            "mapillary_vistas_panoptic_seg", map_pan_meta),
+        "mapillary_vistas_panoptic_val": (
+            "mapillary_vistas/validation/panoptic/panoptic_2018.json",
+            "mapillary_vistas/validation/images", "mapillary_vistas/validation/panoptic",
+            "mapillary_vistas_panoptic_seg", map_pan_meta),
+    }.items():
+        kw = dict(meta)
+        split = "train" if name.endswith("train") else "val"
+        if "ade20k" in name:
+            semseg_root = os.path.join(root, "ADEChallengeData2016/annotations_detectron2",
+                                       "training" if split == "train" else "validation")
+            instances_json = os.path.join(root, f"ADEChallengeData2016/ade20k_instance_{split}.json")
+            kw.update(sem_seg_root=semseg_root, ignore_label=255)
+        else:
+            semseg_root = os.path.join(root, os.path.dirname(ir), "labels")
+            instances_json = None
+            kw["ignore_label"] = 65
+        args = (os.path.join(root, jf), os.path.join(root, ir), os.path.join(root, pr))
+        # the names the JAX package registers: records without semantic (or
+        # instance) ground truth (ROADMAP §C)
+        if name not in DatasetCatalog:
+            register_coco_panoptic(name, *args, evaluator_type=et, **kw)
+        # the reference's records (register_ade20k_panoptic.py,
+        # register_mapillary_vistas_panoptic.py) carry the semantic maps, and
+        # ADE20K's the instances of ade20k_instance_<split>.json, as the COCO
+        # *_with_sem_seg names do
+        if name + "_with_sem_seg" not in DatasetCatalog:
+            kw["sem_seg_root"] = semseg_root
+            register_coco_panoptic(name + "_with_sem_seg", *args, evaluator_type=et,
+                                   semseg_root=semseg_root, instances_json=instances_json, **kw)
+
+
+def register_more(root: Optional[str] = None) -> None:
+    """ADE20K-full (847 classes), COCO-stuff-10k and Mapillary Vistas
+    semantic (reference register_ade20k_full.py, register_coco_stuff_10k.py,
+    register_mapillary_vistas.py; `mp_former_tpu/data/datasets/
+    register_all.py:374-420`), with the class tables of `metadata.py`."""
+    root = root or os.environ.get("DETECTRON2_DATASETS", "datasets")
+    map_meta = M.mapillary_sem_seg_meta()
+    map_extra = {"stuff_colors": map_meta["stuff_colors"]}
+    specs = {
+        "ade20k_full_sem_seg_train": (
+            "ADE20K_2021_17_01/images_detectron2/training",
+            "ADE20K_2021_17_01/annotations_detectron2/training",
+            M.ade20k_full_classes(), 65535, {}),
+        "ade20k_full_sem_seg_val": (
+            "ADE20K_2021_17_01/images_detectron2/validation",
+            "ADE20K_2021_17_01/annotations_detectron2/validation",
+            M.ade20k_full_classes(), 65535, {}),
+        "coco_2017_train_stuff_10k_sem_seg": (
+            "coco_stuff_10k/images_detectron2/train", "coco_stuff_10k/annotations_detectron2/train",
+            M.coco_stuff_171_classes(), 255, {}),
+        "coco_2017_test_stuff_10k_sem_seg": (
+            "coco_stuff_10k/images_detectron2/test", "coco_stuff_10k/annotations_detectron2/test",
+            M.coco_stuff_171_classes(), 255, {}),
+        "mapillary_vistas_sem_seg_train": (
+            "mapillary_vistas/training/images", "mapillary_vistas/training/labels",
+            map_meta["stuff_classes"], 65, map_extra),
+        "mapillary_vistas_sem_seg_val": (
+            "mapillary_vistas/validation/images", "mapillary_vistas/validation/labels",
+            map_meta["stuff_classes"], 65, map_extra),
+    }
+    for name, (img, gt, classes, ignore, extra) in specs.items():
+        if name not in DatasetCatalog:
+            register_sem_seg(name, os.path.join(root, img), os.path.join(root, gt), classes,
+                             ignore_label=ignore, **extra)

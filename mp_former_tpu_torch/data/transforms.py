@@ -1,8 +1,12 @@
-"""Host-side augmentations of the LSJ recipe (the parts of
-`mp_former_tpu/data/transforms.py` that `coco_instance_lsj` and
-`coco_panoptic_lsj` need): RandomFlip -> ResizeScale(MIN_SCALE..MAX_SCALE of
-IMAGE_SIZE) -> FixedSizeCrop (IMAGE_SIZE^2, padded with 128), as d2's
-transforms the reference uses.
+"""Host-side augmentations (the port's copy of `mp_former_tpu/data/
+transforms.py`), as d2's transforms the reference uses:
+
+- the LSJ recipe (`coco_instance_lsj`, `coco_panoptic_lsj`): RandomFlip ->
+  ResizeScale(MIN_SCALE..MAX_SCALE of IMAGE_SIZE) -> FixedSizeCrop
+  (IMAGE_SIZE^2, padded with 128);
+- the semantic recipe (`mask_former_semantic`, `_panoptic`, `_instance`):
+  ResizeShortestEdge (+ flip), the crops of `dataset_mappers/
+  mask_former_mappers.py`, ColorAugSSD.
 
 A transform is drawn as a `TransformRecord`, which re-applies the geometric
 map to coordinates, polygons, masks and the image. The draws from the
@@ -19,6 +23,7 @@ Integer maps (masks, panoptic id maps, semantic maps) are resized by
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -89,6 +94,74 @@ def lsj_transform(
         flip=do_flip, src_w=img_w,
         scale_x=new_w / img_w, scale_y=new_h / img_h,
         tx=-off_w, ty=-off_h, out_h=image_size, out_w=image_size)
+
+
+def resize_shortest_edge(
+    rng: Optional[np.random.RandomState],
+    img_h: int,
+    img_w: int,
+    short_edge_length: Sequence[int],
+    max_size: int = 1333,
+    sample_style: str = "choice",
+    flip: bool = False,
+) -> TransformRecord:
+    """d2 ResizeShortestEdge geometry (+ an optional flip): the short side
+    drawn from `short_edge_length` ("choice") or from its closed range
+    ("range"), the long side capped at `max_size`; without `rng` the first
+    length and no flip (`mp_former_tpu/data/transforms.py:116-144`)."""
+    if sample_style == "range":
+        size = int(rng.randint(min(short_edge_length), max(short_edge_length) + 1))
+    else:
+        size = int(short_edge_length[rng.randint(len(short_edge_length))]) if rng is not None \
+            else int(short_edge_length[0])
+    scale = size / min(img_h, img_w)
+    if img_h < img_w:
+        new_h, new_w = size, scale * img_w
+    else:
+        new_h, new_w = scale * img_h, size
+    if max(new_h, new_w) > max_size:
+        s = max_size / max(new_h, new_w)
+        new_h, new_w = new_h * s, new_w * s
+    new_h = int(new_h + 0.5)
+    new_w = int(new_w + 0.5)
+    do_flip = random_flip(rng, flip) if rng is not None else False
+    return TransformRecord(
+        flip=do_flip, src_w=img_w, scale_x=new_w / img_w, scale_y=new_h / img_h,
+        tx=0.0, ty=0.0, out_h=new_h, out_w=new_w)
+
+
+def color_aug_ssd(rng: np.random.RandomState, img: np.ndarray) -> np.ndarray:
+    """SSD-style photometric distortion (d2 ColorAugSSDTransform as the JAX
+    package has it, `mp_former_tpu/data/transforms.py:170-199`): brightness,
+    then contrast and saturation in a random order, each applied with
+    probability 1/2, in float32; (H, W, 3) uint8 in and out."""
+    img = img.astype(np.float32)
+
+    def brightness(x):
+        if rng.randint(2):
+            x = x + rng.uniform(-32, 32)
+        return x
+
+    def contrast(x):
+        if rng.randint(2):
+            x = x * rng.uniform(0.5, 1.5)
+        return x
+
+    def saturation(x):
+        if rng.randint(2):
+            gray = x @ np.array([0.299, 0.587, 0.114], np.float32)
+            alpha = rng.uniform(0.5, 1.5)
+            x = x * alpha + gray[..., None] * (1 - alpha)
+        return x
+
+    img = brightness(img)
+    if rng.randint(2):
+        img = contrast(img)
+        img = saturation(img)
+    else:
+        img = saturation(img)
+        img = contrast(img)
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def apply_record_to_image(img: np.ndarray, rec: TransformRecord,

@@ -1,52 +1,46 @@
 """Evaluator factory keyed on a dataset's `evaluator_type` metadata (the
 reference's Trainer.build_evaluator, train_net.py:142-222;
-`mp_former_tpu/evaluation/build.py`), for the types the port evaluates:
+`mp_former_tpu/evaluation/build.py`):
 
-| evaluator_type    | evaluators (gated by MASK_FORMER.TEST.*)                       |
-|-------------------|----------------------------------------------------------------|
-| coco              | COCO instance (not gated on INSTANCE_ON, as in the reference)  |
-| coco_panoptic_seg | PQ (PANOPTIC_ON) + COCO instance (INSTANCE_ON) + SemSeg (SEMANTIC_ON, where the records carry `sem_seg_file_name`) |
+| evaluator_type                | evaluators (gated by MASK_FORMER.TEST.*)                                  |
+|-------------------------------|---------------------------------------------------------------------------|
+| sem_seg                       | SemSeg (not gated, as in the reference)                                   |
+| coco                          | COCO instance (not gated on INSTANCE_ON, as in the reference)             |
+| coco_panoptic_seg             | PQ (PANOPTIC_ON) + COCO instance (INSTANCE_ON) + SemSeg (SEMANTIC_ON, where the records carry `sem_seg_file_name`) |
+| ade20k_panoptic_seg           | SemSeg (not gated) + PQ (PANOPTIC_ON) + InstanceSeg (INSTANCE_ON)         |
+| mapillary_vistas_panoptic_seg | PQ (PANOPTIC_ON) + InstanceSeg (INSTANCE_ON) + SemSeg (SEMANTIC_ON, where the records carry ground truth) |
+| cityscapes_instance           | CityscapesInstance (the official protocol)                                |
+| cityscapes_sem_seg            | CityscapesSemSeg (IoU, iIoU)                                              |
+| cityscapes_panoptic_seg       | PQ (PANOPTIC_ON) + CityscapesSemSeg (SEMANTIC_ON) + CityscapesInstance (INSTANCE_ON) |
 
-Every other type (sem_seg, ADE20K, Mapillary Vistas, Cityscapes, LVIS)
-raises NotImplementedError: they wait for a later slice of the port (ROADMAP
-A16b). One model forward serves every evaluator of a set: `EvaluatorSet.tasks`
+`lvis` raises NotImplementedError: LVIS evaluation waits for ROADMAP A16c.
+One model forward serves every evaluator of a set: `EvaluatorSet.tasks`
 names the post-processings ("instance", "semantic", "panoptic") the
-evaluation loop must produce.
+evaluation loop must produce. The Cityscapes evaluators take the record
+(they read its `_gtFine` maps); the others an image id or a ground truth
+map.
 """
 
 from __future__ import annotations
 
 import logging
-import os
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..data.dataset_mappers.mask_former_mappers import read_label_map
+from .cityscapes_eval import CityscapesInstanceEvaluator, CityscapesSemSegEvaluator
 from .coco_eval import COCOEvaluator
-from .evaluators import COCOPanopticEvaluator, SemSegEvaluator
+from .evaluators import COCOPanopticEvaluator, InstanceSegEvaluator, SemSegEvaluator
 
 logger = logging.getLogger(__name__)
 
 
 def _load_sem_seg_gt(record: dict) -> Optional[np.ndarray]:
     """The record's semantic ground truth, (H, W) class ids with the ignore
-    label: `np.load` where the path ends in `.npy`, else decoded with cv2
-    (the first channel of a colour PNG); None without a path or a readable
-    file."""
-    path = record.get("sem_seg_file_name")
-    if not path:
-        return None
-    if path.endswith(".npy"):
-        return np.load(path) if os.path.isfile(path) else None
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(f"decoding {path!r} needs cv2, which is not installed; give the "
-                          "semantic maps as .npy files instead") from e
-    gt = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if gt is None:
-        return None
-    return gt[..., 0] if gt.ndim == 3 else gt
+    label (`read_label_map`: `.npy` or a PNG's first channel); None without a
+    path or a readable file."""
+    return read_label_map(record.get("sem_seg_file_name"))
 
 
 class _Entry:
@@ -59,9 +53,15 @@ class _Entry:
     def process(self, record: dict, data) -> None:
         if self.task == "instance":
             scores, classes, masks = data
-            self.evaluator.process(record["image_id"], scores, classes,
-                                   [masks[i] for i in range(masks.shape[0])])
+            masks = [masks[i] for i in range(masks.shape[0])]
+            if isinstance(self.evaluator, CityscapesInstanceEvaluator):
+                self.evaluator.process(record, scores, classes, masks)
+            else:
+                self.evaluator.process(record["image_id"], scores, classes, masks)
         elif self.task == "semantic":  # data: the (H, W) argmax over the classes
+            if isinstance(self.evaluator, CityscapesSemSegEvaluator):
+                self.evaluator.process(data, record)
+                return
             gt = _load_sem_seg_gt(record)
             if gt is None:
                 logger.warning("no sem_seg ground truth for image %s; skipped",
@@ -107,47 +107,92 @@ def is_thing_array(cfg, meta) -> np.ndarray:
     return np.array([thing_map.get(i, True) for i in range(cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)])
 
 
+def cityscapes_thing_index(meta, num_classes: int) -> Optional[np.ndarray]:
+    """The model's class -> contiguous Cityscapes thing index (-1: no thing)
+    where the dataset's `thing_map` names the things among the model's
+    classes (the panoptic registration's 19 trainIds); None where the
+    classes are the thing indices already (the instance registration)."""
+    thing_map = meta.get("thing_map")
+    if not thing_map:
+        return None
+    index = np.full(num_classes, -1, np.int64)
+    things = sorted(c for c, is_thing in thing_map.items() if is_thing and c < num_classes)
+    index[things] = np.arange(len(things))
+    return index
+
+
 def build_evaluator(cfg, dataset_name: str, records: Optional[List[dict]] = None) -> EvaluatorSet:
-    """The evaluators of `dataset_name`'s `evaluator_type`; raises
-    NotImplementedError for a type the port does not evaluate yet, or when
-    the switches leave no evaluator."""
+    """The evaluators of `dataset_name`'s `evaluator_type`, in the JAX
+    package's order (`mp_former_tpu/evaluation/build.py:134-224`); raises
+    NotImplementedError for `lvis` (ROADMAP A16c), for a dataset without an
+    `evaluator_type`, or when the switches leave no evaluator."""
     from ..data.catalog import DatasetCatalog, MetadataCatalog
 
     meta = MetadataCatalog.get(dataset_name)
     et = meta.get("evaluator_type")
     if et is None:
         raise NotImplementedError(f"no evaluator_type registered for dataset {dataset_name}")
-    if et not in ("coco", "coco_panoptic_seg"):
+    if et == "lvis":
         raise NotImplementedError(
-            f"the port has no evaluator for the dataset {dataset_name} of the type {et} yet "
-            "(semantic, ADE20K, Mapillary Vistas, Cityscapes and LVIS evaluation: ROADMAP A16b)")
+            f"the port has no LVIS evaluator yet (dataset {dataset_name}): ROADMAP A16c")
     if records is None:
         records = DatasetCatalog.get(dataset_name)
     test_cfg = cfg.MODEL.MASK_FORMER.TEST
+    num_classes = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+    ignore = meta.get("ignore_label", cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE)
+    entries: List[_Entry] = []
 
-    def coco_instance():
-        return _Entry("instance", COCOEvaluator(records, max_dets=cfg.TEST.DETECTIONS_PER_IMAGE))
-
-    if et == "coco":
-        # instance segmentation, not gated on INSTANCE_ON (reference train_net.py:164-166)
-        return EvaluatorSet([coco_instance()])
-    entries = []
-    if test_cfg.PANOPTIC_ON:  # reference :167-177
-        entries.append(_Entry("panoptic", COCOPanopticEvaluator(meta.get("thing_map", {}) or {})))
-    if test_cfg.INSTANCE_ON:  # :178-182
-        entries.append(coco_instance())
-    if test_cfg.SEMANTIC_ON:
+    def sem(require_gt: bool = False):
         # the reference appends SemSegEvaluator unconditionally; a panoptic split
         # registered without semantic ground truth (coco_*_panoptic instead of
         # *_with_sem_seg) would score 0 images into a NaN mIoU: skip it instead
-        if records and not records[0].get("sem_seg_file_name"):
+        if require_gt and records and not records[0].get("sem_seg_file_name"):
             logger.warning("%s has no sem_seg_file_name ground truth; skipping the semantic "
                            "evaluator (use the *_with_sem_seg registration for mIoU)",
                            dataset_name)
-        else:
-            ignore = meta.get("ignore_label", cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE)
-            entries.append(_Entry("semantic", SemSegEvaluator(
-                cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, ignore)))
+            return
+        entries.append(_Entry("semantic", SemSegEvaluator(num_classes, ignore)))
+
+    def coco_inst(cls=COCOEvaluator):
+        entries.append(_Entry("instance", cls(records, max_dets=cfg.TEST.DETECTIONS_PER_IMAGE)))
+
+    def cityscapes_inst():
+        entries.append(_Entry("instance", CityscapesInstanceEvaluator(
+            thing_index=cityscapes_thing_index(meta, num_classes))))
+
+    # semantic segmentation (reference :156-163, not gated on SEMANTIC_ON)
+    if et in ("sem_seg", "ade20k_panoptic_seg"):
+        sem()
+    # instance segmentation (:164-166, not gated on INSTANCE_ON)
+    if et == "coco":
+        coco_inst()
+    # panoptic segmentation (:167-177)
+    if et in ("coco_panoptic_seg", "ade20k_panoptic_seg", "cityscapes_panoptic_seg",
+              "mapillary_vistas_panoptic_seg") and test_cfg.PANOPTIC_ON:
+        entries.append(_Entry("panoptic", COCOPanopticEvaluator(meta.get("thing_map", {}) or {})))
+    # COCO panoptic extras (:178-182)
+    if et == "coco_panoptic_seg" and test_cfg.INSTANCE_ON:
+        coco_inst()
+    if et == "coco_panoptic_seg" and test_cfg.SEMANTIC_ON:
+        sem(require_gt=True)
+    # Mapillary Vistas extras (:183-188)
+    if et == "mapillary_vistas_panoptic_seg" and test_cfg.INSTANCE_ON:
+        coco_inst(InstanceSegEvaluator)
+    if et == "mapillary_vistas_panoptic_seg" and test_cfg.SEMANTIC_ON:
+        sem(require_gt=True)
+    # Cityscapes (:189-209)
+    if et == "cityscapes_instance":
+        cityscapes_inst()
+    if et == "cityscapes_sem_seg":
+        entries.append(_Entry("semantic", CityscapesSemSegEvaluator()))
+    if et == "cityscapes_panoptic_seg":
+        if test_cfg.SEMANTIC_ON:
+            entries.append(_Entry("semantic", CityscapesSemSegEvaluator()))
+        if test_cfg.INSTANCE_ON:
+            cityscapes_inst()
+    # ADE20K instance (:210-212)
+    if et == "ade20k_panoptic_seg" and test_cfg.INSTANCE_ON:
+        coco_inst(InstanceSegEvaluator)
     if not entries:
         raise NotImplementedError(
             f"no evaluator for the dataset {dataset_name} of the type {et} with the enabled "

@@ -9,7 +9,11 @@ evaluate), after `mp_former_tpu/evaluation/evaluators.py:79-158`:
   matrix, the ignore label counted in the extra row and column (d2's
   SemSegEvaluator).
 
-The instance evaluator is `coco_eval.COCOEvaluator`.
+The instance evaluator is `coco_eval.COCOEvaluator`; `InstanceSegEvaluator`,
+which ADE20K and Mapillary Vistas panoptic evaluation name, is the same class,
+as in the JAX package (`mp_former_tpu/evaluation/evaluators.py:76`): the
+reference's only relaxes the contiguous-id checks of d2's
+(instance_evaluation.py:29-107), and ids are arbitrary here already.
 """
 
 from __future__ import annotations
@@ -20,7 +24,10 @@ import numpy as np
 
 from ..data.dataset_mappers.coco_panoptic_new_baseline import read_id_map
 from ..data.transforms import resize_nearest
+from .coco_eval import COCOEvaluator
 from .panoptic_eval import PanopticEvaluator
+
+InstanceSegEvaluator = COCOEvaluator
 
 
 class COCOPanopticEvaluator:

@@ -116,8 +116,9 @@ def evaluate(cfg, model, max_images=None) -> dict:
     """Every DATASETS.TEST entry through `run_evaluation` (d2's
     DefaultTrainer.test), keyed by dataset name where there are several: the
     merged results of the dataset's evaluators ({"segm": ...} for COCO
-    instances; {"panoptic_seg", "segm", "sem_seg"} for COCO panoptic with the
-    three TEST switches on)."""
+    instances and Cityscapes AP; {"sem_seg": ...} for mIoU, or the Cityscapes
+    IoU and iIoU; {"panoptic_seg", "segm", "sem_seg"} for a panoptic dataset
+    with the three TEST switches on)."""
     from .data.datasets import builtin  # noqa: F401  (registration)
     from .engine.eval_loop import run_evaluation
 
@@ -130,8 +131,8 @@ def evaluate(cfg, model, max_images=None) -> dict:
             continue
         results.update(r if len(cfg.DATASETS.TEST) == 1 else {name: r})
     if not results:
-        logger.warning("no eval task ran: the port evaluates COCO instance and COCO panoptic "
-                       "datasets so far (the others: ROADMAP A16b)")
+        logger.warning("no eval task ran: the port evaluates every evaluator type of the "
+                       "recipes but LVIS (ROADMAP A16c)")
     return results
 
 

@@ -24,11 +24,6 @@ SWIN = {f"MODEL.SWIN.{k}" for k in (
     "APE", "DEPTHS", "DROP_PATH_RATE", "EMBED_DIM", "MLP_RATIO", "NUM_HEADS", "OUT_FEATURES",
     "PATCH_NORM", "PATCH_SIZE", "QKV_BIAS", "QK_SCALE", "USE_CHECKPOINT", "WINDOW_SIZE")}
 SET_ASIDE = {
-    # A16b: the semantic, panoptic and instance mappers of ADE20K, Cityscapes and
-    # Mapillary Vistas (mask_former_mappers.py)
-    "A16b": {"INPUT.COLOR_AUG_SSD", "INPUT.CROP.ENABLED", "INPUT.CROP.SINGLE_CATEGORY_MAX_AREA",
-             "INPUT.CROP.SIZE", "INPUT.CROP.TYPE", "INPUT.MAX_SIZE_TRAIN", "INPUT.MIN_SIZE_TRAIN",
-             "INPUT.MIN_SIZE_TRAIN_SAMPLING", "INPUT.SIZE_DIVISIBILITY"},
     "A17 Swin": SWIN,
     # A18: StandardTransformerDecoder's encoder, the DN_RATIO modes
     "A18": {"MODEL.MASK_FORMER.ENC_LAYERS", "MODEL.MASK_FORMER.DN_RATIO"},

@@ -98,8 +98,8 @@ def _cfgs(overrides):
 def test_build_evaluator_matches_jax_under_every_switch(caplog):
     """The task lists of both packages for each of the 8 combinations; a
     split without semantic ground truth skips the semantic evaluator with a
-    warning; where no evaluator is left both raise. Every other type raises in the
-    port and names A16b."""
+    warning; where no evaluator is left both raise. LVIS raises in the port
+    and names A16c."""
     records = [{"image_id": 0, "height": 4, "width": 4, "annotations": [],
                 "pan_seg_file_name": "x.npy", "segments_info": []}]
     with_gt = [dict(records[0], sem_seg_file_name="y.npy")]
@@ -128,9 +128,9 @@ def test_build_evaluator_matches_jax_under_every_switch(caplog):
             assert [e.task for e in got.entries] == [e.task for e in want.entries]
             if name.endswith("no_gt") and bits & 4:
                 assert "semantic" not in got.tasks and "no sem_seg_file_name" in caplog.text
-    MetadataCatalog.get("torch_pan_build_ade").set(evaluator_type="ade20k_panoptic_seg")
-    with pytest.raises(NotImplementedError, match="A16b"):
-        build_evaluator(tcfg, "torch_pan_build_ade", records)
+    MetadataCatalog.get("torch_pan_build_lvis").set(evaluator_type="lvis")
+    with pytest.raises(NotImplementedError, match="A16c"):
+        build_evaluator(tcfg, "torch_pan_build_lvis", records)
 
 
 @pytest.fixture(scope="module")

@@ -120,10 +120,11 @@ def test_trainer_closes_its_loader_when_a_step_raises(dataset, tmp_path, monkeyp
 
 
 def test_test_skips_datasets_the_port_cannot_evaluate(dataset, tmp_path, caplog):
-    MetadataCatalog.get("torch_trainer_semseg").set(evaluator_type="sem_seg")
-    if "torch_trainer_semseg" not in DatasetCatalog:
-        DatasetCatalog.register("torch_trainer_semseg", lambda: [])
-    cfg = _cfg(tmp_path, ["DATASETS.TEST", "('torch_trainer_semseg', 'not_registered')"])
+    # LVIS is the one evaluator type the port does not evaluate yet (ROADMAP A16c)
+    MetadataCatalog.get("torch_trainer_lvis").set(evaluator_type="lvis")
+    if "torch_trainer_lvis" not in DatasetCatalog:
+        DatasetCatalog.register("torch_trainer_lvis", lambda: [])
+    cfg = _cfg(tmp_path, ["DATASETS.TEST", "('torch_trainer_lvis', 'not_registered')"])
     trainer = Trainer(cfg, train_loader=iter(()), model=_seeded_model(cfg), device="cpu")
     trainer.model.eval()
     with caplog.at_level(logging.WARNING):
@@ -131,7 +132,7 @@ def test_test_skips_datasets_the_port_cannot_evaluate(dataset, tmp_path, caplog)
     assert "ROADMAP A16" in caplog.text and "not_registered not registered" in caplog.text
     assert not trainer.model.training
     # two datasets: results keyed by name
-    cfg2 = _cfg(tmp_path, ["DATASETS.TEST", "('torch_trainer_val', 'torch_trainer_semseg')"])
+    cfg2 = _cfg(tmp_path, ["DATASETS.TEST", "('torch_trainer_val', 'torch_trainer_lvis')"])
     trainer.cfg = cfg2
     res = trainer.test(max_images=1)
     assert set(res) == {"torch_trainer_val"} and np.isfinite(res["torch_trainer_val"]["segm"]["AP"])
