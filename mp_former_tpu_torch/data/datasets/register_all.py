@@ -375,30 +375,19 @@ def register_all(root: Optional[str] = None) -> None:
             "mapillary_vistas/validation/images", "mapillary_vistas/validation/panoptic",
             "mapillary_vistas_panoptic_seg", map_pan_meta),
     }.items():
-        kw = dict(meta)
-        split = "train" if name.endswith("train") else "val"
-        if "ade20k" in name:
-            semseg_root = os.path.join(root, "ADEChallengeData2016/annotations_detectron2",
-                                       "training" if split == "train" else "validation")
-            instances_json = os.path.join(root, f"ADEChallengeData2016/ade20k_instance_{split}.json")
-            kw.update(sem_seg_root=semseg_root, ignore_label=255)
-        else:
-            semseg_root = os.path.join(root, os.path.dirname(ir), "labels")
-            instances_json = None
-            kw["ignore_label"] = 65
-        args = (os.path.join(root, jf), os.path.join(root, ir), os.path.join(root, pr))
-        # the names the JAX package registers: records without semantic (or
-        # instance) ground truth (ROADMAP §C)
+        # records without semantic (or instance) ground truth, as the JAX
+        # package registers them (ROADMAP §C)
         if name not in DatasetCatalog:
-            register_coco_panoptic(name, *args, evaluator_type=et, **kw)
-        # the reference's records (register_ade20k_panoptic.py,
-        # register_mapillary_vistas_panoptic.py) carry the semantic maps, and
-        # ADE20K's the instances of ade20k_instance_<split>.json, as the COCO
-        # *_with_sem_seg names do
-        if name + "_with_sem_seg" not in DatasetCatalog:
-            kw["sem_seg_root"] = semseg_root
-            register_coco_panoptic(name + "_with_sem_seg", *args, evaluator_type=et,
-                                   semseg_root=semseg_root, instances_json=instances_json, **kw)
+            kw = dict(meta)
+            if "ade20k" in name:
+                kw["sem_seg_root"] = os.path.join(
+                    root, "ADEChallengeData2016/annotations_detectron2",
+                    "training" if name.endswith("train") else "validation")
+                kw["ignore_label"] = 255
+            else:
+                kw["ignore_label"] = 65
+            register_coco_panoptic(name, os.path.join(root, jf), os.path.join(root, ir),
+                                   os.path.join(root, pr), evaluator_type=et, **kw)
 
 
 def register_more(root: Optional[str] = None) -> None:

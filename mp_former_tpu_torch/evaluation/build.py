@@ -148,7 +148,7 @@ def build_evaluator(cfg, dataset_name: str, records: Optional[List[dict]] = None
         # *_with_sem_seg) would score 0 images into a NaN mIoU: skip it instead
         if require_gt and records and not records[0].get("sem_seg_file_name"):
             logger.warning("%s has no sem_seg_file_name ground truth; skipping the semantic "
-                           "evaluator (use the *_with_sem_seg registration for mIoU)",
+                           "evaluator (COCO's *_with_sem_seg registrations carry it)",
                            dataset_name)
             return
         entries.append(_Entry("semantic", SemSegEvaluator(num_classes, ignore)))

@@ -95,12 +95,12 @@ def test_vanilla_decoder_forward_and_losses_match_jax(pair):
 
     jcrit, tcrit = jax_build_criterion(jcfg), build_criterion(tcfg)
     rng = jax.random.PRNGKey(3)
-    costs = jcrit.layer_costs(want, jt, rng)[0]
+    costs = jax.jit(lambda o, t, r: jcrit.layer_costs(o, t, r)[0])(want, jt, rng)
     l, b, q, n = costs.shape
     assignments = _lsa_host(np.asarray(costs).reshape(l * b, q, n)).reshape(l, b, n)
     num_masks = float(np.asarray(jt.valid).sum())
-    jlosses = jcrit(want, jt, rng, num_masks=jnp.float32(num_masks),
-                    assignments=jnp.asarray(assignments))
+    jlosses = jax.jit(lambda o, t, r, nm, a: jcrit(o, t, r, num_masks=nm, assignments=a))(
+        want, jt, rng, jnp.float32(num_masks), jnp.asarray(assignments))
     tlosses = tcrit(got, tt, None, num_masks=torch.tensor(num_masks),
                     assignments=torch.from_numpy(assignments.astype(np.int64)))
     # 4 layers x ce, mask, dice, and the DN keys at 0 (the reference's loss schema)
