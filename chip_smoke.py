@@ -49,11 +49,12 @@ result line):
     the bfloat16 TPU recipe, segm AP through the kernels within 0.5 of AP
     through the plain ops, the float32 AP beside them;
 11. K1's backward kernel against `ms_deform_attn_backward_plain` and against
-    autograd of the plain forward, at the 800x1088 canvas and at the training
-    shape (B = 8, 512x512), model-like locations with some off the map,
-    float32, bfloat16, and a bfloat16 value with float32 locations and
-    weights (what a bfloat16 model hands them); the forward kernel at the
-    same shapes against its plain version, timed beside its bound;
+    autograd of the plain forward, at the 800x1088 canvas, at the training
+    shape (B = 8, 512x512) and at the released batch's (B = 16, 1024x1024),
+    model-like locations with some off the map, float32, bfloat16, and a
+    bfloat16 value with float32 locations and weights (what a bfloat16 model
+    hands them); the forward kernel at the same shapes against its plain
+    version, timed beside its bound;
 12. K3's backward kernel against `masked_attention_backward_plain`, against
     autograd of the plain forward and against the plain function that repeats
     its tiled arithmetic, at the training shapes (B = 8, Q = 120, S = 256 /
@@ -238,6 +239,7 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # grad_loc may miss on one entry in 100000.
 AUTOGRAD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 TRAIN_SHAPES = [(16, 16), (32, 32), (64, 64)]   # res5, res4, res3 of a 512x512 image
+BS16_SHAPES = [(32, 32), (64, 64), (128, 128)]  # and of the released batch's 1024x1024
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_MAX_INSTANCES = 8, 512, 20
 # the released training recipe, as run_50ep_no_noise_all_ly.sh sets it
 TRAIN_OVERRIDES = ["MODEL.MASK_FORMER.DN_MODE", "points", "MODEL.DN.NUM_DN", "1",
@@ -1069,7 +1071,8 @@ def phase_k1_bwd(torch, card: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     M, D, P = 8, 32, 4
     res = {}
-    for case, B, shapes in (("canvas", 1, MSDA_SHAPES), ("train", TRAIN_BATCH, TRAIN_SHAPES)):
+    for case, B, shapes in (("canvas", 1, MSDA_SHAPES), ("train", TRAIN_BATCH, TRAIN_SHAPES),
+                            ("bs16", 16, BS16_SHAPES)):
         L = len(shapes)
         S = sum(h * w for h, w in shapes)
         value = torch.randn((B, S, M, D), generator=g, device="cuda")
@@ -1108,9 +1111,10 @@ def phase_k1_bwd(torch, card: str) -> dict:
             loc_miss = ((got[1].float() - auto[1]).abs()
                         > AUTOGRAD_TOL[name] * auto[1].abs().max()).float().mean().item()
             del want, auto, out, leaves
+            # the plain backward gathers 48 taps a query: ~17 GB at bs16, one call a graph
             times = timed(lambda: msda_cuda.msda_bwd(go, v, shapes, lo, a),
                           lambda: msda_cuda.ms_deform_attn_backward_plain(go, v, shapes, lo, a),
-                          plain_calls=2)
+                          plain_calls=1 if case == "bs16" else 2)
             # per tap on the map: the dot product with g and the add of w * g
             bnd = bound(nbytes(go, v, lo, a, got[1], got[2]) + v.numel() * 4,
                         on_map * 4 * 4 * D, name)
@@ -3166,7 +3170,8 @@ def main() -> int:
         {"name": "msda_bwd", "route": "cuda", "source": csrc + "msda_bwd.cu",
          "replaces": "mp_former_tpu/ops/msda_pallas.py:249 (the VJP of the kernel at :134, "
                      "a recompute through XLA)",
-         "launches": train["msda_bwd"], **k1_bwd[("train", "float32")]},
+         "launches": train["msda_bwd"], **k1_bwd[("train", "float32")],
+         "at_bs16": k1_bwd[("bs16", "float32")]},
         {"name": "masked_attn_bwd", "route": "cuda", "source": csrc + "masked_attn_bwd.cu",
          "replaces": "mp_former_tpu/ops/fused_masked_attention.py:63 (no VJP: training takes "
                      "the einsum branch, mp_former_tpu/models/transformer_decoder/"

@@ -56,11 +56,20 @@
 // What the adds cost, and what did not help (tools/probe_torch_msda_bwd_bound.py
 // on an H100 at the training shape): without any add to grad_value the kernel
 // takes about a third of its time, and with plain stores instead of atomics
-// ~90%: the bytes written into the L2, not the atomics, bound it. Blocks that
-// own 2-D tiles of tokens, and taps binned by pixel in shared memory with one
-// add a pixel and block (tools/probe_torch_msda_bwd_binned.cu), measured no
-// faster and slower than this design: the binning's bookkeeping costs about
-// what the adds it saves cost.
+// ~90%: the bytes written into the L2, not the atomics, bound it. Summing the
+// taps on chip did not pay. Blocks that own 2-D tiles of tokens, and taps
+// binned by pixel in shared memory with one add a pixel and block, measured
+// no faster and slower (the binning's bookkeeping costs about what the adds
+// it saves cost). Blocks that own a tile of the image on every level and sum
+// the taps near it in shared-memory windows, flushed once
+// (tools/probe_torch_msda_bwd_windows.cu), measured slower too: 93% of the
+// adds land in a window, but sm_90 has no float add on shared memory, and the
+// compare-and-swap loops it takes cost about what the atomics into the L2
+// cost. The same windows summed on the tensor cores instead (a scalar a tap
+// into A, window pixels x the block's queries; A G and V Gᵀ by mma.sync in
+// 3xTF32: tools/probe_torch_msda_bwd_mma.cu) measured 4x slower: A is mostly
+// zeros, and zeroing, filling and reading it pass by pass costs more on its
+// own than this kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -84,7 +84,8 @@ def _port_modules():
                 mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
     return sorted(mods) + ["chip_smoke", "tools.probe_torch_row_gather",
                            "tools.profile_torch_slice", "tools.make_synthetic_coco_torch",
-                           "tools.make_synthetic_segm_torch"]
+                           "tools.make_synthetic_segm_torch", "tools.probe_torch_msda_bwd_bound",
+                           "tools.probe_torch_msda_bwd_windows"]
 
 
 def test_port_imports_no_jax():

@@ -1120,3 +1120,66 @@ def test_k2_sampling_routes_train_on_the_card(cuda, dtype, tol, route):
     for name, leaf, y in zip(("value", "locations", "weights"), leaves, want):
         assert leaf.grad.dtype == leaf.dtype, name
         assert _rel(leaf.grad.cpu(), y) <= tol, (name, _rel(leaf.grad.cpu(), y))
+
+
+# K1 backward on locations that load its adds in other ways: four levels of
+# one size, every point 30 pixels off its token, every point of a level on one
+# pixel (all adds of a level on one row), Q != S, and the released batch's
+# launch (B = 16, 1024x1024, M = 8).
+def _bwd_case(device, case, B=2, M=4, P=4):
+    from mp_former_tpu_torch.models.pixel_decoder.msdeformattn import _reference_points
+
+    shapes = {"four_levels": [(32, 32)] * 4, "bs16": [(32, 32), (64, 64), (128, 128)]}.get(
+        case, [(64, 64), (32, 32), (16, 16)])
+    B = 16 if case == "bs16" else B
+    M = 8 if case == "bs16" else M
+    L, S = len(shapes), sum(h * w for h, w in shapes)
+    value, loc, attn = _msda_inputs(device, B, S, M, 32, shapes, P, seed=21)
+    g = torch.Generator(device=device).manual_seed(22)
+    sizes = torch.tensor([[w, h] for h, w in shapes], device=device).view(1, 1, 1, L, 1, 2)
+    ref = _reference_points(shapes, device)[None, :, None, :, None, :]
+    if case == "all_outside":     # points 30 pixels on either side of their token
+        sign = torch.tensor([1.0, -1.0], device=device).repeat(P // 2).view(1, 1, 1, 1, P, 1)
+        loc = (ref + sign * 30 / sizes).expand(B, S, M, L, P, 2).contiguous()
+    elif case == "one_pixel":     # every point of a level on its middle pixel
+        loc = torch.tensor([[(w // 2 + 0.5) / w, (h // 2 + 0.5) / h] for h, w in shapes],
+                           device=device).view(1, 1, 1, L, 1, 2).expand(B, S, M, L, P, 2)
+        loc = loc.contiguous()
+    elif case != "q_not_s":       # a few pixels off the tokens, 2% far off the map
+        loc = ref + torch.randn((B, S, M, L, P, 2), generator=g, device=device) * 3.0 / sizes
+        far = torch.rand((B, S, M, L, P, 1), generator=g, device=device) < 0.02
+        loc = torch.where(far, loc + 2.0, loc)
+    if case == "q_not_s":         # one query short of the tokens
+        loc, attn = loc[:, 1:].contiguous(), attn[:, 1:].contiguous()
+    grad_out = torch.randn((B, loc.shape[1], M * 32), generator=g, device=device)
+    return shapes, value, loc, attn, grad_out
+
+
+@pytest.mark.parametrize("mix", [False, True])
+@pytest.mark.parametrize("case", ["four_levels", "all_outside", "one_pixel", "q_not_s", "bs16"])
+def test_msda_backward_kernel_on_hard_locations(cuda, case, mix):
+    """float32, and the bfloat16 model's mix (bfloat16 value and gradient,
+    float32 locations and weights) at bfloat16's tolerance."""
+    shapes, value, loc, attn, grad_out = _bwd_case(cuda, case)
+    want = msda_cuda.ms_deform_attn_backward_plain(grad_out, value, shapes, loc, attn)
+    if mix:
+        grad_out, value = grad_out.bfloat16(), value.bfloat16()
+    got = msda_cuda.msda_bwd(grad_out, value, shapes, loc, attn)
+    tol = 1e-2 if mix else 1e-4
+    for name, x, w in zip(("value", "loc", "attn"), got, want):
+        assert torch.isfinite(x).all(), name
+        if name == "loc":  # a point may round to the other side of a pixel border
+            assert ((x.float() - w).abs() > tol * w.abs().max()).float().mean() <= 1e-5
+        else:
+            assert _rel(x, w) <= tol, name
+    del want
+
+
+def test_msda_backward_kernel_two_calls_equal_to_rounding(cuda):
+    """grad_attn and grad_loc are written once each: equal bits; grad_value
+    sums in float32 atomics in no fixed order: equal to rounding."""
+    shapes, value, loc, attn, grad_out = _bwd_case(cuda, "noisy")
+    first = msda_cuda.msda_bwd(grad_out, value, shapes, loc, attn)
+    again = msda_cuda.msda_bwd(grad_out, value, shapes, loc, attn)
+    assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
+    assert _rel(first[0], again[0]) <= 1e-6
