@@ -12,10 +12,14 @@ result line):
    function that does the kernel's folded arithmetic, at the slice's shapes,
    float32 and bfloat16, with locations outside the map;
 4. K3 (masked cross-attention) against its plain version at the decoder's
-   three key lengths, float32 and bfloat16, on the strided head views the
-   decoder hands it and on contiguous copies, with masks shared by the heads
-   and per head, fully masked rows, a batch of two, and against the plain
-   function that repeats the kernel's tiles and 3xTF32 products;
+   three key lengths, with the ResNet recipes' 100 queries and the Swin-L
+   recipes' 200 (13 tiles of 16 rows, two blocks a (batch, head)), float32
+   and bfloat16, on the strided head views the decoder hands it and on
+   contiguous copies, with masks shared by the heads and per head, fully
+   masked rows, a batch of two, and against the plain function that repeats
+   the kernel's tiles and 3xTF32 products; in float32 also on values sharing
+   an offset with the weights spread over 16384 keys (the Swin-L step's
+   features), within 1e-5 of that function;
 4a. `test_canvases`: K1 and K3 at the test canvases of the Cityscapes
    (1024x2048: K1 on 43008 queries, K3 on 32768 keys) and Mapillary Vistas
    (1536x2048: 64512 and 49152) recipes, float32 and bfloat16, against their
@@ -48,6 +52,14 @@ result line):
     per request in float32 and bfloat16; `eval_bf16`, the 8 records through
     the bfloat16 TPU recipe, segm AP through the kernels within 0.5 of AP
     through the plain ops, the float32 AP beside them;
+10b. `slice_swin`, `slice_swin_bf16` (slice 5, A17): the Swin-L COCO
+    instance recipe at full width (embed 192, depths 2-2-18-2, heads
+    6-12-24-48, window 12, 200 queries, the MSDeformAttn pixel decoder over
+    384 / 768 / 1536 channels, the vanilla decoder; seeded weights) serves
+    the same 4 requests as phase 7 (K1 6 and K3 9 launches a request, the
+    kernel forward against the plain ops), then in bfloat16 as phase 10a;
+    the device busy ms, the backbone's device span (`stage::backbone`) and
+    the peak memory of a warm request in both types;
 11. K1's backward kernel against `ms_deform_attn_backward_plain` and against
     autograd of the plain forward, at the 800x1088 canvas, at the training
     shape (B = 8, 512x512) and at the released batch's (B = 16, 1024x1024),
@@ -58,7 +70,9 @@ result line):
 12. K3's backward kernel against `masked_attention_backward_plain`, against
     autograd of the plain forward and against the plain function that repeats
     its tiled arithmetic, at the training shapes (B = 8, Q = 120, S = 256 /
-    1024 / 4096) and at B = 1, Q = 100, S = 13600: per-head masks with a DN
+    1024 / 4096), at B = 1, Q = 100, S = 13600, and with the Swin-L recipes'
+    200 queries at B = 1, S = 850 / 3400 / 13600 and at their training
+    batch's largest level (B = 16, S = 16384): per-head masks with a DN
     block, a fully blocked row, strided views; two calls give equal bits; the
     forward that writes the row statistics against the plain version, its
     output, the statistics and the float32 output the backward takes delta
@@ -184,7 +198,20 @@ result line):
     against the plain versions), then `--eval-only --resume` on 4 val images
     at the recipe's test size: finite mIoU; AP; PQ (the recipe's
     `mapillary_vistas_panoptic_val` has no semantic ground truth and the
-    recipe switches instance inference off).
+    recipe switches instance inference off);
+24. `swin_step` (slice 5, A17): step 0 of the Swin-L recipe on 2 generated
+    images of 1024x1024 through the kernels against autograd of the plain
+    ops at phase 13's tolerances, every backbone parameter's gradient among
+    them; then `train_swin` and `train_swin_accum4`: the Swin-L recipe
+    through `train_net.main` as phase 18 at its own batch (16 images, LSJ at
+    1024, float32) from phase 14's dataset, once with each block recomputed
+    in the backward (`MODEL.SWIN.USE_CHECKPOINT True`) and once in 4
+    micro-batches (`TPU.GRAD_ACCUM_STEPS 4`), the two ways it fits on the
+    card: 5 steps each (the second's launches held against the plain
+    versions, the third and fourth timed, the last profiled: device busy ms
+    and the port's kernels' share), the peak memory of both and which has
+    the lower s/step, the launches a step (K1 12, K1 backward 6, K3 and K3
+    backward 9 a micro-batch), and `--eval-only --resume` on 4 val images.
 
 Every training phase recomputes the pixel decoder's encoder layers in the
 backward, as the recipes' `TPU.REMAT_ENCODER` default says: K1 (or K2) runs
@@ -222,6 +249,9 @@ SEED = 0
 # the slice's levels at an 800x1088 canvas: res5, res4, res3 (H, W)
 MSDA_SHAPES = [(25, 34), (50, 68), (100, 136)]
 ATTN_KEYS = [850, 3400, 13600]
+# the decoder's queries: the ResNet recipes' 100, the Swin-L recipes' 200 (13
+# tiles of 16 rows, two blocks a (batch, head))
+K3_QUERIES = (100, 200)
 REQUESTS = [(480, 640), (640, 480), (427, 640), (640, 427)]
 # kernel vs plain tolerances (max abs error). float32: the two sum in other
 # orders and round the sampling coordinate differently (loc*W-0.5 against
@@ -380,9 +410,9 @@ def phase_k3(torch, card: str) -> dict:
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    H, Q, D = 8, 100, 32
+    H, D = 8, 32
 
-    def head_views(B, S, dtype):
+    def head_views(B, Q, S, dtype):
         """q, k, v as `MultiheadAttention` hands them to the kernel: the
         (B, H, N, D) views of (B, N, H * D) projections, not copies."""
         return tuple(torch.randn((B, n, H * D), generator=g, device="cuda").to(dtype)
@@ -393,12 +423,12 @@ def phase_k3(torch, card: str) -> dict:
         return (got.float() - want.float()).abs().max().item()
 
     res = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, Q in itertools.product((torch.float32, torch.bfloat16), K3_QUERIES):
         name = str(dtype).split(".")[1]
         errs, times, bounds = [], [], []
         for S in ATTN_KEYS:
             B = 1
-            q, k, v = head_views(B, S, dtype)
+            q, k, v = head_views(B, Q, S, dtype)
             mask = torch.rand((B, Q, S), generator=g, device="cuda") < 0.7
             mask[:, :5] = True  # fully masked rows: uniform over all keys
             mask_h = torch.rand((B, H, Q, S), generator=g, device="cuda") < 0.7
@@ -410,7 +440,7 @@ def phase_k3(torch, card: str) -> dict:
                           max_err(mac.masked_attn_fwd(q.contiguous(), k.contiguous(),
                                                       v.contiguous(), m), want))
             # a batch of two, strided, with a row masked in every chunk but one
-            q2, k2, v2 = head_views(2, S, dtype)
+            q2, k2, v2 = head_views(2, Q, S, dtype)
             mask2 = torch.rand((2, Q, S), generator=g, device="cuda") < 0.7
             mask2[:, :5] = True
             mask2[:, 5, 64:] = True
@@ -453,11 +483,50 @@ def phase_k3(torch, card: str) -> dict:
             times.append(t)
             bounds.append(bnd)
         # one decoder cycle visits each level once: report the mean per call
-        res[name] = {"max_abs_err": max(errs),
+        res[(name, Q)] = {"max_abs_err": max(errs),
                      **{key: mean([t[key] for t in times]) for key in times[0]},
                      "bound_ms": mean([b["bound_ms"] for b in bounds]),
                      "bound_by": bounds[-1]["bound_by"]}
+    offset_check(torch, card, g)
     return res
+
+
+# K3 float32 against the plain function of its own arithmetic, where a sum
+# over the keys that rounds one way at every add drifts: "the same arithmetic
+# but for ex2.approx (2^-22) and summation order" (tests/test_torch_kernels_gpu.py)
+TILED_TOL = 1e-5
+
+
+def offset_check(torch, card: str, g) -> None:
+    """K3 in float32 where the decoder's features put it: a query's weight
+    spread over the keys, the values sharing an offset (3 + 0.25 N(0, 1), as
+    the Swin-L step's features), S = 16384 (its training batch's finest
+    level), 200 queries. The kernel within TILED_TOL of its tiled arithmetic
+    (`masked_attention_tiled`), each relative to max(1, the largest entry);
+    the three against float64 are logged."""
+    from mp_former_tpu_torch.ops import masked_attention_cuda as mac
+
+    B, H, Q, S, D = 2, 8, 200, 16384, 32
+    q = 0.3 * torch.randn((B, H, Q, D), generator=g, device="cuda")
+    k = torch.randn((B, H, S, D), generator=g, device="cuda")
+    v = 3.0 + 0.25 * torch.randn((B, H, S, D), generator=g, device="cuda")
+    mask = torch.rand((B, Q, S), generator=g, device="cuda") < 0.1
+    logits = torch.einsum("bhqd,bhsd->bhqs", q.double(), k.double()) / math.sqrt(D)
+    exact = torch.einsum("bhqs,bhsd->bhqd", logits.masked_fill_(mask[:, None], -1e9).softmax(-1),
+                         v.double())
+    del logits
+    got = mac.masked_attn_fwd(q, k, v, mask)
+    tiled = mac.masked_attention_tiled(q, k, v, mask)
+    errs = {name: scaled_err(x.double(), exact) for name, x in (
+        ("kernel", got), ("plain", mac.masked_attention_plain(q, k, v, mask)), ("tiled", tiled))}
+    err = scaled_err(got, tiled)
+    log("K3", dtype="float32", shape=f"B{B}xH{H}xQ{Q}xS{S}xD{D}",
+        inputs="weights spread, values 3 + 0.25 N(0, 1)", max_err_vs_tiled=f"{err:.3e}",
+        tol=TILED_TOL, **{f"{n}_err_vs_float64": f"{e:.3e}" for n, e in errs.items()},
+        card=repr(card))
+    if not err <= TILED_TOL:
+        raise AssertionError(f"K3 float32 on values with a common offset: {err} from its own "
+                             f"tiled arithmetic, above {TILED_TOL} (against float64: {errs})")
 
 
 # the canvases of the Cityscapes (1024x2048) and Mapillary Vistas (a 4:3
@@ -690,6 +759,10 @@ def seeded_model(torch, cfg):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(SEED)
         return build_model(cfg)  # reference inits, seeded
+
+
+# substrings of the port's CUDA kernels' names (csrc/*.cu) in a profiler trace
+PORT_KERNEL_NAMES = ("msda_fwd", "msda_bwd", "masked_attn", "tap_weight", "row_gather")
 
 
 def kernel_counts(backward: bool = False) -> dict:
@@ -1190,6 +1263,14 @@ def spread_delta_check(torch, card: str, g) -> None:
                              f"plain backward, beyond the bfloat16 reference's {bounds}")
 
 
+# K3's backward at the released recipe's training shapes (B = 8, 512x512: 100
+# queries and 20 DN rows, S = 256 / 1024 / 4096), at the 800x1088 canvas
+# (S = 13600), and with the Swin-L recipes' 200 queries at that canvas and at
+# their training batch's largest level (16 images of 1024x1024: S = 16384)
+K3_BWD_SHAPES = ((8, 120, 256), (8, 120, 1024), (8, 120, 4096), (1, 100, 13600),
+                 (1, 200, 850), (1, 200, 3400), (1, 200, 13600), (16, 200, 16384))
+
+
 def phase_k3_bwd(torch, card: str) -> dict:
     import torch.nn.functional as F
 
@@ -1202,7 +1283,7 @@ def phase_k3_bwd(torch, card: str) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         per_shape = []
-        for B, Q, S in ((8, 120, 256), (8, 120, 1024), (8, 120, 4096), (1, 100, 13600)):
+        for B, Q, S in K3_BWD_SHAPES:
             # strided head views of (B, N, H * D) projections, as the decoder's
             q, k, v = (torch.randn((B, n, H * D), generator=g, device="cuda").to(dtype)
                        .view(B, n, H, D).transpose(1, 2) for n in (Q, S, S))
@@ -1324,7 +1405,8 @@ def phase_k3_bwd(torch, card: str) -> dict:
             if not max(auto_errs) <= AUTOGRAD_TOL[name]:
                 raise AssertionError(f"K3 backward {name} S={S}: {auto_errs} against autograd "
                                      "of the plain forward")
-            per_shape.append({"max_abs_err": abs_err, **t, **bnd})
+            per_shape.append({"shape": f"B{B}xH{H}xQ{Q}xS{S}", "max_abs_err": abs_err, **t,
+                              **bnd})
             del q, k, v, go, mask, shared, additive, out, out32, stats, got, lib_leaves, lib_out
         if dtype == torch.bfloat16:
             spread_delta_check(torch, card, g)
@@ -1336,6 +1418,7 @@ def phase_k3_bwd(torch, card: str) -> dict:
                         for key in ("ms", "issue_ms", "plain_ms", "plain_issue_ms", "library_ms",
                                     "library_issue_ms", "bound_ms")},
                      "bound_by": train[-1]["bound_by"]}
+        res[(name, 200)] = [r for r in per_shape if "xQ200x" in r["shape"]]
     return res
 
 
@@ -1932,42 +2015,115 @@ def copy_ms(torch, batch, non_blocking: bool, reps: int = 5) -> float:
 ATTN_FLIP_MARGIN = 1e-3
 
 
-def paired_outputs(torch, model, canvas) -> tuple:
-    """The model's outputs through the kernels, and through the plain ops
-    given the kernel path's attention masks. The decoder's attention mask
+class PairedAttention:
+    """The decoder's attention masks of a run through the kernels, kept, and
+    handed to a later run through the plain ops. The decoder's attention mask
     thresholds mask logits (sigmoid < 0.5): a logit that the two paths put on
     either side of 0 changes the keys a query reads, and the outputs after
-    it by more than the kernels' error; with trained weights such a logit
-    turns up now and then. Returns (kernel outputs, plain outputs, the count
-    of attention decisions the plain ops take otherwise, the largest |mask
-    logit| among them)."""
-    from mp_former_tpu_torch.utils.interp import resize
+    it by more than the kernels' error; with trained weights, or many
+    queries, such a logit turns up now and then. `flips` counts the
+    attention decisions the plain ops take otherwise, `margin` is the
+    largest |mask logit| among them."""
 
-    decoder = model.sem_seg_head.predictor
-    heads = decoder.forward_prediction_heads
-    kept, flips = [], {"n": 0, "margin": 0.0}
+    def __init__(self, model):
+        self.decoder = model.sem_seg_head.predictor
+        self.heads = self.decoder.forward_prediction_heads
+        self.kept, self.flips, self.margin = [], 0, 0.0
 
-    def record(output, mask_features, size):
-        out = heads(output, mask_features, size)
-        kept.append(out[2])
+    def _record(self, output, mask_features, size):
+        out = self.heads(output, mask_features, size)
+        self.kept.append(out[2])
         return out
 
-    def replay(output, mask_features, size):
-        cls, msk, attn = heads(output, mask_features, size)
-        k_attn = kept.pop(0)
+    def _replay(self, output, mask_features, size):
+        from mp_former_tpu_torch.utils.interp import resize
+
+        cls, msk, attn = self.heads(output, mask_features, size)
+        k_attn = self.kept.pop(0)
         differ = attn != k_attn
         if differ.any():
-            logits = resize(msk.float(), size, "bilinear").flatten(2)
-            flips["n"] += int(differ.sum())
-            flips["margin"] = max(flips["margin"], logits[differ].abs().max().item())
+            logits = resize(msk.detach().float(), size, "bilinear").flatten(2)
+            self.flips += int(differ.sum())
+            self.margin = max(self.margin, logits[differ].abs().max().item())
         return cls, msk, k_attn
 
+    def recording(self):
+        return mock.patch.object(self.decoder, "forward_prediction_heads", self._record)
+
+    def replaying(self):
+        return mock.patch.object(self.decoder, "forward_prediction_heads", self._replay)
+
+
+# a ReLU input that the two paths put on either side of 0 flips its
+# derivative, and the gradients behind it by more than the kernels' error
+# (R50's step at B = 8 found one at 1.7e-3 of an FFN's largest gradient; the
+# Swin-L step's 200 queries and 2048-wide FFNs at 6.7e-2); the forwards
+# differ by ~1e-5 of entries of unit scale, so a decision taken otherwise
+# must sit within this of 0
+RELU_FLIP_MARGIN = 1e-3
+
+
+class PairedRelu:
+    """The ReLU decisions (input > 0) of the decoder's and the pixel
+    decoder's layers (`F.relu` in `transformer_decoder/primitives.py` and
+    `pixel_decoder/msdeformattn.py`) in a run through the kernels, kept, and
+    taken by a later run through the plain ops (its ReLU is then x times the
+    kept decision, whose derivative is the kernel path's). `flips` and
+    `margin` as in `PairedAttention`."""
+
+    def __init__(self):
+        self.kept, self.flips, self.margin = [], 0, 0.0
+
+    def _record(self, x, inplace=False):
+        import torch.nn.functional as F
+
+        self.kept.append(x.detach() > 0)
+        return F.relu(x, inplace=inplace)
+
+    def _replay(self, x, inplace=False):
+        kept = self.kept.pop(0)
+        differ = (x.detach() > 0) != kept
+        if differ.any():
+            self.flips += int(differ.sum())
+            self.margin = max(self.margin, x.detach()[differ].abs().max().item())
+        return x * kept.to(x.dtype)
+
+    @contextlib.contextmanager
+    def _patched(self, relu):
+        import torch.nn.functional as F
+
+        from mp_former_tpu_torch.models.pixel_decoder import msdeformattn
+        from mp_former_tpu_torch.models.transformer_decoder import primitives
+
+        class Functional:
+            """torch.nn.functional with another relu."""
+
+            def __getattr__(self, name):
+                return relu if name == "relu" else getattr(F, name)
+
+        with mock.patch.object(primitives, "F", Functional()), \
+                mock.patch.object(msdeformattn, "F", Functional()):
+            yield
+
+    def recording(self):
+        return self._patched(self._record)
+
+    def replaying(self):
+        return self._patched(self._replay)
+
+
+def paired_outputs(torch, model, canvas) -> tuple:
+    """The model's outputs through the kernels, and through the plain ops
+    given the kernel path's attention masks (`PairedAttention`). Returns
+    (kernel outputs, plain outputs, the count of attention decisions the
+    plain ops take otherwise, the largest |mask logit| among them)."""
+    pairing = PairedAttention(model)
     with torch.inference_mode():
-        with mock.patch.object(decoder, "forward_prediction_heads", record):
+        with pairing.recording():
             k_out = model(canvas)
-        with plain_ops(), mock.patch.object(decoder, "forward_prediction_heads", replay):
+        with plain_ops(), pairing.replaying():
             p_out = model(canvas)
-    return k_out, p_out, flips["n"], flips["margin"]
+    return k_out, p_out, pairing.flips, pairing.margin
 
 
 def hold_evaluation(torch, cfg, model, kernel_segm: dict) -> dict:
@@ -2521,12 +2677,12 @@ def default_scores(config: str):
 
 
 def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: str = "",
-                    recipe=RELEASED_SH, scores=None) -> tuple:
+                    recipe=RELEASED_SH, scores=None, steps: int = TRAIN_NET_STEPS) -> tuple:
     """The released recipe launched as its users launch it: `train_net.main`
     with the overrides of run_50ep_no_noise_all_ly.sh, full width and depth,
     its own batch (16 images, LSJ at 1024) from phase train_coco's dataset
     on disk, `TPU.GRAD_ACCUM_STEPS accum`, remat as the defaults say;
-    TRAIN_NET_STEPS steps, then `--eval-only --resume` on
+    `steps` steps, then `--eval-only --resume` on
     TRAIN_NET_EVAL_IMAGES val images. Counts the launches a step (K1
     6 (1 + remat) accum, K1 backward 6 accum, K3 and K3 backward 9 accum)
     and an evaluated image; step TRAIN_NET_HOLD_STEP keeps one launch of
@@ -2540,7 +2696,9 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
     at the recipe's own thresholds also gives finite PQ and mIoU. `recipe`:
     the launcher's overrides of `config` (none for a recipe launched as its
     YAML says), `scores` results -> the finite scores to print
-    (`default_scores`)."""
+    (`default_scores`). Returns the launches of the steps and of the
+    evaluation, and the steps' seconds (the profiled last left out), the last
+    step's device busy ms, the peak memory and the last data_time."""
     import shutil
 
     from torch.profiler import ProfilerActivity, profile
@@ -2553,21 +2711,25 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
     out_dir = os.path.join(REPO, "output", f"chip_smoke_{phase}")
     shutil.rmtree(out_dir, ignore_errors=True)
     opts = ["--config-file", os.path.join(REPO, config)]
-    overrides = [*recipe, "SOLVER.MAX_ITER", str(TRAIN_NET_STEPS),
+    overrides = [*recipe, "SOLVER.MAX_ITER", str(steps),
                  "TPU.GRAD_ACCUM_STEPS", str(accum), "SEED", str(SEED), "OUTPUT_DIR", out_dir]
     parse = train_net.default_argument_parser().parse_args
-    seconds, busy = [], []
+    seconds, busy, kernels = [], [], []
     run_step = Trainer.run_step
 
     def timed_step(trainer, batch):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step = trainer.iteration
-        if step == TRAIN_NET_STEPS - 1:  # the last step, profiled
+        if step == steps - 1:  # the last step, profiled
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 out = run_step(trainer, batch)
                 torch.cuda.synchronize()
-            busy.append(device_busy_us(prof.key_averages()) / 1e3)
+            events = prof.key_averages()
+            busy.append(device_busy_us(events) / 1e3)
+            kernels.append(sum(e.self_device_time_total for e in events
+                               if e.device_type.name == "CUDA" and any(
+                                   n in e.key for n in PORT_KERNEL_NAMES)) / 1e3)
         else:
             with (recording_launches() if step == TRAIN_NET_HOLD_STEP
                   else contextlib.nullcontext()) as kept:
@@ -2593,21 +2755,23 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
         dumped = f.read()
     remat = "REMAT_ENCODER: true" in dumped
     per_step = step_expected(TRAIN_EXPECTED, remat, accum)
-    expected = {k: TRAIN_NET_STEPS * v for k, v in per_step.items()}
+    expected = {k: steps * v for k, v in per_step.items()}
     with open(os.path.join(out_dir, "metrics.json")) as f:
         lines = [json.loads(x) for x in f.read().splitlines()]
     cfg = load_cfg(config, overrides, released_decoder=False)
     crop = (cfg.INPUT.CROP.SIZE if cfg.INPUT.CROP.ENABLED
             else (cfg.INPUT.IMAGE_SIZE, cfg.INPUT.IMAGE_SIZE))
-    log(phase, steps=TRAIN_NET_STEPS, batch=f"{cfg.SOLVER.IMS_PER_BATCH}x{crop[0]}x{crop[1]}",
+    log(phase, steps=steps, batch=f"{cfg.SOLVER.IMS_PER_BATCH}x{crop[0]}x{crop[1]}",
         mapper=cfg.INPUT.DATASET_MAPPER_NAME, accum=accum,
         remat=remat, launches=launches, expected=expected)
     log(phase, steps_s=[f"{t:.4f}" for t in seconds[:-1]],
         profiled_last_step_s=f"{seconds[-1]:.4f}", device_busy_ms_last_step=f"{busy[0]:.1f}",
+        port_kernels_ms_last_step=f"{kernels[0]:.1f}",
+        port_kernels_share=f"{kernels[0] / busy[0]:.4f}",
         peak_memory_allocated_GiB_after_the_hold=f"{peak_gb:.2f}",
         data_time_s=f"{lines[-1]['data_time']:.4f}",
         total_loss=f"{lines[-1]['total_loss']:.3f}", card=repr(card))
-    if launches != expected or not remat or len(seconds) != TRAIN_NET_STEPS:
+    if launches != expected or not remat or len(seconds) != steps:
         raise AssertionError(f"{phase}: launches {launches}, expected {expected} (remat "
                              f"{remat}), {len(seconds)} steps")
     losses = [k for k in lines[-1] if k.startswith("loss_") or k == "total_loss"]
@@ -2629,7 +2793,9 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
         raise AssertionError(f"{phase}: evaluation launches {launches_eval}, expected "
                              f"{expected_eval}; {scores}")
     log(phase, ok=True)
-    return launches, launches_eval
+    return launches, launches_eval, {"step_s": seconds[:-1], "busy_ms": busy[0],
+                                     "kernels_ms": kernels[0],
+                                     "peak_GiB": peak_gb, "data_time_s": lines[-1]["data_time"]}
 
 
 # launched by run_50ep_no_noise_all_ly_panoptic.sh, whose overrides are
@@ -3059,6 +3225,179 @@ SEGM_TRAIN = {
 }
 
 
+# slice 5 (A17): the Swin-L COCO instance recipe (200 queries, the vanilla
+# decoder), launched as its YAML says but for the weights: its ImageNet-22k
+# file is not in the repository, so the model starts from seeded weights
+SWIN_CONFIG = ("configs/coco/instance-segmentation/swin/"
+               "maskformer2_swin_large_IN21k_384_bs16_100ep.yaml")
+SERVE_EXPECTED = {"msda_fwd": 6, "tap_weight_fwd": 0, "masked_attn_fwd": 9}
+# the two ways to fit its training batch (16 x 1024^2) on 80 GB: each block
+# recomputed in the backward (MODEL.SWIN.USE_CHECKPOINT), or 4 micro-batches
+SWIN_TRAIN = (("train_swin", ["MODEL.SWIN.USE_CHECKPOINT", "True"], 1),
+              ("train_swin_accum4", [], 4))
+SWIN_STEP_BATCH = 2
+# steps of the Swin-L training phases: the first warms up, the second is held
+# against the plain versions, the last is profiled, the two between are timed
+SWIN_TRAIN_STEPS = 5
+
+
+@contextlib.contextmanager
+def backbone_range(model):
+    """The backbone's forward inside a `stage::backbone` range, whose device
+    span a `torch.profiler` trace shows."""
+    from torch.profiler import record_function
+
+    forward = model.backbone.forward
+
+    def ranged(*args, **kwargs):
+        with record_function("stage::backbone"):
+            return forward(*args, **kwargs)
+
+    with mock.patch.object(model.backbone, "forward", ranged):
+        yield
+
+
+def serving_profile(torch, predictor, image, calls: int = 3) -> dict:
+    """A warm request's device busy ms, the backbone's device span in it and
+    the peak memory of the requests, by `torch.profiler` over `calls`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mp_former_tpu_torch.utils.cuda_timing import device_busy_us
+
+    with backbone_range(predictor.model):
+        predictor(image)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                predictor(image)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    span = [e for e in events if e.key == "stage::backbone"]
+    busy = device_busy_us(events) / 1e3 / calls
+    backbone = span[0].device_time_total / 1e3 / span[0].count
+    return {"device_busy_ms": busy, "backbone_device_span_ms": backbone,
+            "backbone_share": backbone / busy,
+            "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_slice_swin(torch, card: str) -> tuple:
+    """The Swin-L recipe at full width (embed 192, depths 2-2-18-2, window 12,
+    200 queries, the MSDeformAttn pixel decoder over 384 / 768 / 1536
+    channels, the vanilla decoder) serves REQUESTS through `Predictor` as
+    phase slice does (K1 6 and K3 9 launches a request, the kernel forward
+    against the plain ops), then in `TPU.COMPUTE_DTYPE bfloat16` as phase
+    slice_bf16 does; the device busy ms, the backbone's device span and the
+    peak memory of a warm 480x640 request in both types. The kernel forward
+    is held against the plain ops given the kernel path's attention masks
+    (`paired_outputs`, as phase train_coco holds its evaluation): an
+    attention decision the plain ops take otherwise must sit within
+    ATTN_FLIP_MARGIN of 0."""
+    cfg = load_cfg(SWIN_CONFIG, [], released_decoder=False)
+    swin = cfg.MODEL.SWIN
+    if (swin.EMBED_DIM, tuple(swin.DEPTHS), swin.WINDOW_SIZE,
+            cfg.MODEL.MASK_FORMER.NUM_OBJECT_QUERIES) != (192, (2, 2, 18, 2), 12, 200):
+        raise AssertionError(f"slice_swin: {SWIN_CONFIG} is not Swin-L with 200 queries")
+    from mp_former_tpu_torch.engine.predictor import Predictor
+
+    model = seeded_model(torch, cfg)
+    predictor = Predictor(cfg, model=model, device="cuda")
+    rng = np.random.RandomState(SEED)
+    images = [rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for h, w in REQUESTS]
+    launches = serve(torch, "slice_swin", cfg, predictor, images, REQUESTS, SERVE_EXPECTED,
+                     card, warm_passes=2)
+    # 200 queries at random weights put a few mask logits within the kernels'
+    # error of 0: the plain ops take the kernel path's attention masks
+    for img in images:
+        canvas, _ = predictor.preprocess(img)
+        k_out, p_out, n_flips, margin = paired_outputs(torch, model, canvas)
+        what = f"request {img.shape[0]}x{img.shape[1]}: kernel vs plain ops"
+        log("slice_swin", compare=what, attention_decisions_taken_otherwise=n_flips,
+            their_largest_abs_mask_logit=f"{margin:.3e}", margin=ATTN_FLIP_MARGIN)
+        if margin > ATTN_FLIP_MARGIN:
+            raise AssertionError(f"slice_swin: {what}: an attention decision differs at a mask "
+                                 f"logit of {margin}")
+        compare_outputs(torch, "slice_swin", what, cfg, canvas, k_out, p_out)
+    prof = serving_profile(torch, predictor, images[0])
+    log("slice_swin", request=f"{REQUESTS[0][0]}x{REQUESTS[0][1]}",
+        **{k: f"{v:.3f}" for k, v in prof.items()}, card=repr(card))
+    cfg16 = load_cfg(SWIN_CONFIG, ["TPU.COMPUTE_DTYPE", "bfloat16"], released_decoder=False)
+    launches16, predictor16 = phase_slice_bf16(torch, card, "slice_swin_bf16", cfg16,
+                                               SERVE_EXPECTED, images, predictor)
+    prof16 = serving_profile(torch, predictor16, images[0])
+    log("slice_swin_bf16", request=f"{REQUESTS[0][0]}x{REQUESTS[0][1]}",
+        **{k: f"{v:.3f}" for k, v in prof16.items()}, card=repr(card))
+    return launches, launches16
+
+
+def phase_swin_step(torch, card: str) -> dict:
+    """Step 0 of the Swin-L recipe on SWIN_STEP_BATCH generated images of
+    1024x1024 (its LSJ canvas), through the kernels and through autograd of
+    the plain ops, at phase train's tolerances (`hold_step`): every gradient,
+    the backbone's among them, which reach it through K1's and K3's
+    backward kernels. The plain ops take the kernel path's attention masks
+    (`PairedAttention`, as phase slice_swin) and ReLU decisions
+    (`PairedRelu`)."""
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.models.criterion import build_criterion
+
+    cfg = load_cfg(SWIN_CONFIG, ["SEED", str(SEED)], released_decoder=False)
+    model = seeded_model(torch, cfg).to("cuda")
+    criterion = build_criterion(cfg)
+    batch = next(synthetic_batches(SWIN_STEP_BATCH, BS16_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                   TRAIN_MAX_INSTANCES, seed=SEED)).to("cuda")
+    expected = step_expected(TRAIN_EXPECTED, cfg.TPU.REMAT_ENCODER)
+    pairing, relus = PairedAttention(model), PairedRelu()
+    reset_kernel_counts()
+    with pairing.recording(), relus.recording():
+        k_losses, k_grads, assignments = loss_and_gradients(torch, model, criterion, batch)
+    launches = kernel_counts(backward=True)
+    if launches != expected:
+        raise AssertionError(f"swin_step: kernel launches {launches}, expected {expected}")
+    model.zero_grad(set_to_none=True)
+    with plain_ops(), pairing.replaying(), relus.replaying():
+        p_losses, p_grads, _ = loss_and_gradients(torch, model, criterion, batch, assignments)
+    log("swin_step", attention_decisions_taken_otherwise=pairing.flips,
+        their_largest_abs_mask_logit=f"{pairing.margin:.3e}", margin=ATTN_FLIP_MARGIN,
+        relu_decisions_taken_otherwise=relus.flips,
+        their_largest_abs_input=f"{relus.margin:.3e}", relu_margin=RELU_FLIP_MARGIN)
+    if pairing.margin > ATTN_FLIP_MARGIN or relus.margin > RELU_FLIP_MARGIN:
+        raise AssertionError(f"swin_step: an attention decision differs at a mask logit of "
+                             f"{pairing.margin}, a ReLU decision at an input of {relus.margin}")
+    backbone = [(rel_err(k_grads[n], p_grads[n]), n) for n in p_grads
+                if n.startswith("backbone.")]
+    log("swin_step", batch=f"{SWIN_STEP_BATCH}x{BS16_SIZE}x{BS16_SIZE}", launches=launches,
+        backbone_gradients=len(backbone), backbone_grad_max_rel_err=f"{max(backbone)[0]:.3e}",
+        worst_backbone=max(backbone)[1], card=repr(card))
+    hold_step(torch, "swin_step", k_losses, k_grads, p_losses, p_grads)
+    if len(backbone) != sum(1 for n, _ in model.named_parameters() if n.startswith("backbone.")):
+        raise AssertionError("swin_step: a backbone parameter got no gradient")
+    log("swin_step", ok=True)
+    return launches
+
+
+def phase_train_swin(torch, card: str) -> dict:
+    """The Swin-L recipe through `train_net.main` at its own batch (16
+    images, LSJ at 1024) from phase train_coco's dataset, float32, as phase
+    train_net_accum1 runs the released recipe (SWIN_TRAIN_STEPS steps, the
+    second's launches held against the plain versions, the last profiled,
+    then `--eval-only --resume` on 4 val images), once for each way in
+    SWIN_TRAIN of fitting the batch on the card; the timed steps' seconds,
+    device busy ms and peak memory of both, and which has the lower s/step."""
+    paths, stats = {}, {}
+    for phase, overrides, accum in SWIN_TRAIN:
+        paths[phase], paths[phase + "_eval"], stats[phase] = phase_train_net(
+            torch, card, accum, SWIN_CONFIG, phase, recipe=overrides, steps=SWIN_TRAIN_STEPS)
+        torch.cuda.empty_cache()
+    timed = {phase: st["step_s"][TRAIN_NET_HOLD_STEP + 1:] for phase, st in stats.items()}
+    log("train_swin", compare="ways to fit 16 x 1024^2 of Swin-L on the card",
+        **{f"{phase}_timed_steps_s": [f"{t:.4f}" for t in ts] for phase, ts in timed.items()},
+        **{f"{phase}_peak_GiB": f"{st['peak_GiB']:.2f}" for phase, st in stats.items()},
+        **{f"{phase}_busy_ms": f"{st['busy_ms']:.1f}" for phase, st in stats.items()},
+        lower_s_per_step=min(timed, key=lambda phase: mean(timed[phase])), card=repr(card))
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3097,6 +3436,9 @@ def main() -> int:
     eval_bf16 = phase_eval_bf16(torch, card, cfg2_bf16, predictor2_bf16, evaluation)
     del predictor1, predictor2, predictor2_bf16, k1_out
     torch.cuda.empty_cache()
+    # slice 5 (A17): the Swin-L recipe serves, float32 and bfloat16
+    s_swin, s_swin_bf16 = phase_slice_swin(torch, card)
+    torch.cuda.empty_cache()
     k1_bwd = phase_k1_bwd(torch, card)
     k3_bwd = phase_k3_bwd(torch, card)
     k2_bwd = phase_k2_bwd(torch, card)
@@ -3125,14 +3467,14 @@ def main() -> int:
     # of 8, then the monolithic step, which fits on 80 GB (PERF.md)
     train_net_paths = {}
     for a in TRAIN_NET_ACCUMS:
-        train_net_paths[f"train_net_accum{a}"], train_net_paths[f"train_net_accum{a}_eval"] = \
+        train_net_paths[f"train_net_accum{a}"], train_net_paths[f"train_net_accum{a}_eval"], _ = \
             phase_train_net(torch, card, a)
         torch.cuda.empty_cache()
     # slice 4 (A16a): COCO panoptic, scored against its own plain-op predictions,
     # then the panoptic launcher at its own batch
     eval_panoptic = phase_eval_panoptic(torch, card)
     torch.cuda.empty_cache()
-    train_net_paths["train_panoptic"], train_net_paths["train_panoptic_eval"] = \
+    train_net_paths["train_panoptic"], train_net_paths["train_panoptic_eval"], _ = \
         phase_train_net(torch, card, 1, PAN_CONFIG, "train_panoptic")
     torch.cuda.empty_cache()
     # slice 4 (A16b): ADE20K, Cityscapes and Mapillary Vistas
@@ -3140,15 +3482,22 @@ def main() -> int:
     eval_cityscapes = phase_eval_cityscapes(torch, card)
     torch.cuda.empty_cache()
     for phase, (config, scores) in SEGM_TRAIN.items():
-        train_net_paths[phase], train_net_paths[phase + "_eval"] = phase_train_net(
+        train_net_paths[phase], train_net_paths[phase + "_eval"], _ = phase_train_net(
             torch, card, 1, config, phase, recipe=(), scores=scores)
         torch.cuda.empty_cache()
+    # slice 5 (A17): the Swin-L recipe's step against the plain ops, then its
+    # training batch through the entry point
+    swin_step = phase_swin_step(torch, card)
+    torch.cuda.empty_cache()
+    swin_paths = phase_train_swin(torch, card)
     by_path = {"slice": s1, "slice2": s2, "tap_weighting_route": route, "train": train,
                "train_coco": train_coco, "slice_bf16": s1_bf16, "slice2_bf16": s2_bf16,
                "eval_bf16": eval_bf16, "train_bf16": train_bf16, "train_tpu": train_tpu,
                "train_tpu_bf16": train_tpu_bf16, "accum": accum, "remat": remat,
                "train_tpu_bs16": train_tpu_bs16, "eval_panoptic": eval_panoptic["launches"],
-               "eval_cityscapes": eval_cityscapes["launches"], **train_net_paths}
+               "eval_cityscapes": eval_cityscapes["launches"], **train_net_paths,
+               "slice_swin": s_swin, "slice_swin_bf16": s_swin_bf16, "swin_step": swin_step,
+               **swin_paths}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",
@@ -3156,8 +3505,8 @@ def main() -> int:
          **k1["float32"], "at_test_canvases": test_canvas_rows(canvases, "K1")},
         {"name": "masked_attn_fwd", "route": "cuda", "source": csrc + "masked_attn_fwd.cu",
          "replaces": "mp_former_tpu/ops/fused_masked_attention.py:63",
-         "launches": s1["masked_attn_fwd"], **k3["float32"],
-         "at_test_canvases": test_canvas_rows(canvases, "K3")},
+         "launches": s1["masked_attn_fwd"], **k3[("float32", 100)],
+         "at_q200": k3[("float32", 200)], "at_test_canvases": test_canvas_rows(canvases, "K3")},
         {"name": "tap_weight_fwd", "route": "cuda", "source": csrc + "tap_weight_fwd.cu",
          "replaces": "mp_former_tpu/ops/tap_weighting.py:244", "launches": s2["tap_weight_fwd"],
          **k2[("headshare", "float32")]},
@@ -3176,7 +3525,8 @@ def main() -> int:
          "replaces": "mp_former_tpu/ops/fused_masked_attention.py:63 (no VJP: training takes "
                      "the einsum branch, mp_former_tpu/models/transformer_decoder/"
                      "primitives.py:72)",
-         "launches": train["masked_attn_bwd"], **k3_bwd["float32"]},
+         "launches": train["masked_attn_bwd"], **k3_bwd["float32"],
+         "at_q200": k3_bwd[("float32", 200)]},
         {"name": "tap_weight_bwd", "route": "cuda", "source": csrc + "tap_weight_bwd.cu",
          "replaces": "mp_former_tpu/ops/tap_weighting.py:284 (the custom_vjp's _bwd, plain XLA)",
          "launches": train_tpu["tap_weight_bwd"],

@@ -57,6 +57,16 @@
 //   The accumulator holds columns (2t, 2t+1) of a row where the next A
 //   fragment wants (t, t+4): V's rows are taken in that order as the k index,
 //   which costs nothing.
+// * The output sums a step's (32 keys') weighted values in a fragment that
+//   starts at 0, then adds it to the running output with an fp32 FMA. The
+//   tensor cores' accumulator adds do not round to nearest: with the running
+//   output as the MMA's accumulator, the error of every add went the same
+//   way, and where the weights spread over many keys and v has a common
+//   offset (the decoder's features) the output drifted with S. At S = 16384
+//   (the Swin-L recipe's training level) it lay 3.8e-5 of its value from a
+//   float64 reference, the plain version 7.8e-6 and this arithmetic in plain
+//   PyTorch (`masked_attention_tiled`) 5.0e-7; summed this way, 6.7e-7
+//   (tools/probe_torch_masked_attn_offset.py on an H100).
 // * K, V and mask tiles arrive by 16-byte cp.async into a ring of 2 stages,
 //   so a tile's latency hides behind the products of the one before it (a
 //   third stage gains nothing and, in float32, costs an SM its second block).
@@ -272,13 +282,6 @@ masked_attn_tiles(const Params p) {
       l_lo *= alpha_lo;  // a lane's share of the row sum; the quad is summed at the end
       l_hi *= alpha_hi;
       #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        o[nt][0] *= alpha_lo;
-        o[nt][1] *= alpha_lo;
-        o[nt][2] *= alpha_hi;
-        o[nt][3] *= alpha_hi;
-      }
-      #pragma unroll
       for (int j = 0; j < kJT; ++j) {
         s[j][0] = ex2(s[j][0] - new_lo);
         s[j][1] = ex2(s[j][1] - new_lo);
@@ -287,7 +290,21 @@ masked_attn_tiles(const Params p) {
         l_lo += s[j][0] + s[j][1];
         l_hi += s[j][2] + s[j][3];
       }
-      weighted_values(o, s, qf, vs + first * v_row, g, t);
+      // the step's weighted values are summed in the tensor cores from 0, the
+      // running output here with round-to-nearest FMAs (design notes)
+      float pv[4][4];
+      #pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) pv[nt][e] = 0.f;
+      weighted_values(pv, s, qf, vs + first * v_row, g, t);
+      #pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        o[nt][0] = fmaf(o[nt][0], alpha_lo, pv[nt][0]);
+        o[nt][1] = fmaf(o[nt][1], alpha_lo, pv[nt][1]);
+        o[nt][2] = fmaf(o[nt][2], alpha_hi, pv[nt][2]);
+        o[nt][3] = fmaf(o[nt][3], alpha_hi, pv[nt][3]);
+      }
     }
   }
   cp_async_wait<0>();

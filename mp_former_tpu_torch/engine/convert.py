@@ -5,10 +5,11 @@
 
 `state_dict_from_jax_params` is the inverse of the JAX package's
 `engine/checkpoint_import.py:convert_maskformer_state_dict` (:260-276) for the
-slice's model (d2 ResNet, MSDeformAttn pixel decoder, masked-attention
-decoder): conv kernels HWIO -> OIHW, Dense (in, out) -> Linear (out, in),
-q/k/v projections concatenated into `in_proj_*`, LayerNorm/GroupNorm
-`scale` -> `weight`. It takes the params tree as numpy arrays (no jax
+port's models (a d2 ResNet or Swin backbone, MSDeformAttn pixel decoder,
+masked-attention decoder): conv kernels HWIO -> OIHW, Dense (in, out) ->
+Linear (out, in), q/k/v projections concatenated into `in_proj_*`,
+LayerNorm/GroupNorm `scale` -> `weight`, a Swin's position embedding
+(1, H, W, C) -> (1, C, H, W). It takes the params tree as numpy arrays (no jax
 needed) and returns the port's state dict, with the reference's names. A
 tree trained with `TPU.SAMPLING_ENGINE headshare` converts the same way: only
 the shape of `sampling_offsets` differs, and `load_weights` says so when such
@@ -19,6 +20,7 @@ carries a gradient tree across the same way, for the training tests.
 from __future__ import annotations
 
 import logging
+import math
 import os
 import pickle
 import re
@@ -27,6 +29,8 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from ..models.backbone.swin import _relative_position_index
 
 logger = logging.getLogger(__name__)
 
@@ -75,6 +79,36 @@ def _backbone(sd, p: Mapping, pre: str = "backbone.") -> None:
             if conv in p[name]:
                 _conv(sd, f"{pre}{stage}.{j}.{conv}", p[name][conv])
                 _frozen_bn(sd, f"{pre}{stage}.{j}.{conv}.norm", p[name][f"{conv}_frozen_bn"])
+
+
+def _swin(sd, p: Mapping, pre: str = "backbone.") -> None:
+    """The inverse of the JAX package's `engine/convert.py:swin_params_from_torch`."""
+    _conv(sd, f"{pre}patch_embed.proj", p["patch_embed_proj"])
+    if "patch_embed_norm" in p:
+        _norm(sd, f"{pre}patch_embed.norm", p["patch_embed_norm"])
+    if "absolute_pos_embed" in p:  # (1, H, W, C) -> the reference's (1, C, H, W)
+        _put(sd, f"{pre}absolute_pos_embed", np.transpose(p["absolute_pos_embed"], (0, 3, 1, 2)))
+    i = 0
+    while f"layers_{i}_blocks_0" in p:
+        j = 0
+        while f"layers_{i}_blocks_{j}" in p:
+            blk, t = p[f"layers_{i}_blocks_{j}"], f"{pre}layers.{i}.blocks.{j}"
+            _norm(sd, f"{t}.norm1", blk["norm1"])
+            _dense(sd, f"{t}.attn.qkv", blk["attn"]["qkv"])
+            _dense(sd, f"{t}.attn.proj", blk["attn"]["proj"])
+            _put(sd, f"{t}.attn.relative_position_bias_table",
+                 blk["attn"]["relative_position_bias_table"])
+            _norm(sd, f"{t}.norm2", blk["norm2"])
+            _dense(sd, f"{t}.mlp.fc1", blk["mlp_fc1"])
+            _dense(sd, f"{t}.mlp.fc2", blk["mlp_fc2"])
+            j += 1
+        if f"layers_{i}_downsample" in p:
+            down = p[f"layers_{i}_downsample"]
+            _norm(sd, f"{pre}layers.{i}.downsample.norm", down["norm"])
+            _dense(sd, f"{pre}layers.{i}.downsample.reduction", down["reduction"])
+        i += 1
+    for name in sorted(n for n in p if re.fullmatch(r"norm\d", n)):
+        _norm(sd, f"{pre}{name}", p[name])
 
 
 def _pixel_decoder(sd, p: Mapping, pre: str = "sem_seg_head.pixel_decoder.") -> None:
@@ -134,15 +168,19 @@ def _predictor(sd, p: Mapping, pre: str = "sem_seg_head.predictor.") -> None:
 
 def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX MaskFormer params ({'backbone', 'sem_seg_head'}, or the variables
-    dict holding them under 'params'), leaves as numpy arrays -> the port's
-    state dict for `load_state_dict(strict=True)`."""
+    dict holding them under 'params'; a backbone alone converts too), leaves
+    as numpy arrays -> the port's state dict for `load_state_dict(strict=True)`.
+    The backbone is a Swin where it has a `patch_embed_proj`, as the JAX
+    importer tells them apart (`checkpoint_import.py:264-267`), else a ResNet."""
     if "params" in params:
         params = params["params"]
     sd: Dict[str, torch.Tensor] = OrderedDict()
-    _backbone(sd, params["backbone"])
-    head = params["sem_seg_head"]
-    _pixel_decoder(sd, head["pixel_decoder"])
-    _predictor(sd, head["predictor"])
+    backbone = params["backbone"]
+    (_swin if "patch_embed_proj" in backbone else _backbone)(sd, backbone)
+    if "sem_seg_head" in params:
+        head = params["sem_seg_head"]
+        _pixel_decoder(sd, head["pixel_decoder"])
+        _predictor(sd, head["predictor"])
     return sd
 
 
@@ -210,14 +248,44 @@ _TORCHVISION_RENAMES = ((re.compile(r"^conv1\."), "stem.conv1."),
                         (re.compile(r"\.downsample\.1\."), ".shortcut.norm."))
 
 
+# what a Swin file holds beyond the port's state dict: the attention masks of
+# the official classification files' shifted blocks, their classification head
+# and final norm (the d2 backbone's norms are `norm0`..`norm3`); the JAX
+# importer reads none of them (`mp_former_tpu/engine/convert.py:62-117`).
+# The persistent `relative_position_index` buffers are checked, then dropped.
+_SWIN_DROPPED = re.compile(r"^backbone\.(head\.|norm\.(weight|bias)$)|\.attn_mask$")
+
+
+def _window_of_table(rows: int) -> int:
+    """The window size of a (2 ws - 1)^2-row relative-position bias table."""
+    return (math.isqrt(rows) + 1) // 2
+
+
+def _check_relative_position_index(key: str, index: np.ndarray, sd: Mapping) -> None:
+    """A stored index must be the one the port computes for its window size,
+    and that window must be the one of the block's bias table."""
+    ws = math.isqrt(index.shape[0])
+    table = sd.get(key.replace("relative_position_index", "relative_position_bias_table"))
+    if (index.shape != (ws * ws, ws * ws)
+            or not np.array_equal(index, _relative_position_index(ws, ws))
+            or (table is not None and _window_of_table(table.shape[0]) != ws)):
+        raise ValueError(
+            f"{key}: the stored relative-position index of shape {tuple(index.shape)} is not "
+            f"the one of a {ws}x{ws} window that the port computes (or the block's bias table "
+            "has another window): the file's Swin layout does not match the model's")
+
+
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     """A checkpoint file -> the port's state dict: a reference checkpoint
     (`model_final.pth`, detectron2 format: the weights under 'model') with the
     reference's own renames (`static_query` -> `query_feat`, mask2former
     decoder :214-235; head `layer_4` -> `adapter_1`, mask_former_head.py:23-45)
     and without the training-only `criterion.*` buffers; or a backbone alone
-    (an ImageNet `.pkl` of the detectron2 zoo, or torchvision's names), which
-    gets the `backbone.` prefix (`checkpoint_import.py:390-392`)."""
+    (an ImageNet `.pkl` of the detectron2 zoo, or torchvision's names, or an
+    official Swin classification file or its d2 `.pkl`), which gets the
+    `backbone.` prefix (`checkpoint_import.py:390-392`). Swin files lose the
+    buffers and parts the port does not hold (`_SWIN_DROPPED`), and each
+    `relative_position_index` is held against the computed one."""
     sd = read_checkpoint(path)
     if not any(k.startswith(("backbone.", "sem_seg_head.")) for k in sd):
         if "conv1.weight" in sd:
@@ -230,7 +298,10 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
         sd = {f"backbone.{k}": v for k, v in sd.items()}
     out: Dict[str, torch.Tensor] = OrderedDict()
     for k, v in sd.items():
-        if k.startswith("criterion."):
+        if k.startswith("criterion.") or _SWIN_DROPPED.search(k):
+            continue
+        if k.endswith(".relative_position_index"):
+            _check_relative_position_index(k, np.asarray(v), sd)
             continue
         k = k.replace("static_query", "query_feat").replace("sem_seg_head.layer_4",
                                                              "sem_seg_head.adapter_1")
@@ -264,6 +335,13 @@ def load_weights(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor],
     the four counts."""
     own = model.state_dict()
     for key, tensor in state_dict.items():
+        if key.endswith("relative_position_bias_table") and key in own \
+                and own[key].shape != tensor.shape:
+            raise ValueError(
+                f"{key}: the weights are of a Swin with {_window_of_table(tensor.shape[0])}x"
+                f"{_window_of_table(tensor.shape[0])} windows, the model has "
+                f"{_window_of_table(own[key].shape[0])}x{_window_of_table(own[key].shape[0])} "
+                "(MODEL.SWIN.WINDOW_SIZE): set it to the weights' window")
         if key.endswith("self_attn.sampling_offsets.weight") and key in own \
                 and own[key].shape != tensor.shape:
             kind = {True: "head-shared (TPU.SAMPLING_ENGINE headshare)",

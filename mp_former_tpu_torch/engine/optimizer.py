@@ -7,7 +7,8 @@ The d2 parameter-group rules as `torch.optim` parameter groups:
 - embedding tables (`query_feat`, `level_embed`, `label_enc`, also the pixel
   decoder's `level_embed` parameter, as the JAX package groups it):
   `SOLVER.WEIGHT_DECAY_EMBED`;
-- `MODEL.BACKBONE.FREEZE_AT` (1 = stem, 2 = stem + res2, ...) as
+- `MODEL.BACKBONE.FREEZE_AT` (1 = stem, 2 = stem + res2, ...; a Swin's
+  patch embedding, then its stages, as the JAX package masks them) as
   `requires_grad = False`; FrozenBN statistics are buffers and never train;
 - full-model gradient clipping by the global norm at `CLIP_VALUE`.
 
@@ -76,13 +77,19 @@ def build_lr_schedule(cfg) -> Callable[[int], float]:
 
 def freeze_backbone(model: nn.Module, freeze_at: int) -> None:
     """d2's FREEZE_AT: the stem (>= 1) and the stages res2.. up to `freeze_at`
-    stop training."""
+    stop training. A Swin is frozen by the JAX package's masks
+    (`mp_former_tpu/engine/optimizer.py:151-167`; the reference's Swin reads
+    no FREEZE_AT): its patch embedding and absolute position embedding (>= 1)
+    and `layers.{s-2}` (blocks and patch merging) for each stage s up to
+    `freeze_at`; the output norms `norm{i}` always train."""
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] != "backbone" or len(parts) < 2:
             continue
         stage = parts[1]
-        if (freeze_at >= 1 and stage == "stem") or any(
+        if stage == "layers":
+            stage = f"res{int(parts[2]) + 2}"
+        if (freeze_at >= 1 and stage in ("stem", "patch_embed", "absolute_pos_embed")) or any(
                 freeze_at >= s and stage == f"res{s}" for s in range(2, 6)):
             p.requires_grad_(False)
 

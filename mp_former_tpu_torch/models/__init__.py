@@ -1,7 +1,7 @@
 """Model components. Importing this package registers every ported component
 (`mp_former_tpu/models/__init__.py`)."""
 
-from .backbone import resnet  # noqa: F401
+from .backbone import resnet, swin  # noqa: F401
 from .pixel_decoder import msdeformattn  # noqa: F401
 from .transformer_decoder import mask2former_decoder  # noqa: F401
 from .meta_arch import mask_former_head, maskformer  # noqa: F401

@@ -85,7 +85,8 @@ def _port_modules():
     return sorted(mods) + ["chip_smoke", "tools.probe_torch_row_gather",
                            "tools.profile_torch_slice", "tools.make_synthetic_coco_torch",
                            "tools.make_synthetic_segm_torch", "tools.probe_torch_msda_bwd_bound",
-                           "tools.probe_torch_msda_bwd_windows"]
+                           "tools.probe_torch_msda_bwd_windows",
+                           "tools.probe_torch_masked_attn_offset"]
 
 
 def test_port_imports_no_jax():

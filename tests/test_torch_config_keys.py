@@ -20,11 +20,7 @@ ALIAS = re.compile(r"^\s*(\w+)\s*=\s*(?:self\.)?cfg\.(" + PATH + r")\s*(?:#.*)?$
 GET = re.compile(r"\bcfg\.(" + PATH + r")\.get\(\s*[\"']([A-Z][A-Z0-9_]*)[\"']")
 GETATTR = re.compile(r"getattr\(\s*cfg\.(" + PATH + r")\s*,\s*[\"']([A-Z][A-Z0-9_]*)[\"']")
 
-SWIN = {f"MODEL.SWIN.{k}" for k in (
-    "APE", "DEPTHS", "DROP_PATH_RATE", "EMBED_DIM", "MLP_RATIO", "NUM_HEADS", "OUT_FEATURES",
-    "PATCH_NORM", "PATCH_SIZE", "QKV_BIAS", "QK_SCALE", "USE_CHECKPOINT", "WINDOW_SIZE")}
 SET_ASIDE = {
-    "A17 Swin": SWIN,
     # A18: StandardTransformerDecoder's encoder, the DN_RATIO modes
     "A18": {"MODEL.MASK_FORMER.ENC_LAYERS", "MODEL.MASK_FORMER.DN_RATIO"},
     "A19 test-time augmentation": {"TEST.AUG.FLIP", "TEST.AUG.MAX_SIZE", "TEST.AUG.MIN_SIZES"},

@@ -593,6 +593,63 @@ def test_masked_attention_backward_kernel_matches_plain(cuda, dtype, tol, per_he
         assert got[0][:, :, 0].abs().max().item() == 0  # nothing to the q of a blocked row
 
 
+@pytest.mark.parametrize("S", [1024, 16384])
+def test_masked_attention_kernel_on_values_with_a_common_offset(cuda, S):
+    """Weights spread over the keys and values sharing an offset (the
+    decoder's features): the float32 kernel sums each 32-key step from 0 in
+    the tensor cores and the running output with round-to-nearest FMAs, so it
+    stays within 1e-5 of its own tiled arithmetic (relative to the largest
+    entry); summed in the tensor cores' accumulator, whose adds round toward
+    zero, it had drifted by 1e-4 at S = 16384."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    B, H, Q, D = 2, 8, 200, 32
+    q = 0.3 * torch.randn((B, H, Q, D), generator=g, device=cuda)
+    k = torch.randn((B, H, S, D), generator=g, device=cuda)
+    v = 3.0 + 0.25 * torch.randn((B, H, S, D), generator=g, device=cuda)
+    mask = torch.rand((B, Q, S), generator=g, device=cuda) < 0.1
+    got = mac.masked_attention(q, k, v, mask)
+    tiled = mac.masked_attention_tiled(q, k, v, mask)
+    assert (got - tiled).abs().max().item() <= 1e-5 * tiled.abs().max().item()
+    plain = mac.masked_attention_plain(q, k, v, mask)
+    assert (got - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,fwd_tol,bwd_tol", [(torch.float32, 1e-4, 1e-4),
+                                                   (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("B,S", [(1, 850), (1, 3400), (1, 13600), (2, 4096)])
+def test_masked_attention_kernels_at_200_queries(cuda, dtype, fwd_tol, bwd_tol, B, S):
+    """The Swin-L recipes' 200 queries: 13 tiles of 16 rows, the last one
+    ragged, two forward blocks a (batch, head). Strided head views, a mask
+    shared by the heads and one per head with fully masked rows; the forward
+    against the plain version and (float32) the kernel's tiled arithmetic,
+    the backward against the plain backward and its tiled arithmetic, dq the
+    same bit for bit from run to run."""
+    H, Q = 8, 200
+    q, k, v = _head_views(cuda, B, H, Q, S, dtype, seed=Q + S)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    grad_out = torch.randn((B, Q, H, 32), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    shared = torch.rand((B, Q, S), generator=g, device=cuda) < 0.7
+    shared[:, :3] = True
+    per_head = torch.rand((B, H, Q, S), generator=g, device=cuda) < 0.5
+    per_head[:, :, -1] = True
+    for m in (shared, per_head):
+        want = mac.masked_attention_plain(q.float(), k.float(), v.float(), m)
+        got = mac.masked_attention(q, k, v, m)
+        assert got.shape == (B, H, Q, 32) and (got.float() - want).abs().max().item() <= fwd_tol
+        if dtype == torch.float32:
+            assert (got - mac.masked_attention_tiled(q, k, v, m)).abs().max().item() <= 1e-5
+        _, stats, out32 = mac.masked_attn_fwd(q, k, v, m, with_stats=True)
+        want = mac.masked_attention_backward_plain(grad_out.float(), q.float(), k.float(),
+                                                   v.float(), m)
+        tiled = mac.masked_attention_backward_tiled(grad_out, q, k, v, m, out32, stats)
+        got = mac.masked_attn_bwd(grad_out, q, k, v, m, out32, stats)
+        for name, x, w, t in zip("qkv", got, want, tiled):
+            assert x.dtype == dtype and x.shape == w.shape, name
+            assert _rel(x, w) <= bwd_tol and _rel(x, t) <= bwd_tol, name
+        again = mac.masked_attn_bwd(grad_out, q, k, v, m, out32, stats)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_masked_attention_backward_kernel_bfloat16_takes_delta_from_the_float32_output(cuda):
     """The kernel takes delta = rowsum(dO * O) from the forward's float32
     output. With the weights spread over 4096 keys and k and v sharing an

@@ -211,3 +211,53 @@ def test_sgd_and_unknown_optimizers(pair):
     p.grad = torch.tensor([-5.0, 0.001, 5.0])
     topt.build_gradient_clipper(tcfg)([p])
     torch.testing.assert_close(p.grad, torch.tensor([-0.01, 0.001, 0.01]))
+
+
+SWIN_L = "configs/coco/instance-segmentation/swin/maskformer2_swin_large_IN21k_384_bs16_100ep.yaml"
+TINY_SWIN = ["MODEL.SWIN.EMBED_DIM", "16", "MODEL.SWIN.DEPTHS", "[2, 2, 2, 2]",
+             "MODEL.SWIN.NUM_HEADS", "[2, 4, 4, 8]", "MODEL.SWIN.WINDOW_SIZE", "4",
+             "MODEL.SWIN.APE", "True"]
+
+
+@pytest.mark.parametrize("freeze_at", [0, 1, 3])
+def test_swin_group_membership_matches_jax(freeze_at):
+    """The Swin's names (ROADMAP's `_EMBED_TOKENS` trap): weight decay by the
+    JAX package's `is_norm_param` / `is_embed_param`, the backbone multiplier,
+    and FREEZE_AT as the JAX optax chain itself masks it (a leaf whose update
+    of all-ones gradients is 0 is frozen; the reference's Swin reads no
+    FREEZE_AT): patch and position embeddings from 1, `layers.{s-2}` up to
+    stage s, the output norms never."""
+    jcfg, _, params, tcfg, tmodel, _ = _build_pair(
+        SMALL + SOLVER + TINY_SWIN + ["MODEL.BACKBONE.FREEZE_AT", str(freeze_at)], IMG, SWIN_L)
+    s = jcfg.SOLVER
+    tx = jopt.build_optimizer(jcfg, params)
+    updates, _ = jax.jit(lambda p: tx.update(jax.tree.map(jnp.ones_like, p), tx.init(p), p))(
+        params)
+
+    def per_leaf(fn):
+        return state_dict_from_jax_params(jax.tree_util.tree_map_with_path(
+            lambda path, a: np.full(np.shape(a), fn(path), np.float32), params))
+
+    want_wd = per_leaf(lambda path: s.WEIGHT_DECAY_NORM if jopt.is_norm_param(path) else
+                       s.WEIGHT_DECAY_EMBED if jopt.is_embed_param(path) else s.WEIGHT_DECAY)
+    want_mult = per_leaf(lambda path: s.BACKBONE_MULTIPLIER if jopt.is_backbone_param(path)
+                         else 1.0)
+    want_frozen = state_dict_from_jax_params(jax.tree.map(
+        lambda u: np.full(np.shape(u), float(np.all(np.asarray(u) == 0)), np.float32), updates))
+
+    import copy
+    model = copy.deepcopy(tmodel)
+    topt.freeze_backbone(model, freeze_at)
+    seen = {n: (g["weight_decay"], g["lr"]) for g in topt.param_groups(tcfg, model)
+            for n in g["names"]}
+    for n, p in model.named_parameters():
+        assert p.requires_grad == (want_frozen[n].max().item() == 0.0), n
+        if p.requires_grad:
+            assert seen[n] == (pytest.approx(want_wd[n].flatten()[0].item()),
+                               pytest.approx(want_mult[n].flatten()[0].item())), n
+    frozen = {n for n, p in model.named_parameters() if not p.requires_grad}
+    stages = ("backbone.patch_embed.", "backbone.absolute_pos_embed",
+              *(f"backbone.layers.{i}." for i in range(max(freeze_at - 1, 0))))
+    assert frozen == {n for n in seen.keys() | frozen if freeze_at and n.startswith(stages)}
+    assert seen["backbone.layers.3.blocks.1.attn.relative_position_bias_table"][0] == 0.02
+    assert seen["backbone.norm3.weight"][0] == 0.01
