@@ -25,6 +25,11 @@ result line):
    (1536x2048: 64512 and 49152) recipes, float32 and bfloat16, against their
    plain versions at phase K1's and K3's limits times the plain output's
    largest entry where that is below 1, timed beside the bound and SDPA;
+4b. `video_canvases` (slice 6, A20a): K3 at 100 and 200 queries over the
+   keys of a 36-frame clip's three levels (a 720x1280 video at the YouTube-VIS
+   recipes' MIN_SIZE_TEST 360 is a 384x640 canvas: S = 8640, 34560 and
+   138240, mask shared by the heads) and K1 on the clip's batch of 36 frames
+   of 5040 queries, float32 and bfloat16, held and timed as in 4a;
 5. K2 (tap weighting) against its plain version at both call shapes of the
    800x1088 canvas, float32 and bfloat16, and at a ragged small shape;
 6. the row-gather kernels against their plain versions at the shapes of
@@ -60,6 +65,23 @@ result line):
     kernel forward against the plain ops), then in bfloat16 as phase 10a;
     the device busy ms, the backbone's device span (`stage::backbone`) and
     the peak memory of a warm request in both types;
+10c. slice 6 (A20a), video serving: three synthetic videos of 720x1280 (2,
+    5 and 36 frames, `.npy`, written by `tools/make_synthetic_ytvis_torch.py`
+    under `output/chip_smoke_ytvis/`); `slice_video`: the R50 YouTube-VIS
+    2019 recipe at full width (40 classes, 100 queries, seeded weights) serves
+    each clip whole (`prep_clip`, the forward, `inference_video`): K1 6 and
+    K3 9 launches a clip, the top-10 tubes at 720x1280; a clip's host ms,
+    device busy ms and peak memory; the kernel forward against the plain ops
+    given the kernel path's attention decisions (`paired_outputs`);
+    `slice_video_bf16`: the same in `TPU.COMPUTE_DTYPE bfloat16` (every launch
+    in bfloat16, held as in 10a); `eval_ytvis`: 4 clips of 360x640 (2, 3, 5
+    and 8 frames) whose ground truth is rewritten from the seeded model's own
+    first tubes through the plain ops, scored by
+    `mp_former_tpu_torch.train_net_video.main --eval-only` (K1 6 and K3 9
+    launches a clip): tube AP through the kernels within 0.5 of tube AP
+    through the plain ops; `slice_video_swin`: the Swin-L YouTube-VIS 2019
+    recipe (200 queries, MIN_SIZE_TEST 480: a 480x864 canvas, K3 over up to
+    233280 keys) serves the 36-frame clip as `slice_video` does;
 11. K1's backward kernel against `ms_deform_attn_backward_plain` and against
     autograd of the plain forward, at the 800x1088 canvas, at the training
     shape (B = 8, 512x512) and at the released batch's (B = 16, 1024x1024),
@@ -548,89 +570,141 @@ def canvas_levels(h: int, w: int) -> list:
     return [(h // s, w // s) for s in (32, 16, 8)]
 
 
+def hold_k1_at(torch, g, shapes, batch: int, dtype) -> dict:
+    """K1 on `batch` images of the encoder's tokens at levels `shapes`, seeded
+    locations with 10% of their range off the map, against its plain version
+    at TOL times the plain output's largest entry where that is below 1
+    (`scaled_tol`); timed beside the plain version and the bound."""
+    from mp_former_tpu_torch.ops import msda_cuda
+
+    M, D, P = 8, 32, 4
+    L, S = len(shapes), sum(a * b for a, b in shapes)
+    value = torch.randn((batch, S, M, D), generator=g, device="cuda")
+    loc = torch.rand((batch, S, M, L, P, 2), generator=g, device="cuda") * 1.2 - 0.1
+    attn = torch.randn((batch, S, M, L * P), generator=g, device="cuda").softmax(-1)
+    attn = attn.view(batch, S, M, L, P)
+    sizes = torch.tensor([[b, a] for a, b in shapes], device="cuda").view(1, 1, 1, L, 1, 2)
+    base = (loc * sizes - 0.5).floor()
+    on_map = ((base >= -1) & (base <= sizes - 1)).all(-1).sum().item()
+    name = str(dtype).split(".")[1]
+    v, lo, a = (t.to(dtype).contiguous() for t in (value, loc, attn))
+    del value, loc, attn
+    got = msda_cuda.msda_fwd(v, shapes, lo, a)
+    want = msda_cuda.ms_deform_attn_plain(v.float(), shapes, lo.float(), a.float())
+    err = (got.float() - want).abs().max().item()
+    tol, out_max = scaled_tol(TOL[name], want)
+    del want
+    times = timed(lambda: msda_cuda.msda_fwd(v, shapes, lo, a),
+                  lambda: msda_cuda.ms_deform_attn_plain(v, shapes, lo, a), plain_calls=2)
+    bnd = bound(nbytes(v, lo, a, got), on_map * 5 * 2 * D, name)
+    return {"shape": f"B{batch}xQ{S}xM{M}xD{D}xL{L}xP{P}", "queries": S, "batch": batch,
+            "max_abs_err": err, "plain_max_abs": out_max, "tol": tol, **times, **bnd}
+
+
+def hold_k3_at(torch, g, Q: int, keys: int, dtype) -> dict:
+    """K3 on Q queries over `keys` keys (the strided head views of one
+    image's projections) with a mask shared by the heads, as the decoder
+    hands it, 5 rows fully masked, against its plain version at TOL times the
+    plain output's largest entry where that is below 1 (`scaled_tol`; over
+    10^4 keys and more the outputs are averages, a few hundredths at most, and
+    an absolute limit would pass a kernel that lost a chunk of keys); SDPA on
+    an additive mask held to the same limit; timed beside the plain version,
+    the bound and SDPA."""
+    import torch.nn.functional as F
+
+    from mp_former_tpu_torch.ops import masked_attention_cuda as mac
+
+    H, D = 8, 32
+    name = str(dtype).split(".")[1]
+    q, k, v = (torch.randn((1, n, H * D), generator=g, device="cuda").to(dtype)
+               .view(1, n, H, D).transpose(1, 2) for n in (Q, keys, keys))
+    mask = torch.rand((1, Q, keys), generator=g, device="cuda") < 0.7
+    mask[:, :5] = True  # fully masked rows
+    want = mac.masked_attention_plain(q.float(), k.float(), v.float(), mask)
+    err = (mac.masked_attn_fwd(q, k, v, mask).float() - want).abs().max().item()
+    tol, out_max = scaled_tol(TOL[name], want)
+    additive = torch.zeros((1, 1, Q, keys), dtype=dtype, device="cuda")
+    additive.masked_fill_(mask[:, None], -1e9)
+    lib_err = (F.scaled_dot_product_attention(q, k, v, attn_mask=additive).float()
+               - want).abs().max().item()
+    del want
+    times = timed(lambda: mac.masked_attn_fwd(q, k, v, mask),
+                  lambda: mac.masked_attention_plain(q, k, v, mask),
+                  lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive),
+                  plain_calls=2 if keys > 50000 else 5)
+    flops = 4.0 * H * Q * keys * D
+    n_bytes = nbytes(q, k, v, mask) + q.numel() * q.element_size()
+    bnd = (bound(n_bytes, 3 * flops, "tf32") if dtype == torch.float32
+           else bound(n_bytes, flops, name))
+    return {"shape": f"B1xH{H}xQ{Q}xS{keys}xD{D}", "queries": Q, "keys": keys,
+            "max_abs_err": err, "library_max_abs_err": lib_err, "plain_max_abs": out_max,
+            "tol": tol, **times, **bnd}
+
+
+def log_canvas_row(phase: str, kernel: str, where: str, dtype: str, row: dict, card: str) -> None:
+    extra = ({"library_max_abs_err": f"{row['library_max_abs_err']:.3e}",
+              "library": "F.scaled_dot_product_attention"} if kernel == "K3" else {})
+    log(phase, kernel=kernel, canvas=where, dtype=dtype, shape=row["shape"],
+        max_abs_err=f"{row['max_abs_err']:.3e}", plain_max_abs=f"{row['plain_max_abs']:.3e}",
+        tol=f"{row['tol']:.3e}",
+        **fmt_times({k: row[k] for k in ("ms", "issue_ms", "plain_ms", "plain_issue_ms",
+                                          "library_ms", "library_issue_ms")}),
+        bound_ms=f"{row['bound_ms']:.5f}", bound_by=row["bound_by"], **extra, card=repr(card))
+    if not (row["max_abs_err"] <= row["tol"] and row.get("library_max_abs_err", 0.0) <= row["tol"]):
+        raise AssertionError(f"{phase} {kernel} {where} {dtype}: max abs error "
+                             f"{row['max_abs_err']} (SDPA {row.get('library_max_abs_err')}) "
+                             f"against the plain version, limit {row['tol']}")
+
+
 def phase_test_canvases(torch, card: str) -> dict:
     """K1 and K3 at the test canvases of the Cityscapes and Mapillary Vistas
     recipes, float32 and bfloat16, against their plain versions: K1 on one
     image's 43008 and 64512 queries, K3 on 100 queries over the 1/8 level's
-    32768 and 49152 keys with a mask shared by the heads, as the decoder
-    hands it; each timed beside its plain version, its bound and, for K3,
-    SDPA. The limit is TOL (phases K1 and K3) times the plain output's
-    largest entry where that is below 1 (`scaled_tol`): over 32768 keys K3's
-    outputs are averages of ~10^4 values, a few hundredths at most, and an
-    absolute 2e-2 would pass a kernel that lost a chunk of keys."""
-    import torch.nn.functional as F
-
-    from mp_former_tpu_torch.ops import masked_attention_cuda as mac
-    from mp_former_tpu_torch.ops import msda_cuda
-
+    32768 and 49152 keys (`hold_k1_at`, `hold_k3_at`)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    M, D, P, H, Q = 8, 32, 4, 8, 100
     res = {}
     for canvas, (h, w) in TEST_CANVASES.items():
         shapes = canvas_levels(h, w)
-        L, S = len(shapes), sum(a * b for a, b in shapes)
-        value = torch.randn((1, S, M, D), generator=g, device="cuda")
-        loc = torch.rand((1, S, M, L, P, 2), generator=g, device="cuda") * 1.2 - 0.1
-        attn = torch.randn((1, S, M, L * P), generator=g, device="cuda").softmax(-1)
-        attn = attn.view(1, S, M, L, P)
-        sizes = torch.tensor([[b, a] for a, b in shapes], device="cuda").view(1, 1, 1, L, 1, 2)
-        base = (loc * sizes - 0.5).floor()
-        on_map = ((base >= -1) & (base <= sizes - 1)).all(-1).sum().item()
-        keys = shapes[-1][0] * shapes[-1][1]
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
-            v, lo, a = (t.to(dtype).contiguous() for t in (value, loc, attn))
-            got = msda_cuda.msda_fwd(v, shapes, lo, a)
-            want = msda_cuda.ms_deform_attn_plain(v.float(), shapes, lo.float(), a.float())
-            k1_err = (got.float() - want).abs().max().item()
-            k1_tol, k1_out_max = scaled_tol(TOL[name], want)
-            del want
-            k1_t = timed(lambda: msda_cuda.msda_fwd(v, shapes, lo, a),
-                         lambda: msda_cuda.ms_deform_attn_plain(v, shapes, lo, a), plain_calls=2)
-            k1_b = bound(nbytes(v, lo, a, got), on_map * 5 * 2 * D, name)
-            log("test_canvases", kernel="K1", canvas=f"{canvas} {h}x{w}", dtype=name,
-                shape=f"B1xQ{S}xM{M}xD{D}xL{L}xP{P}", max_abs_err=f"{k1_err:.3e}",
-                plain_max_abs=f"{k1_out_max:.3e}", tol=f"{k1_tol:.3e}", **fmt_times(k1_t), bound_ms=f"{k1_b['bound_ms']:.4f}",
-                bound_by=k1_b["bound_by"], card=repr(card))
-            del got
-            q, k, vv = (torch.randn((1, n, H * D), generator=g, device="cuda").to(dtype)
-                        .view(1, n, H, D).transpose(1, 2) for n in (Q, keys, keys))
-            mask = torch.rand((1, Q, keys), generator=g, device="cuda") < 0.7
-            mask[:, :5] = True  # fully masked rows
-            want = mac.masked_attention_plain(q.float(), k.float(), vv.float(), mask)
-            k3_err = (mac.masked_attn_fwd(q, k, vv, mask).float() - want).abs().max().item()
-            k3_tol, k3_out_max = scaled_tol(TOL[name], want)
-            additive = torch.zeros((1, 1, Q, keys), dtype=dtype, device="cuda")
-            additive.masked_fill_(mask[:, None], -1e9)
-            lib_err = (F.scaled_dot_product_attention(q, k, vv, attn_mask=additive).float()
-                       - want).abs().max().item()
-            del want
-            k3_t = timed(lambda: mac.masked_attn_fwd(q, k, vv, mask),
-                         lambda: mac.masked_attention_plain(q, k, vv, mask),
-                         lambda: F.scaled_dot_product_attention(q, k, vv, attn_mask=additive),
-                         plain_calls=5)
-            flops = 4.0 * H * Q * keys * D
-            n_bytes = nbytes(q, k, vv, mask) + q.numel() * q.element_size()
-            k3_b = (bound(n_bytes, 3 * flops, "tf32") if dtype == torch.float32
-                    else bound(n_bytes, flops, name))
-            log("test_canvases", kernel="K3", canvas=f"{canvas} {h}x{w}", dtype=name,
-                shape=f"B1xH{H}xQ{Q}xS{keys}xD{D}", max_abs_err=f"{k3_err:.3e}",
-                library_max_abs_err=f"{lib_err:.3e}", plain_max_abs=f"{k3_out_max:.3e}",
-                tol=f"{k3_tol:.3e}", **fmt_times(k3_t),
-                bound_ms=f"{k3_b['bound_ms']:.5f}", bound_by=k3_b["bound_by"],
-                library="F.scaled_dot_product_attention", card=repr(card))
-            if not (k1_err <= k1_tol and max(k3_err, lib_err) <= k3_tol):
-                raise AssertionError(f"test_canvases {canvas} {name}: K1 {k1_err} (limit "
-                                     f"{k1_tol}), K3 {k3_err}, SDPA {lib_err} (limit {k3_tol}) "
-                                     f"against the plain versions")
-            res[("K1", canvas, name)] = {"queries": S, "max_abs_err": k1_err, "tol": k1_tol,
-                                         **k1_t, **k1_b}
-            res[("K3", canvas, name)] = {"keys": keys, "max_abs_err": k3_err, "tol": k3_tol,
-                                         **k3_t, **k3_b}
-            del q, k, vv, mask, additive
-        del value, loc, attn
-        torch.cuda.empty_cache()
+            for kernel, row in (("K1", hold_k1_at(torch, g, shapes, 1, dtype)),
+                                ("K3", hold_k3_at(torch, g, 100, shapes[-1][0] * shapes[-1][1],
+                                                  dtype))):
+                log_canvas_row("test_canvases", kernel, f"{canvas} {h}x{w}", name, row, card)
+                res[(kernel, canvas, name)] = row
+            torch.cuda.empty_cache()
     log("test_canvases", ok=True)
+    return res
+
+
+# a 36-frame clip of a 720x1280 video at the YouTube-VIS recipes'
+# MIN_SIZE_TEST 360 is a 384x640 canvas: its levels 12x20, 24x40 and 48x80
+# give K1 36 frames of 5040 queries and K3 the keys of a level in every frame
+VIDEO_CANVAS = (384, 640)
+VIDEO_CANVAS_FRAMES = 36
+
+
+def phase_video_canvases(torch, card: str) -> dict:
+    """K3 at 100 and 200 queries (the ResNet and Swin-L video recipes) over
+    the keys of the three levels of a 36-frame clip (8640, 34560, 138240),
+    and K1 on the clip's batch of 36 x 5040 queries, float32 and bfloat16,
+    as `phase_test_canvases` holds and times them."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    shapes = canvas_levels(*VIDEO_CANVAS)
+    where = f"{VIDEO_CANVAS_FRAMES} frames of {VIDEO_CANVAS[0]}x{VIDEO_CANVAS[1]}"
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        row = hold_k1_at(torch, g, shapes, VIDEO_CANVAS_FRAMES, dtype)
+        log_canvas_row("video_canvases", "K1", where, name, row, card)
+        res[("K1", where, name)] = row
+        for Q in K3_QUERIES:
+            for h, w in shapes:
+                row = hold_k3_at(torch, g, Q, VIDEO_CANVAS_FRAMES * h * w, dtype)
+                log_canvas_row("video_canvases", "K3", where, name, row, card)
+                res[("K3", f"{where}, {Q} queries", name)] = row
+        torch.cuda.empty_cache()
+    log("video_canvases", ok=True)
     return res
 
 
@@ -729,11 +803,13 @@ def load_cfg(config: str, overrides, released_decoder: bool = True):
     """The recipe `config` with `overrides`; `released_decoder`: with the DN
     decoder, as eval.sh runs the released recipe (the ADE20K, Cityscapes
     and Mapillary Vistas recipes run their own, the vanilla one)."""
-    from mp_former_tpu_torch.config import get_cfg, add_deeplab_config, add_maskformer2_config
+    from mp_former_tpu_torch.config import (add_deeplab_config, add_maskformer2_config,
+                                            add_maskformer2_video_config, get_cfg)
 
     cfg = get_cfg()
     add_deeplab_config(cfg)
     add_maskformer2_config(cfg)
+    add_maskformer2_video_config(cfg)  # the video recipes' keys; the others leave them be
     cfg.merge_from_file(os.path.join(REPO, config))
     if released_decoder:
         cfg.merge_from_list(["MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME",
@@ -866,11 +942,12 @@ def serve(torch, phase: str, cfg, predictor, images, requests, per_request: dict
 
 def compare_outputs(torch, phase: str, what: str, cfg, canvas, got: dict, want: dict) -> None:
     """pred_logits within 1e-3, pred_masks within 1e-2, and no mask pixel on
-    the other side of 0 unless its logit is within 5e-2 of 0."""
+    the other side of 0 unless its logit is within 5e-2 of 0. `canvas` is an
+    image (1, H, W, 3) or a clip (1, T, H, W, 3)."""
     got_cls, want_cls = got["pred_logits"].float(), want["pred_logits"].float()
     got_msk, want_msk = got["pred_masks"].float(), want["pred_masks"].float()
-    if got_msk.shape != (1, cfg.MODEL.MASK_FORMER.NUM_OBJECT_QUERIES,
-                         canvas.shape[1] // 4, canvas.shape[2] // 4):
+    if got_msk.shape != (1, cfg.MODEL.MASK_FORMER.NUM_OBJECT_QUERIES, *canvas.shape[1:-3],
+                         canvas.shape[-3] // 4, canvas.shape[-2] // 4):
         raise AssertionError(f"{phase}: pred_masks shape {tuple(got_msk.shape)}")
     if not (torch.isfinite(got_cls).all() and torch.isfinite(got_msk).all()):
         raise AssertionError(f"{phase}: non-finite kernel-path outputs")
@@ -878,7 +955,7 @@ def compare_outputs(torch, phase: str, what: str, cfg, canvas, got: dict, want: 
     msk_err = (got_msk - want_msk).abs().max().item()
     near0 = want_msk.abs() < 5e-2
     disagree = (((got_msk > 0) != (want_msk > 0)) & ~near0).sum().item()
-    log(phase, compare=what, canvas=tuple(canvas.shape[1:3]),
+    log(phase, compare=what, canvas=tuple(canvas.shape[1:-1]),
         logits_max_abs_err=f"{cls_err:.3e}", logits_tol=1e-3,
         masks_max_abs_err=f"{msk_err:.3e}", masks_tol=1e-2,
         threshold_disagreements_off_zero=disagree,
@@ -1027,6 +1104,27 @@ def check_bf16_types(phase: str, seen: dict) -> None:
         raise AssertionError(f"{phase}: kernels launched in other types than bfloat16: {wrong}")
 
 
+def hold_bf16(torch, phase: str, what: str, k16: dict, p16: dict, p32: dict) -> dict:
+    """The bfloat16 outputs through the kernels (`k16`) no further from the
+    float32 outputs through the plain ops (`p32`) than the bfloat16 outputs
+    through the plain ops (`p16`) are: err(k16) <= 1.5 x err(p16) + 1e-3 for
+    the class and the mask logits, each error the largest difference relative
+    to p32's largest entry. Returns {key: (err(k16), err(p16))}."""
+    if k16["pred_masks"].dtype != torch.bfloat16 or p32["pred_masks"].dtype != torch.float32:
+        raise AssertionError(f"{phase}: output types {k16['pred_masks'].dtype}, "
+                             f"{p32['pred_masks'].dtype}")
+    errs = {}
+    for key in ("pred_logits", "pred_masks"):
+        scale = p32[key].abs().max().item()
+        kernel = (k16[key].float() - p32[key]).abs().max().item() / scale
+        plain = (p16[key].float() - p32[key]).abs().max().item() / scale
+        if not (math.isfinite(kernel) and kernel <= 1.5 * plain + 1e-3):
+            raise AssertionError(f"{phase}: {what} {key}: bf16 kernels {kernel:.3e}, bf16 plain "
+                                 f"ops {plain:.3e} from float32")
+        errs[key] = (kernel, plain)
+    return errs
+
+
 def phase_slice_bf16(torch, card: str, phase: str, cfg, per_request: dict, images,
                      f32_predictor):
     """`TPU.COMPUTE_DTYPE bfloat16`: the float32 phase's model (the same
@@ -1057,18 +1155,10 @@ def phase_slice_bf16(torch, card: str, phase: str, cfg, per_request: dict, image
                 model.compute_dtype = torch.float32
                 p32 = model(canvas)
                 model.compute_dtype = torch.bfloat16
-            if k16["pred_masks"].dtype != torch.bfloat16 or p32["pred_masks"].dtype != torch.float32:
-                raise AssertionError(f"{phase}: output types {k16['pred_masks'].dtype}, "
-                                     f"{p32['pred_masks'].dtype}")
-            for key in ("pred_logits", "pred_masks"):
-                scale = p32[key].abs().max().item()
-                kernel = (k16[key].float() - p32[key]).abs().max().item() / scale
-                plain = (p16[key].float() - p32[key]).abs().max().item() / scale
-                if not (math.isfinite(kernel) and kernel <= 1.5 * plain + 1e-3):
-                    raise AssertionError(f"{phase}: request {h}x{w} {key}: bf16 kernels "
-                                         f"{kernel:.3e}, bf16 plain ops {plain:.3e} from float32")
+            for key, errs in hold_bf16(torch, phase, f"request {h}x{w}", k16, p16,
+                                       p32).items():
                 w0 = worst.get(key, (0.0, 0.0))
-                worst[key] = (max(w0[0], kernel), max(w0[1], plain))
+                worst[key] = (max(w0[0], errs[0]), max(w0[1], errs[1]))
     log(phase, compare="bf16 kernels and bf16 plain ops against float32 plain ops, worst "
         "request, relative to the float32 output's largest entry",
         **{f"{k}_kernels": f"{v[0]:.3e}" for k, v in worst.items()},
@@ -3242,18 +3332,24 @@ SWIN_TRAIN_STEPS = 5
 
 
 @contextlib.contextmanager
-def backbone_range(model):
-    """The backbone's forward inside a `stage::backbone` range, whose device
-    span a `torch.profiler` trace shows."""
+def stage_ranges(model):
+    """The backbone's forward, the pixel decoder's and the transformer
+    decoder's each inside a `stage::<name>` range, whose device span a
+    `torch.profiler` trace shows."""
     from torch.profiler import record_function
 
-    forward = model.backbone.forward
+    def ranged(name, fn):
+        def wrapper(*args, **kwargs):
+            with record_function(f"stage::{name}"):
+                return fn(*args, **kwargs)
+        return wrapper
 
-    def ranged(*args, **kwargs):
-        with record_function("stage::backbone"):
-            return forward(*args, **kwargs)
-
-    with mock.patch.object(model.backbone, "forward", ranged):
+    head = model.sem_seg_head
+    with mock.patch.object(model.backbone, "forward", ranged("backbone", model.backbone.forward)), \
+            mock.patch.object(head.pixel_decoder, "forward_features",
+                              ranged("pixel_decoder", head.pixel_decoder.forward_features)), \
+            mock.patch.object(head.predictor, "forward",
+                              ranged("decoder", head.predictor.forward)):
         yield
 
 
@@ -3264,7 +3360,7 @@ def serving_profile(torch, predictor, image, calls: int = 3) -> dict:
 
     from mp_former_tpu_torch.utils.cuda_timing import device_busy_us
 
-    with backbone_range(predictor.model):
+    with stage_ranges(predictor.model):
         predictor(image)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3398,6 +3494,237 @@ def phase_train_swin(torch, card: str) -> dict:
     return paths
 
 
+# slice 6 (A20a): the YouTube-VIS recipes serve whole clips. Synthetic
+# videos from tools/make_synthetic_ytvis_torch.py at a YouTube-VIS video's
+# 720x1280, of 2, 5 and 36 frames (36: the longest clips the JAX loop's
+# length buckets name, `mp_former_tpu/video/eval_loop.py:42`)
+YTVIS_CONFIG = "configs/youtubevis_2019/video_maskformer2_R50_bs16_8ep.yaml"
+YTVIS_SWIN_CONFIG = ("configs/youtubevis_2019/swin/"
+                     "video_maskformer2_swin_large_IN21k_384_bs16_8ep.yaml")
+VIDEO_ROOT = os.path.join(REPO, "output", "chip_smoke_ytvis")
+VIDEO_SIZE = (720, 1280)
+VIDEO_LENGTHS = (2, 5, 36)
+# eval_ytvis: a few clips at 360x640 (the recipes' test size, no resize),
+# their ground truth the plain path's own first tubes (at most
+# VIDEO_ORACLE_TUBES a clip, each present in every frame)
+VIDEO_ORACLE_ROOT = os.path.join(REPO, "output", "chip_smoke_ytvis_oracle")
+VIDEO_ORACLE_SIZE = (360, 640)
+VIDEO_ORACLE_LENGTHS = (2, 3, 5, 8)
+VIDEO_ORACLE_TUBES = 3
+VIDEO_AP_TOL = 0.5
+
+
+def write_clips(root: str, lengths, size, seed: int) -> tuple:
+    """Synthetic YouTube-VIS videos of `lengths` frames at `size` (40
+    classes, the recipes' count) as the `ytvis_2019_val` layout under `root`:
+    (json path, records)."""
+    import shutil
+
+    from mp_former_tpu_torch.video.ytvis import load_ytvis_json
+    from tools.make_synthetic_ytvis_torch import write_dataset
+
+    shutil.rmtree(root, ignore_errors=True)
+    json_file = write_dataset(root, videos=len(lengths), frames=tuple(lengths), height=size[0],
+                              width=size[1], classes=40, split="valid", seed=seed)
+    return json_file, load_ytvis_json(json_file, os.path.join(root, "ytvis_2019", "valid",
+                                                              "JPEGImages"))
+
+
+def serve_clip(torch, cfg, model, item) -> tuple:
+    """One prepared clip (`prep_clip`) through the whole-clip path of
+    `inference_on_video_dataset`: the forward and `inference_video`, whose
+    tubes reach the host (scores, classes, tubes)."""
+    from torch.profiler import record_function
+
+    from mp_former_tpu_torch.video.eval_loop import inference_video
+
+    rec = item["rec"]
+    out = model(torch.from_numpy(item["clip"])[None].to("cuda"))
+    with record_function("stage::postprocess"):
+        return inference_video(out["pred_logits"][0], out["pred_masks"][0],
+                               (item["rh"], item["rw"]), rec["height"], rec["width"],
+                               cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+
+
+def clip_profile(torch, cfg, model, item) -> dict:
+    """A warm clip through `serve_clip` under `torch.profiler`: its device
+    busy ms, the device span of each stage (`stage_ranges`, and
+    `inference_video` with its copy of the tubes as `postprocess`; the clip's
+    copy to the card is in no stage) and the port's kernels' device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mp_former_tpu_torch.utils.cuda_timing import device_busy_us
+
+    with stage_ranges(model):
+        serve_clip(torch, cfg, model, item)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            serve_clip(torch, cfg, model, item)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {"device_busy_ms": device_busy_us(events) / 1e3}
+    out.update({e.key: e.device_time_total / 1e3 for e in events if e.key.startswith("stage::")})
+    out["port_kernels_ms"] = sum(e.self_device_time_total for e in events
+                                 if e.device_type.name == "CUDA"
+                                 and any(n in e.key for n in PORT_KERNEL_NAMES)) / 1e3
+    return out
+
+
+def phase_slice_video(torch, card: str, phase: str, cfg, records) -> dict:
+    """The video recipe `cfg` at full width with seeded weights serves each
+    record's whole clip through `prep_clip` and `serve_clip`, counted: K1 6
+    (the pixel decoder's encoder on the clip's frames as one batch) and K3 9
+    (the decoder's cross-attention over the keys of all frames of a level)
+    launches a clip, whatever its length; the top-10 tubes at the video's
+    size. A clip's host ms (first and warm, the tubes on the host), device
+    busy ms and peak memory. The kernel forward is held against the plain
+    ops: in float32 given the kernel path's attention decisions
+    (`paired_outputs`, each decision taken otherwise within ATTN_FLIP_MARGIN
+    of 0), in bfloat16 by `hold_bf16` (every launch in bfloat16). The device
+    time of a warm clip is split by stage (`clip_profile`). Returns the
+    launches of all clips."""
+    from mp_former_tpu_torch.video.eval_loop import prep_clip
+
+    model = seeded_model(torch, cfg).to("cuda")
+    bf16 = model.compute_dtype == torch.bfloat16
+    total = dict.fromkeys(SERVE_EXPECTED, 0)
+    for rec in records:
+        t0 = time.perf_counter()
+        item = prep_clip(cfg, rec)
+        prep_ms = (time.perf_counter() - t0) * 1e3
+        clip = torch.from_numpy(item["clip"])[None].to("cuda")
+        what = f"clip of {item['t']} frames, canvas {tuple(clip.shape[2:4])}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode(), launch_types() as seen:
+            scores, classes, tubes = serve_clip(torch, cfg, model, item)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if launches != SERVE_EXPECTED:
+            raise AssertionError(f"{phase}: {what}: kernel launches {launches}, expected "
+                                 f"{SERVE_EXPECTED}")
+        for k, v in launches.items():
+            total[k] += v
+        if bf16:
+            check_bf16_types(phase, seen)
+        if tubes.shape != (10, item["t"], rec["height"], rec["width"]) or tubes.dtype != bool \
+                or not np.isfinite(scores).all() \
+                or not ((classes >= 0) & (classes < cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)).all():
+            raise AssertionError(f"{phase}: {what}: tubes {tubes.shape} {tubes.dtype}, scores "
+                                 f"{scores}, classes {classes}")
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            serve_clip(torch, cfg, model, item)
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            prof = clip_profile(torch, cfg, model, item)
+        log(phase, clip=what, launches=launches, prep_ms=f"{prep_ms:.1f}",
+            host_ms_first=f"{first_ms:.1f}", host_ms_warm=f"{warm_ms:.1f}",
+            **{k.replace("stage::", "device_ms_"): f"{v:.2f}" for k, v in prof.items()},
+            peak_GiB=f"{peak:.2f}", tube_bytes_to_host=tubes.nbytes, card=repr(card))
+        if bf16:
+            with torch.inference_mode():
+                k16 = model(clip)
+                with plain_ops():
+                    p16 = model(clip)
+                    model.compute_dtype = torch.float32
+                    p32 = model(clip)
+                    model.compute_dtype = torch.bfloat16
+            errs = hold_bf16(torch, phase, what, k16, p16, p32)
+            log(phase, compare=f"{what}: bf16 kernels and bf16 plain ops against float32 plain "
+                "ops, relative to the float32 output's largest entry",
+                **{f"{k}_kernels": f"{v[0]:.3e}" for k, v in errs.items()},
+                **{f"{k}_plain": f"{v[1]:.3e}" for k, v in errs.items()},
+                bound="1.5 x plain + 1e-3")
+            del k16, p16, p32
+        else:
+            k_out, p_out, n_flips, margin = paired_outputs(torch, model, clip)
+            log(phase, compare=f"{what}: kernel vs plain ops",
+                attention_decisions_taken_otherwise=n_flips,
+                their_largest_abs_mask_logit=f"{margin:.3e}", margin=ATTN_FLIP_MARGIN)
+            if margin > ATTN_FLIP_MARGIN:
+                raise AssertionError(f"{phase}: {what}: an attention decision differs at a "
+                                     f"mask logit of {margin}")
+            compare_outputs(torch, phase, f"{what}: kernel vs plain ops", cfg, clip, k_out, p_out)
+            del k_out, p_out
+        del clip, tubes
+        torch.cuda.empty_cache()
+    log(phase, ok=True)
+    return total
+
+
+def phase_eval_ytvis(torch, card: str) -> dict:
+    """The R50 video recipe scored through its entry point: VIDEO_ORACLE_LENGTHS
+    clips written by the tool, their ground truth rewritten (compressed RLE)
+    from the seeded model's own first tubes through the plain ops, the
+    weights saved; `train_net_video.main --eval-only` with MODEL.WEIGHTS on
+    `ytvis_2019_val` registered from the written root, counted (K1 6 and K3
+    9 launches a clip); tube AP through the kernels within VIDEO_AP_TOL of
+    tube AP through the plain ops (`inference_on_video_dataset`)."""
+    from mp_former_tpu_torch import train_net_video
+    from mp_former_tpu_torch.video.eval_loop import inference_on_video_dataset, prep_clip
+    from mp_former_tpu_torch.video.ytvis import load_ytvis_json
+    from tools.make_synthetic_ytvis_torch import rle_string
+
+    cfg = load_cfg(YTVIS_CONFIG, [], released_decoder=False)
+    model = seeded_model(torch, cfg).to("cuda")
+    json_file, records = write_clips(VIDEO_ORACLE_ROOT, VIDEO_ORACLE_LENGTHS, VIDEO_ORACLE_SIZE,
+                                     SEED + 2)
+    with open(json_file) as f:
+        data = json.load(f)
+    data["annotations"] = []
+    with torch.inference_mode(), plain_ops():
+        for rec in records:
+            _, classes, tubes = serve_clip(torch, cfg, model, prep_clip(cfg, rec))
+            present = [j for j in range(len(tubes)) if tubes[j].any(axis=(1, 2)).all()]
+            for j in present[:VIDEO_ORACLE_TUBES]:
+                data["annotations"].append({
+                    "id": len(data["annotations"]) + 1, "video_id": rec["video_id"],
+                    "category_id": int(classes[j]) + 1, "iscrowd": 0,
+                    "segmentations": [rle_string(m) for m in tubes[j]],
+                    "areas": [float(m.sum()) for m in tubes[j]]})
+    if not data["annotations"]:
+        raise AssertionError("eval_ytvis: the plain ops made no tube present in every frame: "
+                             "the oracle would be vacuous")
+    with open(json_file, "w") as f:
+        json.dump(data, f)
+    weights = os.path.join(VIDEO_ORACLE_ROOT, "model_final.pth")
+    torch.save({"model": model.state_dict()}, weights)
+    args = train_net_video.default_argument_parser().parse_args(
+        ["--config-file", os.path.join(REPO, YTVIS_CONFIG), "--eval-only", "MODEL.WEIGHTS",
+         weights, "OUTPUT_DIR", os.path.join(VIDEO_ORACLE_ROOT, "out")])
+    root = os.environ["DETECTRON2_DATASETS"]
+    os.environ["DETECTRON2_DATASETS"] = VIDEO_ORACLE_ROOT  # read by register_all_ytvis
+    try:
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        kernel = train_net_video.main(args)["segm"]
+        seconds = time.perf_counter() - t0
+        launches = kernel_counts()
+    finally:
+        os.environ["DETECTRON2_DATASETS"] = root
+    expected = {k: v * len(records) for k, v in SERVE_EXPECTED.items()}
+    records = load_ytvis_json(json_file, os.path.join(VIDEO_ORACLE_ROOT, "ytvis_2019", "valid",
+                                                      "JPEGImages"))
+    with plain_ops():
+        plain = inference_on_video_dataset(cfg, model, records)["segm"]
+    log("eval_ytvis", videos=len(records), frames=list(VIDEO_ORACLE_LENGTHS),
+        size=f"{VIDEO_ORACLE_SIZE[0]}x{VIDEO_ORACLE_SIZE[1]}",
+        oracle_tubes=len(data["annotations"]), launches=launches, expected=expected,
+        kernel_AP=f"{kernel['AP']:.4f}", plain_AP=f"{plain['AP']:.4f}", tol=VIDEO_AP_TOL,
+        entry_point_s=f"{seconds:.2f}", card=repr(card))
+    if launches != expected:
+        raise AssertionError(f"eval_ytvis: kernel launches {launches}, expected {expected}")
+    if not (np.isfinite(kernel["AP"]) and plain["AP"] > 0
+            and abs(kernel["AP"] - plain["AP"]) <= VIDEO_AP_TOL):
+        raise AssertionError(f"eval_ytvis: tube AP {kernel['AP']} through the kernels, "
+                             f"{plain['AP']} through the plain ops")
+    log("eval_ytvis", ok=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3409,6 +3736,7 @@ def main() -> int:
     k1 = phase_k1(torch, card)
     k3 = phase_k3(torch, card)
     canvases = phase_test_canvases(torch, card)
+    video_canvases = phase_video_canvases(torch, card)
     k2 = phase_k2(torch, card)
     gather = phase_row_gather(torch, card)
     # reference numerics: float32 convolutions and matmuls in full float32
@@ -3438,6 +3766,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     # slice 5 (A17): the Swin-L recipe serves, float32 and bfloat16
     s_swin, s_swin_bf16 = phase_slice_swin(torch, card)
+    torch.cuda.empty_cache()
+    # slice 6 (A20a): the YouTube-VIS recipes serve whole clips, float32 and
+    # bfloat16, and the R50 recipe scores itself through its entry point
+    _, clips = write_clips(VIDEO_ROOT, VIDEO_LENGTHS, VIDEO_SIZE, SEED + 1)
+    video_paths = {"slice_video": phase_slice_video(torch, card, "slice_video",
+                                                    load_cfg(YTVIS_CONFIG, [], False), clips)}
+    torch.cuda.empty_cache()
+    video_paths["slice_video_bf16"] = phase_slice_video(
+        torch, card, "slice_video_bf16",
+        load_cfg(YTVIS_CONFIG, ["TPU.COMPUTE_DTYPE", "bfloat16"], False), clips)
+    torch.cuda.empty_cache()
+    video_paths["eval_ytvis"] = phase_eval_ytvis(torch, card)
+    torch.cuda.empty_cache()
+    swin_clip = [c for c in clips if c["length"] == max(VIDEO_LENGTHS)]
+    video_paths["slice_video_swin"] = phase_slice_video(
+        torch, card, "slice_video_swin", load_cfg(YTVIS_SWIN_CONFIG, [], False), swin_clip)
     torch.cuda.empty_cache()
     k1_bwd = phase_k1_bwd(torch, card)
     k3_bwd = phase_k3_bwd(torch, card)
@@ -3497,16 +3841,18 @@ def main() -> int:
                "train_tpu_bs16": train_tpu_bs16, "eval_panoptic": eval_panoptic["launches"],
                "eval_cityscapes": eval_cityscapes["launches"], **train_net_paths,
                "slice_swin": s_swin, "slice_swin_bf16": s_swin_bf16, "swin_step": swin_step,
-               **swin_paths}
+               **swin_paths, **video_paths}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",
          "replaces": "mp_former_tpu/ops/msda_pallas.py:134", "launches": s1["msda_fwd"],
-         **k1["float32"], "at_test_canvases": test_canvas_rows(canvases, "K1")},
+         **k1["float32"], "at_test_canvases": test_canvas_rows(canvases, "K1"),
+         "at_video_canvases": test_canvas_rows(video_canvases, "K1")},
         {"name": "masked_attn_fwd", "route": "cuda", "source": csrc + "masked_attn_fwd.cu",
          "replaces": "mp_former_tpu/ops/fused_masked_attention.py:63",
          "launches": s1["masked_attn_fwd"], **k3[("float32", 100)],
-         "at_q200": k3[("float32", 200)], "at_test_canvases": test_canvas_rows(canvases, "K3")},
+         "at_q200": k3[("float32", 200)], "at_test_canvases": test_canvas_rows(canvases, "K3"),
+         "at_video_canvases": test_canvas_rows(video_canvases, "K3")},
         {"name": "tap_weight_fwd", "route": "cuda", "source": csrc + "tap_weight_fwd.cu",
          "replaces": "mp_former_tpu/ops/tap_weighting.py:244", "launches": s2["tap_weight_fwd"],
          **k2[("headshare", "float32")]},

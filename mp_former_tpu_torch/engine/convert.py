@@ -6,8 +6,9 @@
 `state_dict_from_jax_params` is the inverse of the JAX package's
 `engine/checkpoint_import.py:convert_maskformer_state_dict` (:260-276) for the
 port's models (a d2 ResNet or Swin backbone, MSDeformAttn pixel decoder,
-masked-attention decoder): conv kernels HWIO -> OIHW, Dense (in, out) ->
-Linear (out, in), q/k/v projections concatenated into `in_proj_*`,
+masked-attention decoder, the video decoder's `query_embed` among them):
+conv kernels HWIO -> OIHW, Dense (in, out) -> Linear (out, in), q/k/v
+projections concatenated into `in_proj_*`,
 LayerNorm/GroupNorm `scale` -> `weight`, a Swin's position embedding
 (1, H, W, C) -> (1, C, H, W). It takes the params tree as numpy arrays (no jax
 needed) and returns the port's state dict, with the reference's names. A
@@ -144,6 +145,8 @@ def _predictor(sd, p: Mapping, pre: str = "sem_seg_head.predictor.") -> None:
     _put(sd, f"{pre}level_embed.weight", p["level_embed"])
     if "label_enc" in p:
         _put(sd, f"{pre}label_enc.weight", p["label_enc"])
+    if "query_embed" in p:  # the video decoder's (JAX `checkpoint_import.py:228-232`)
+        _put(sd, f"{pre}query_embed.weight", p["query_embed"])
     _norm(sd, f"{pre}decoder_norm", p["decoder_norm"])
     _dense(sd, f"{pre}class_embed", p["class_embed"])
     for i in range(3):

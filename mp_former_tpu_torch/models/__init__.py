@@ -3,8 +3,8 @@
 
 from .backbone import resnet, swin  # noqa: F401
 from .pixel_decoder import msdeformattn  # noqa: F401
-from .transformer_decoder import mask2former_decoder  # noqa: F401
-from .meta_arch import mask_former_head, maskformer  # noqa: F401
+from .transformer_decoder import mask2former_decoder, video_decoder  # noqa: F401
+from .meta_arch import mask_former_head, maskformer, video_maskformer  # noqa: F401
 
 from ..utils.registry import META_ARCH_REGISTRY
 

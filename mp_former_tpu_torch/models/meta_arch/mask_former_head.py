@@ -40,8 +40,10 @@ class MaskFormerHead(nn.Module):
                    build_transformer_decoder(cfg, cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM))
 
     def forward(self, features: Dict[str, torch.Tensor], dn_args: Optional[DNArgs] = None,
-                generator: Optional[torch.Generator] = None) -> Dict:
+                generator: Optional[torch.Generator] = None, **predictor_kwargs) -> Dict:
+        """`predictor_kwargs` go to the predictor as they are (the video
+        decoder's `num_frames`)."""
         mask_features, _, multi_scale = self.pixel_decoder.forward_features(features)
         if dn_args is None:
-            return self.predictor(multi_scale, mask_features)
-        return self.predictor(multi_scale, mask_features, dn_args, generator)
+            return self.predictor(multi_scale, mask_features, **predictor_kwargs)
+        return self.predictor(multi_scale, mask_features, dn_args, generator, **predictor_kwargs)

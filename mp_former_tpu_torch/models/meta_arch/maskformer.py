@@ -66,19 +66,26 @@ class MaskFormer(nn.Module):
                    cfg.MODEL.DN.NOISE_SCALE, cfg.MODEL.MASK_FORMER.DROPOUT,
                    compute_dtype(cfg))
 
+    def normalized(self, images: torch.Tensor) -> torch.Tensor:
+        """(..., H, W, 3) raw pixels, H and W multiples of SIZE_DIVISIBILITY ->
+        (N, 3, H, W) float32, normalised, the leading dimensions flattened."""
+        div = self.size_divisibility
+        if images.shape[-1] != 3:
+            raise ValueError(f"images must end in 3 channels, got {tuple(images.shape)}")
+        if div > 0 and (images.shape[-3] % div or images.shape[-2] % div):
+            raise ValueError(f"image size {tuple(images.shape[-3:-1])} is not padded to /{div}")
+        x = images.reshape(-1, *images.shape[-3:]).permute(0, 3, 1, 2).float()
+        return (x - self.pixel_mean) / self.pixel_std
+
     def forward(self, images: torch.Tensor, targets: Optional[Targets] = None, dn_groups=None,
                 generator: Optional[torch.Generator] = None) -> Dict:
         """images (B, H, W, 3) raw pixels, H and W multiples of 32. `targets`
         switches DN training on; `dn_groups` is (groups, batch_max) from
         `engine/train_step.py:compute_dn_groups` for NUM_DN >= 100 (a bare int
         is the group count alone); the DN noise comes from `generator`."""
-        div = self.size_divisibility
-        if images.dim() != 4 or images.shape[-1] != 3:
+        if images.dim() != 4:
             raise ValueError(f"images must be (B, H, W, 3), got {tuple(images.shape)}")
-        if div > 0 and (images.shape[1] % div or images.shape[2] % div):
-            raise ValueError(f"image size {tuple(images.shape[1:3])} is not padded to /{div}")
-        x = images.permute(0, 3, 1, 2).float()
-        x = (x - self.pixel_mean) / self.pixel_std
+        x = self.normalized(images)
         if self.dropout > 0 and targets is not None:
             raise NotImplementedError(
                 f"MODEL.MASK_FORMER.DROPOUT {self.dropout}: the port carries no dropout (the "

@@ -61,6 +61,8 @@ def _dn_tgt_mask(scalar: int, single_pad: int, num_queries: int) -> torch.Tensor
 class MultiScaleMaskedTransformerDecoderMaskDN(nn.Module):
     # the MaskDN decoder carries the DN label embedding (unused at inference)
     has_label_enc = True
+    # query embeddings x per-pixel mask embeddings -> mask logits
+    mask_product = "bqc,bchw->bqhw"
 
     def __init__(self, in_channels: int, *, num_classes: int, hidden_dim: int = 256,
                  num_queries: int = 100, nheads: int = 8, dim_feedforward: int = 2048,
@@ -97,7 +99,9 @@ class MultiScaleMaskedTransformerDecoderMaskDN(nn.Module):
             self.label_enc = nn.Embedding(num_classes, hidden_dim)
 
     @classmethod
-    def from_config(cls, cfg, in_channels):
+    def from_config(cls, cfg, in_channels, **extra):
+        """The decoder `cfg` describes; `extra` goes to the constructor as it
+        is (a subclass's own arguments)."""
         mf = cfg.MODEL.MASK_FORMER
         if mf.PRE_NORM:
             raise NotImplementedError("MODEL.MASK_FORMER.PRE_NORM: no recipe uses pre-norm "
@@ -120,17 +124,20 @@ class MultiScaleMaskedTransformerDecoderMaskDN(nn.Module):
             all_lys=mf.ALL_LY_DN,
             dn_label_noise_ratio=mf.LB_NOISE_RATIO,
             dn_max_gt=cfg.TPU.DN_MAX_GT,
+            **extra,
         )
 
     def forward_prediction_heads(self, output: torch.Tensor, mask_features: torch.Tensor,
                                  attn_mask_target_size):
         """(B, Q, C) queries -> class logits (B, Q, K+1), mask logits
         (B, Q, H/4, W/4) and the next attention mask (B, Q, h*w) bool,
-        True = blocked, shared by the heads (reference :1859-1877)."""
+        True = blocked, shared by the heads (reference :1859-1877); with the
+        video decoder's clips of T frames (`mask_product`) the masks are
+        (B, Q, T, H/4, W/4) and the attention mask (B, Q, T*h*w)."""
         dec = self.decoder_norm(output)
         outputs_class = self.class_embed(dec)
         mask_embed = self.mask_embed(dec)
-        outputs_mask = torch.einsum("bqc,bchw->bqhw", mask_embed, mask_features)
+        outputs_mask = torch.einsum(self.mask_product, mask_embed, mask_features)
         # the JAX package (`mask2former_decoder.py:325-327`) resizes the mask
         # logits in their own type and thresholds the sigmoid there: in
         # bfloat16 a logit within ~0.004 below 0 rounds to a sigmoid of 0.5,

@@ -13,9 +13,12 @@ result in (B, Q, H, D) order, so merging the heads is a view too.
 Self-attention is plain einsum + softmax, as in the JAX package, which sends
 only cross-attention to its kernel: without a mask at inference, and in DN
 training with the (Q, Q) mask that separates the DN groups, blocked logits set
-to -1e9. The layers are post-norm, as in every recipe of configs/ (`PRE_NORM
-False`). The recipes train with `DROPOUT 0.0` and the JAX decoder hard-codes
-0.0; the port carries no dropout.
+to -1e9. `query_pos`, where given, is added to the queries of both
+attentions (and to the keys of self-attention), as the video decoder does
+with its learnable `query_embed`; the image decoders pass none. The layers
+are post-norm, as in every recipe of configs/ (`PRE_NORM False`). The
+recipes train with `DROPOUT 0.0` and the JAX decoder hard-codes 0.0; the
+port carries no dropout.
 """
 
 from __future__ import annotations
@@ -86,8 +89,10 @@ class SelfAttentionLayer(nn.Module):
         self.norm = LayerNorm(d_model)
         _xavier_matrices(self)
 
-    def forward(self, tgt, tgt_mask: Optional[torch.Tensor] = None):
-        return self.norm(tgt + self.self_attn(tgt, tgt, tgt, attn_mask=tgt_mask))
+    def forward(self, tgt, tgt_mask: Optional[torch.Tensor] = None,
+                query_pos: Optional[torch.Tensor] = None):
+        qk = tgt if query_pos is None else tgt + query_pos
+        return self.norm(tgt + self.self_attn(qk, qk, tgt, attn_mask=tgt_mask))
 
 
 class CrossAttentionLayer(nn.Module):
@@ -97,8 +102,9 @@ class CrossAttentionLayer(nn.Module):
         self.norm = LayerNorm(d_model)
         _xavier_matrices(self)
 
-    def forward(self, tgt, memory, memory_mask, pos):
-        return self.norm(tgt + self.multihead_attn(tgt, memory + pos, memory, attn_mask=memory_mask))
+    def forward(self, tgt, memory, memory_mask, pos, query_pos: Optional[torch.Tensor] = None):
+        q = tgt if query_pos is None else tgt + query_pos
+        return self.norm(tgt + self.multihead_attn(q, memory + pos, memory, attn_mask=memory_mask))
 
 
 class FFNLayer(nn.Module):

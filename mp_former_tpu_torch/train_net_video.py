@@ -1,0 +1,96 @@
+"""The port's video entry point (`train_net_video.py:1-128`, the JAX package's
+video CLI, which mirrors the reference's). Same flags, same `KEY VALUE`
+overrides (flags first). A YouTube-VIS recipe is scored with
+
+    python -m mp_former_tpu_torch.train_net_video \\
+        --config-file configs/youtubevis_2019/video_maskformer2_R50_bs16_8ep.yaml \\
+        --eval-only MODEL.WEIGHTS <file>
+
+(or `--eval-only --resume`, as `train_net.py` reads them): every clip of
+DATASETS.TEST[0] whole, in one forward, then tube AP, printed. It runs on
+`MODEL.DEVICE` (`cuda` by default; `cpu` runs the kernels' plain versions).
+Datasets come from `$DETECTRON2_DATASETS` (`video/ytvis.py:register_all_ytvis`),
+frames as `.npy` where no decoder is installed. Video training is ROADMAP
+A20b: without `--eval-only` the entry point raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+logger = logging.getLogger(__name__)
+
+
+def default_argument_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="MP-Former video, the PyTorch port")
+    p.add_argument("--config-file", default="", metavar="FILE")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--eval-only", action="store_true")
+    p.add_argument("--num-gpus", type=int, default=1,
+                   help="1 only: the port evaluates in one process on one card")
+    p.add_argument("--max-eval-videos", type=int, default=None)
+    p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
+    return p
+
+
+def setup(args):
+    """The config from the file and the overrides, with the video keys,
+    frozen; logging; OUTPUT_DIR made."""
+    from .config import (add_deeplab_config, add_maskformer2_config,
+                         add_maskformer2_video_config, get_cfg)
+
+    cfg = get_cfg()
+    add_deeplab_config(cfg)
+    add_maskformer2_config(cfg)
+    add_maskformer2_video_config(cfg)
+    if args.config_file:
+        cfg.merge_from_file(args.config_file)
+    cfg.merge_from_list(args.opts or [])
+    cfg.freeze()
+    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    return cfg
+
+
+def main(args):
+    if args.num_gpus > 1:
+        raise NotImplementedError(f"--num-gpus {args.num_gpus}: the port evaluates on one card "
+                                  "in one process; distributed evaluation is ROADMAP A21")
+    if not args.eval_only:
+        raise NotImplementedError("video training (the clip mappers, the tube criterion and "
+                                  "the training step) is ROADMAP A20b: the port's video entry "
+                                  "point runs --eval-only")
+    import torch
+
+    from .data.catalog import DatasetCatalog
+    from .engine.convert import load_state_dict_file, load_weights, locate_weights
+    from .models import build_model
+    from .train_net import eval_weights
+    from .video.eval_loop import inference_on_video_dataset
+    from .video.ytvis import register_all_ytvis
+
+    cfg = setup(args)
+    device = torch.device("cuda" if cfg.MODEL.DEVICE == "tpu" else cfg.MODEL.DEVICE)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"MODEL.DEVICE {cfg.MODEL.DEVICE}: torch finds no CUDA device; "
+                           "pass MODEL.DEVICE cpu to run on the CPU with the kernels' plain "
+                           "versions")
+    register_all_ytvis()
+    weights = eval_weights(cfg, args.resume)
+    local = locate_weights(weights)
+    if local is None:
+        raise FileNotFoundError(f"--eval-only: weights {weights} not found locally")
+    model = build_model(cfg)
+    load_weights(model, load_state_dict_file(local))
+    logger.info("evaluating %s", local)
+    records = DatasetCatalog.get(cfg.DATASETS.TEST[0])
+    results = inference_on_video_dataset(cfg, model.to(device), records, args.max_eval_videos)
+    print(results)
+    return results
+
+
+if __name__ == "__main__":
+    main(default_argument_parser().parse_args())

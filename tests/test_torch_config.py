@@ -86,7 +86,8 @@ def _port_modules():
                            "tools.profile_torch_slice", "tools.make_synthetic_coco_torch",
                            "tools.make_synthetic_segm_torch", "tools.probe_torch_msda_bwd_bound",
                            "tools.probe_torch_msda_bwd_windows",
-                           "tools.probe_torch_masked_attn_offset"]
+                           "tools.probe_torch_masked_attn_offset",
+                           "tools.make_synthetic_ytvis_torch"]
 
 
 def test_port_imports_no_jax():

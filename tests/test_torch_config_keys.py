@@ -13,6 +13,8 @@ reading leaves it, and a new key ignored without a word fails here.
 import pathlib
 import re
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PATH = r"(?:[A-Z][A-Z0-9_]*)(?:\.[A-Z][A-Z0-9_]*)*"
 READ = re.compile(r"\bcfg\.(" + PATH + r")")
@@ -24,8 +26,8 @@ SET_ASIDE = {
     # A18: StandardTransformerDecoder's encoder, the DN_RATIO modes
     "A18": {"MODEL.MASK_FORMER.ENC_LAYERS", "MODEL.MASK_FORMER.DN_RATIO"},
     "A19 test-time augmentation": {"TEST.AUG.FLIP", "TEST.AUG.MAX_SIZE", "TEST.AUG.MIN_SIZES"},
-    "A20 video": {"INPUT.SAMPLING_FRAME_NUM", "INPUT.SAMPLING_FRAME_RANGE",
-                  "INPUT.SAMPLING_FRAME_SHUFFLE"},
+    # the clip mapper's frame sampling (the video model reads SAMPLING_FRAME_NUM)
+    "A20b video training": {"INPUT.SAMPLING_FRAME_RANGE", "INPUT.SAMPLING_FRAME_SHUFFLE"},
     # A21 distributed: the device mesh and token sharding
     "A21": {"TPU.MESH_AXES", "TPU.MESH_SHAPE", "TPU.SHARD_TOKENS"},
     "A14h auction matcher": {"TPU.MATCHER_HOST_EXACT"},
@@ -59,3 +61,16 @@ def test_every_key_the_jax_package_reads_is_read_or_set_aside():
     assert ignored - set_aside == set(), "read by the JAX package, ignored by the port"
     assert set_aside - ignored == set(), "set aside, but read by the port (or by neither)"
     assert "TPU.PROFILE_DIR" in _reads("mp_former_tpu_torch")
+
+
+def test_video_training_raises_and_names_its_item():
+    """The port's video entry point scores only: without --eval-only it
+    refuses to start, naming the roadmap item that ports video training,
+    before it reads a config or a dataset."""
+    from mp_former_tpu_torch import train_net_video
+
+    args = train_net_video.default_argument_parser().parse_args(
+        ["--config-file", "configs/youtubevis_2019/video_maskformer2_R50_bs16_8ep.yaml"])
+    with pytest.raises(NotImplementedError, match="A20b"):
+        train_net_video.main(args)
+    assert "INPUT.SAMPLING_FRAME_NUM" in _reads("mp_former_tpu_torch")

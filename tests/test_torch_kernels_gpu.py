@@ -1240,3 +1240,58 @@ def test_msda_backward_kernel_two_calls_equal_to_rounding(cuda):
     again = msda_cuda.msda_bwd(grad_out, value, shapes, loc, attn)
     assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
     assert _rel(first[0], again[0]) <= 1e-6
+
+
+# a 36-frame clip of a 720x1280 video at the YouTube-VIS recipes'
+# MIN_SIZE_TEST 360: a 384x640 canvas, whose levels 1/32, 1/16 and 1/8 are
+# 12x20, 24x40 and 48x80; the decoder's keys are those of a level in every frame
+VIDEO_LEVELS = [(12, 20), (24, 40), (48, 80)]
+VIDEO_FRAMES = 36
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("Q", [100, 200])
+def test_masked_attention_kernel_over_a_clips_keys(cuda, dtype, tol, Q):
+    """K3 over the 1/8 level of all 36 frames (S = 138240 keys, split into
+    chunks that a second kernel merges) with a mask shared by the heads, as
+    the video decoder hands it: fully masked rows, a row that sees only the
+    last frame's keys and one that sees only the first key. The limit is
+    `tol` times the plain output's largest entry where that is below 1: over
+    10^5 keys the outputs are averages of a few hundredths."""
+    S = VIDEO_FRAMES * VIDEO_LEVELS[-1][0] * VIDEO_LEVELS[-1][1]
+    assert S == 138240
+    q, k, v = _head_views(cuda, 1, 8, Q, S, dtype, seed=S + Q)
+    g = torch.Generator(device=cuda).manual_seed(Q)
+    mask = torch.rand((1, Q, S), generator=g, device=cuda) < 0.7
+    mask[:, :3] = True
+    mask[:, 3] = True
+    mask[:, 3, -S // VIDEO_FRAMES:] = False
+    mask[:, 4] = True
+    mask[:, 4, 0] = False
+    before = mac.LAUNCHES
+    got = mac.masked_attention(q, k, v, mask)
+    assert mac.LAUNCHES == before + 1
+    want = mac.masked_attention_plain(q.float(), k.float(), v.float(), mask)
+    assert got.dtype == dtype and got.shape == (1, 8, Q, 32)
+    limit = tol * min(1.0, want.abs().max().item())
+    assert (got.float() - want).abs().max().item() <= limit
+    torch.testing.assert_close(got[:, :, 4].float(), v[:, :, 0].float(), rtol=0, atol=limit)
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_msda_kernel_on_a_clips_frames(cuda, dtype, tol):
+    """K1 at a 36-frame clip's batch (the pixel decoder's encoder on 36 x
+    5040 queries), against the plain version, and the last frame computed
+    alone equal to its row of the batch bit for bit."""
+    S = sum(h * w for h, w in VIDEO_LEVELS)
+    assert S == 5040
+    value, loc, attn = (t.to(dtype) for t in _msda_inputs(cuda, VIDEO_FRAMES, S, 8, 32,
+                                                          VIDEO_LEVELS, 4, seed=5))
+    before = msda_cuda.LAUNCHES
+    got = ms_deform_attn(value, VIDEO_LEVELS, loc, attn)
+    assert msda_cuda.LAUNCHES == before + 1
+    want = msda_cuda.ms_deform_attn_plain(value.float(), VIDEO_LEVELS, loc.float(), attn.float())
+    assert got.dtype == dtype and got.shape == (VIDEO_FRAMES, S, 8 * 32)
+    assert (got.float() - want).abs().max().item() <= tol * min(1.0, want.abs().max().item())
+    last = ms_deform_attn(value[-1:], VIDEO_LEVELS, loc[-1:], attn[-1:])
+    assert torch.equal(last, got[-1:])
