@@ -233,7 +233,29 @@ result line):
     versions, the third and fourth timed, the last profiled: device busy ms
     and the port's kernels' share), the peak memory of both and which has
     the lower s/step, the launches a step (K1 12, K1 backward 6, K3 and K3
-    backward 9 a micro-batch), and `--eval-only --resume` on 4 val images.
+    backward 9 a micro-batch), and `--eval-only --resume` on 4 val images;
+25. `video_train_canvases` (slice 6, A20b, video training): K1 and K1's
+    backward on the 32 frames of the YouTube-VIS recipes' training batch (16
+    clips of 2 frames on the clip mapper's static 480x1344 canvas: 13230
+    queries a frame), K3 and K3's backward at B = 16 with 100 and 200 queries
+    over the keys of both frames of a level (S = 1260, 5040, 20160), the
+    mask shared by the heads; float32 and bfloat16, against the plain
+    versions, timed beside the bound and SDPA's forward and backward;
+26. `video_step`: the R50 YouTube-VIS 2019 recipe at full width (seeded
+    weights), step 0 on 2 clips of 2 frames of a synthetic train split of
+    720x1280 videos (`tools/make_synthetic_ytvis_torch.py --split train`,
+    beside `eval_ytvis`'s clips) through `YTVISDatasetMapper` and
+    `collate_clips`, through the kernels against the plain ops given the
+    kernel path's attention and ReLU decisions, as phase 24 (K1 12, K1
+    backward 6, K3 and K3 backward 9 launches);
+27. `train_video`, `train_video_bf16`, `train_video_swin`: the R50 recipe
+    as its YAML says, in float32 and in `TPU.COMPUTE_DTYPE bfloat16` (what the
+    recipe's `SOLVER.AMP.ENABLED` means in the JAX package), and the Swin-L
+    recipe (200 queries, `MODEL.SWIN.USE_CHECKPOINT True`), through
+    `train_net_video.main` at their own batch from that split, as phase 18
+    (3 steps, the second's launches held against the plain versions, the
+    last profiled: s/step, device busy ms, peak memory, data_time), then
+    `--eval-only --resume` on `eval_ytvis`'s 4 clips: finite tube AP.
 
 Every training phase recomputes the pixel decoder's encoder layers in the
 backward, as the recipes' `TPU.REMAT_ENCODER` default says: K1 (or K2) runs
@@ -601,9 +623,9 @@ def hold_k1_at(torch, g, shapes, batch: int, dtype) -> dict:
             "max_abs_err": err, "plain_max_abs": out_max, "tol": tol, **times, **bnd}
 
 
-def hold_k3_at(torch, g, Q: int, keys: int, dtype) -> dict:
-    """K3 on Q queries over `keys` keys (the strided head views of one
-    image's projections) with a mask shared by the heads, as the decoder
+def hold_k3_at(torch, g, Q: int, keys: int, dtype, batch: int = 1) -> dict:
+    """K3 on Q queries over `keys` keys (the strided head views of `batch`
+    images' projections) with a mask shared by the heads, as the decoder
     hands it, 5 rows fully masked, against its plain version at TOL times the
     plain output's largest entry where that is below 1 (`scaled_tol`; over
     10^4 keys and more the outputs are averages, a few hundredths at most, and
@@ -616,14 +638,14 @@ def hold_k3_at(torch, g, Q: int, keys: int, dtype) -> dict:
 
     H, D = 8, 32
     name = str(dtype).split(".")[1]
-    q, k, v = (torch.randn((1, n, H * D), generator=g, device="cuda").to(dtype)
-               .view(1, n, H, D).transpose(1, 2) for n in (Q, keys, keys))
-    mask = torch.rand((1, Q, keys), generator=g, device="cuda") < 0.7
+    q, k, v = (torch.randn((batch, n, H * D), generator=g, device="cuda").to(dtype)
+               .view(batch, n, H, D).transpose(1, 2) for n in (Q, keys, keys))
+    mask = torch.rand((batch, Q, keys), generator=g, device="cuda") < 0.7
     mask[:, :5] = True  # fully masked rows
     want = mac.masked_attention_plain(q.float(), k.float(), v.float(), mask)
     err = (mac.masked_attn_fwd(q, k, v, mask).float() - want).abs().max().item()
     tol, out_max = scaled_tol(TOL[name], want)
-    additive = torch.zeros((1, 1, Q, keys), dtype=dtype, device="cuda")
+    additive = torch.zeros((batch, 1, Q, keys), dtype=dtype, device="cuda")
     additive.masked_fill_(mask[:, None], -1e9)
     lib_err = (F.scaled_dot_product_attention(q, k, v, attn_mask=additive).float()
                - want).abs().max().item()
@@ -631,12 +653,12 @@ def hold_k3_at(torch, g, Q: int, keys: int, dtype) -> dict:
     times = timed(lambda: mac.masked_attn_fwd(q, k, v, mask),
                   lambda: mac.masked_attention_plain(q, k, v, mask),
                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive),
-                  plain_calls=2 if keys > 50000 else 5)
-    flops = 4.0 * H * Q * keys * D
+                  plain_calls=2 if batch * keys > 50000 else 5)
+    flops = 4.0 * batch * H * Q * keys * D
     n_bytes = nbytes(q, k, v, mask) + q.numel() * q.element_size()
     bnd = (bound(n_bytes, 3 * flops, "tf32") if dtype == torch.float32
            else bound(n_bytes, flops, name))
-    return {"shape": f"B1xH{H}xQ{Q}xS{keys}xD{D}", "queries": Q, "keys": keys,
+    return {"shape": f"B{batch}xH{H}xQ{Q}xS{keys}xD{D}", "queries": Q, "keys": keys,
             "max_abs_err": err, "library_max_abs_err": lib_err, "plain_max_abs": out_max,
             "tol": tol, **times, **bnd}
 
@@ -1227,81 +1249,99 @@ def model_like_locations(torch, g, B, shapes, M, P):
     return torch.where(far, loc + 2.0, loc)
 
 
-def phase_k1_bwd(torch, card: str) -> dict:
+def hold_k1_bwd_at(torch, card: str, phase: str, where: str, g, shapes, batch: int, dtype,
+                   sampling=None, plain_calls: int = 2) -> dict:
+    """K1's backward on `batch` images of the encoder's tokens at levels
+    `shapes` (model-like locations, some off the map), the value and the
+    gradient in `dtype`, locations and weights in `sampling` (`dtype` if
+    None; the bfloat16 model's mix is a bfloat16 value with float32
+    sampling, held to bfloat16's tolerances): the forward at this shape
+    against the plain version (TOL), the three gradients against the plain
+    backward (BWD_TOL of each gradient's largest entry) and against autograd
+    of the plain forward (AUTOGRAD_TOL; grad_loc entry by entry); timed
+    beside the plain backward (`plain_calls` a graph) and the bound; logged
+    under `phase`. Returns the row."""
     from mp_former_tpu_torch.ops import msda_cuda
     from mp_former_tpu_torch.utils.cuda_timing import two_clocks
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     M, D, P = 8, 32, 4
+    L, S = len(shapes), sum(h * w for h, w in shapes)
+    sampling = sampling or dtype
+    name = str(dtype).split(".")[1]
+    kind = name if sampling == dtype else f"{name}/{str(sampling).split('.')[1]}"
+    value = torch.randn((batch, S, M, D), generator=g, device="cuda").to(dtype)
+    loc = model_like_locations(torch, g, batch, shapes, M, P).to(sampling)
+    attn = torch.randn((batch, S, M, L * P), generator=g, device="cuda").softmax(-1)
+    attn = attn.view(batch, S, M, L, P).to(sampling)
+    go = torch.randn((batch, S, M * D), generator=g, device="cuda").to(dtype)
+    sizes = torch.tensor([[w, h] for h, w in shapes], device="cuda").view(1, 1, 1, L, 1, 2)
+    base = (loc.float() * sizes - 0.5).floor()
+    on_map = ((base >= -1) & (base <= sizes - 1)).all(-1).sum().item()
+    del base
+    fwd = msda_cuda.msda_fwd(value, shapes, loc, attn)
+    fwd_err = (fwd.float() - msda_cuda.ms_deform_attn_plain(
+        value.float(), shapes, loc.float(), attn.float())).abs().max().item()
+    fwd_ms = two_clocks(lambda: msda_cuda.msda_fwd(value, shapes, loc, attn))["ms"]
+    fwd_bound = bound(nbytes(value, loc, attn, fwd), on_map * 5 * 2 * D, name)
+    got = msda_cuda.msda_bwd(go, value, shapes, loc, attn)
+    want = msda_cuda.ms_deform_attn_backward_plain(go.float(), value.float(), shapes,
+                                                   loc.float(), attn.float())
+    errs = [rel_err(x, w) for x, w in zip(got, want)]
+    abs_err = max((x.float() - w).abs().max().item() for x, w in zip(got, want))
+    del want
+    leaves = [t.float().clone().requires_grad_() for t in (value, loc, attn)]
+    auto = torch.autograd.grad(msda_cuda.ms_deform_attn_plain(leaves[0], shapes, leaves[1],
+                                                              leaves[2]), leaves, go.float())
+    auto_errs = [rel_err(got[0], auto[0]), rel_err(got[2], auto[2])]
+    loc_miss = ((got[1].float() - auto[1]).abs()
+                > AUTOGRAD_TOL[name] * auto[1].abs().max()).float().mean().item()
+    del auto, leaves
+    times = timed(lambda: msda_cuda.msda_bwd(go, value, shapes, loc, attn),
+                  lambda: msda_cuda.ms_deform_attn_backward_plain(go, value, shapes, loc, attn),
+                  calls=10, plain_calls=plain_calls)
+    # per tap on the map: the dot product with g and the add of w * g
+    bnd = bound(nbytes(go, value, loc, attn, got[1], got[2]) + value.numel() * 4,
+                on_map * 4 * 4 * D, name)
+    row = {"shape": f"B{batch}xQ{S}xM{M}xD{D}xL{L}xP{P}", "dtype": kind, "queries": S,
+           "batch": batch, "rel_errs": errs, "max_abs_err": abs_err, "tol": BWD_TOL[name],
+           "points_on_map": f"{on_map}/{batch * S * M * L * P}", **times, **bnd}
+    log(phase, kernel="K1_bwd", canvas=where, dtype=kind, shape=row["shape"],
+        rel_err_value_loc_attn=[f"{e:.2e}" for e in errs], tol=BWD_TOL[name],
+        max_abs_err=f"{abs_err:.3e}", forward_max_abs_err=f"{fwd_err:.3e}",
+        forward_tol=TOL[name], rel_err_vs_autograd_value_attn=[f"{e:.2e}" for e in auto_errs],
+        grad_loc_share_off_vs_autograd=f"{loc_miss:.2e}", autograd_tol=AUTOGRAD_TOL[name],
+        grad_value_reproducible="to rounding only (float32 atomics, in no fixed order)",
+        **fmt_times(times), bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
+        points_on_map=row["points_on_map"], forward_ms=f"{fwd_ms:.5f}",
+        forward_bound_ms=f"{fwd_bound['bound_ms']:.5f}", forward_bound_by=fwd_bound["bound_by"],
+        card=repr(card))
+    if not fwd_err <= TOL[name]:
+        raise AssertionError(f"{phase} K1 forward {where} {kind}: max abs error {fwd_err} "
+                             f"against the plain version, above {TOL[name]}")
+    if not max(errs) <= BWD_TOL[name]:
+        raise AssertionError(f"{phase} K1 backward {where} {kind}: relative errors {errs} "
+                             f"against the plain backward, above {BWD_TOL[name]}")
+    if not (max(auto_errs) <= AUTOGRAD_TOL[name] and loc_miss <= 1e-5):
+        raise AssertionError(f"{phase} K1 backward {where} {kind}: against autograd of the "
+                             f"plain forward {auto_errs}, grad_loc off on {loc_miss} of entries")
+    return row
+
+
+def phase_k1_bwd(torch, card: str) -> dict:
+    """K1's backward at one 800x1088 canvas, the released recipe's training
+    batch (8 images of 512x512) and its bs16@1024 batch, in float32, bfloat16
+    and the bfloat16 model's mix (`hold_k1_bwd_at`)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     res = {}
     for case, B, shapes in (("canvas", 1, MSDA_SHAPES), ("train", TRAIN_BATCH, TRAIN_SHAPES),
                             ("bs16", 16, BS16_SHAPES)):
-        L = len(shapes)
-        S = sum(h * w for h, w in shapes)
-        value = torch.randn((B, S, M, D), generator=g, device="cuda")
-        loc = model_like_locations(torch, g, B, shapes, M, P)
-        attn = torch.randn((B, S, M, L * P), generator=g, device="cuda").softmax(-1)
-        attn = attn.view(B, S, M, L, P)
-        grad_out = torch.randn((B, S, M * D), generator=g, device="cuda")
-        sizes = torch.tensor([[w, h] for h, w in shapes], device="cuda").view(1, 1, 1, L, 1, 2)
-        base = (loc * sizes - 0.5).floor()
-        on_map = ((base >= -1) & (base <= sizes - 1)).all(-1).sum().item()
-        # float32, bfloat16, and the bfloat16 model's mix: a bfloat16 value and
-        # gradient with float32 locations and weights (held to bfloat16's tolerances)
         for dtype, sampling in ((torch.float32,) * 2, (torch.bfloat16,) * 2,
                                 (torch.bfloat16, torch.float32)):
-            name = str(dtype).split(".")[1]
-            kind = name if sampling == dtype else f"{name}/{str(sampling).split('.')[1]}"
-            go, v = (t.to(dtype).contiguous() for t in (grad_out, value))
-            lo, a = (t.to(sampling).contiguous() for t in (loc, attn))
-            # the forward at this shape too (phase K1 holds it at B = 1 only)
-            fwd = msda_cuda.msda_fwd(v, shapes, lo, a)
-            fwd_err = (fwd.float() - msda_cuda.ms_deform_attn_plain(
-                v.float(), shapes, lo.float(), a.float())).abs().max().item()
-            fwd_ms = two_clocks(lambda: msda_cuda.msda_fwd(v, shapes, lo, a))["ms"]
-            fwd_bound = bound(nbytes(v, lo, a, fwd), on_map * 5 * 2 * D, name)
-            got = msda_cuda.msda_bwd(go, v, shapes, lo, a)
-            torch.cuda.synchronize()
-            want = msda_cuda.ms_deform_attn_backward_plain(go.float(), v.float(), shapes,
-                                                           lo.float(), a.float())
-            errs = [rel_err(x, w) for x, w in zip(got, want)]
-            abs_err = max((x.float() - w).abs().max().item() for x, w in zip(got, want))
-            # autograd of the plain forward
-            leaves = [t.float().clone().requires_grad_() for t in (v, lo, a)]
-            out = msda_cuda.ms_deform_attn_plain(leaves[0], shapes, leaves[1], leaves[2])
-            auto = torch.autograd.grad(out, leaves, go.float())
-            auto_errs = [rel_err(got[0], auto[0]), rel_err(got[2], auto[2])]
-            loc_miss = ((got[1].float() - auto[1]).abs()
-                        > AUTOGRAD_TOL[name] * auto[1].abs().max()).float().mean().item()
-            del want, auto, out, leaves
             # the plain backward gathers 48 taps a query: ~17 GB at bs16, one call a graph
-            times = timed(lambda: msda_cuda.msda_bwd(go, v, shapes, lo, a),
-                          lambda: msda_cuda.ms_deform_attn_backward_plain(go, v, shapes, lo, a),
-                          plain_calls=1 if case == "bs16" else 2)
-            # per tap on the map: the dot product with g and the add of w * g
-            bnd = bound(nbytes(go, v, lo, a, got[1], got[2]) + v.numel() * 4,
-                        on_map * 4 * 4 * D, name)
-            log("K1_bwd", case=case, dtype=kind, shape=f"B{B}xQ{S}xM{M}xD{D}xL{L}xP{P}",
-                rel_err_value_loc_attn=[f"{e:.2e}" for e in errs], tol=BWD_TOL[name],
-                max_abs_err=f"{abs_err:.3e}", forward_max_abs_err=f"{fwd_err:.3e}",
-                forward_tol=TOL[name], rel_err_vs_autograd_value_attn=[f"{e:.2e}" for e in auto_errs],
-                grad_loc_share_off_vs_autograd=f"{loc_miss:.2e}", autograd_tol=AUTOGRAD_TOL[name],
-                grad_value_reproducible="to rounding only (float32 atomics, in no fixed order)",
-                **fmt_times(times), bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
-                points_on_map=f"{on_map}/{B * S * M * L * P}", forward_ms=f"{fwd_ms:.5f}",
-                forward_bound_ms=f"{fwd_bound['bound_ms']:.4f}",
-                forward_bound_by=fwd_bound["bound_by"], card=repr(card))
-            if not fwd_err <= TOL[name]:
-                raise AssertionError(f"K1 forward {case} {kind}: max abs error {fwd_err} against "
-                                     f"the plain version, above {TOL[name]}")
-            if not max(errs) <= BWD_TOL[name]:
-                raise AssertionError(f"K1 backward {case} {kind}: relative errors {errs} "
-                                     f"against the plain backward, above {BWD_TOL[name]}")
-            if not (max(auto_errs) <= AUTOGRAD_TOL[name] and loc_miss <= 1e-5):
-                raise AssertionError(f"K1 backward {case} {kind}: against autograd of the plain "
-                                     f"forward {auto_errs}, grad_loc off on {loc_miss} of entries")
-            res[(case, kind)] = {"max_abs_err": abs_err, **times, **bnd}
-            del got, go, v, lo, a, fwd
+            row = hold_k1_bwd_at(torch, card, "K1_bwd", case, g, shapes, B, dtype, sampling,
+                                 plain_calls=1 if case == "bs16" else 2)
+            res[(case, row["dtype"])] = row
+            torch.cuda.empty_cache()
     return res
 
 
@@ -1361,143 +1401,166 @@ K3_BWD_SHAPES = ((8, 120, 256), (8, 120, 1024), (8, 120, 4096), (1, 100, 13600),
                  (1, 200, 850), (1, 200, 3400), (1, 200, 13600), (16, 200, 16384))
 
 
-def phase_k3_bwd(torch, card: str) -> dict:
+def hold_k3_bwd_at(torch, card: str, phase: str, where: str, g, B: int, Q: int, S: int, dtype,
+                   dn: int = 0, tiled: bool = False, calls: int = 10,
+                   plain_calls: int = 2) -> dict:
+    """K3's forward with statistics and its backward on the strided head
+    views of B images' (B, N, H * D) projections, Q queries over S keys, as
+    the decoders hand them: with `dn`, a mask per head whose learnable
+    queries' rows are shared by the heads and whose first `dn` rows (the DN
+    block) are per head (the image decoder's); without, one mask shared by
+    the heads (the video decoder's); rows 0-4 blocked everywhere. Held: the
+    float32 output rounds to the output; the output and the statistics
+    against the plain version (TOL); the gradients against the plain
+    backward (BWD_TOL of each gradient's largest entry) and nothing to a
+    blocked row's q; two calls equal bit for bit; with `tiled`, against the
+    kernel's tiled arithmetic in PyTorch; through the Function against
+    autograd of the plain forward (AUTOGRAD_TOL); SDPA's backward, on the
+    mask with key 0 of the blocked rows open, against the plain backward on
+    that mask. Timed beside the plain backward (`plain_calls` a graph), the
+    bound and SDPA's backward; logged under `phase`. Returns the row."""
     import torch.nn.functional as F
 
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
     from mp_former_tpu_torch.utils.cuda_timing import two_clocks
 
+    H, D, blocked = 8, 32, 5
+    name = str(dtype).split(".")[1]
+    q, k, v = (torch.randn((B, n, H * D), generator=g, device="cuda").to(dtype)
+               .view(B, n, H, D).transpose(1, 2) for n in (Q, S, S))
+    go = torch.randn((B, Q, H, D), generator=g, device="cuda").to(dtype).transpose(1, 2)
+    shared = torch.rand((B, 1, Q, S), generator=g, device="cuda") < 0.7
+    if dn:
+        mask = shared.expand(B, H, Q, S).clone()
+        mask[:, :, :dn] = torch.rand((B, H, dn, S), generator=g, device="cuda") < 0.9
+    else:
+        mask = shared[:, 0].clone()
+    del shared
+    mask[..., :blocked, :] = True
+    mask4 = mask.view(B, -1, Q, S)
+    out, stats, out32 = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+    # the float32 output the backward takes delta from: out before its rounding
+    rounds = torch.equal(out32.to(dtype), out)
+    # the forward that writes the statistics is an instantiation of its own:
+    # its output against the plain version, and the statistics against the
+    # plain logits' row maximum (base 2, relative: a row blocked everywhere
+    # has -1e9 log2 e) and log2 of the row's sum
+    fwd_err = (out.float() - mac.masked_attention_plain(
+        q.float(), k.float(), v.float(), mask)).abs().max().item()
+    logits = (torch.einsum("bhqd,bhsd->bhqs", q.float(), k.float()) / math.sqrt(D)
+              ).masked_fill_(mask4, -1e9)
+    row_max = logits.amax(-1)
+    log2_sum = (logits - row_max[..., None]).exp_().sum(-1).log2()
+    row_max = row_max * math.log2(math.e)
+    max_err = ((stats[..., 0] - row_max).abs() / row_max.abs().clamp(min=1.0)).max().item()
+    sum_err = (stats[..., 1].log2() - log2_sum).abs().max().item()
+    del logits, row_max, log2_sum, out
+    got = mac.masked_attn_bwd(go, q, k, v, mask, out32, stats)
+    want = mac.masked_attention_backward_plain(go.float(), q.float(), k.float(), v.float(), mask)
+    errs = [rel_err(x, w) for x, w in zip(got, want)]
+    abs_err = max((x.float() - w).abs().max().item() for x, w in zip(got, want))
+    blocked_dq = got[0][:, :, :blocked].abs().max().item()
+    del want
+    # dq is summed over the key chunks in a fixed order: two calls, equal bits
+    reproducible = all(torch.equal(a, b) for a, b in
+                       zip(got, mac.masked_attn_bwd(go, q, k, v, mask, out32, stats)))
+    tiled_errs = ([rel_err(x, w) for x, w in zip(
+        got, mac.masked_attention_backward_tiled(go, q, k, v, mask, out32, stats))]
+        if tiled else [0.0])
+    # through the Function, against autograd of the plain forward
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    mac.masked_attention(*leaves, mask).backward(go)
+    plain_leaves = [t.detach().float().clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(mac.masked_attention_plain(*plain_leaves, mask), plain_leaves,
+                               go.float())
+    auto_errs = [rel_err(leaf.grad, w) for leaf, w in zip(leaves, auto)]
+    del auto, leaves, plain_leaves
+    # the one library call for the same function: the backward of SDPA with an
+    # additive -1e9 mask. On a row blocked everywhere SDPA's backward computes
+    # something else (its forward does not), so the library gets the mask with
+    # key 0 of those rows open, and is held against the plain backward on it
+    lib_mask = mask.clone()
+    lib_mask[..., :blocked, 0] = False
+    additive = torch.zeros(mask4.shape, dtype=dtype, device="cuda")
+    additive.masked_fill_(lib_mask.view(B, -1, Q, S), -1e9)
+    lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib = torch.autograd.grad(F.scaled_dot_product_attention(*lib_leaves, attn_mask=additive),
+                              lib_leaves, go)
+    lib_want = mac.masked_attention_backward_plain(go.float(), q.float(), k.float(), v.float(),
+                                                   lib_mask)
+    lib_err = max(rel_err(x, w) for x, w in zip(lib, lib_want))
+    del lib, lib_want, lib_leaves, lib_mask
+    t = timed(lambda: mac.masked_attn_bwd(go, q, k, v, mask, out32, stats),
+              lambda: mac.masked_attention_backward_plain(go, q, k, v, mask),
+              calls=calls, plain_calls=plain_calls)
+
+    # a backward cannot be captured apart from its forward (the engine ties it
+    # to the forward's stream): the library's time is forward and backward
+    # together less the forward alone, each by graph replay
+    def lib_forward(backward=False):
+        # fresh leaves: autograd ties a leaf to the stream it was made on
+        fresh = [x.detach().requires_grad_(backward) for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*fresh, attn_mask=additive)
+        return torch.autograd.grad(lib_out, fresh, go) if backward else lib_out
+
+    both = two_clocks(lambda: lib_forward(backward=True), calls)
+    alone = two_clocks(lib_forward, calls)
+    t["library_ms"] = both["ms"] - alone["ms"]
+    t["library_issue_ms"] = both["issue_ms"] - alone["issue_ms"]
+    # five products of 2 Q S D operations per head; as in the forward's bound,
+    # float32 accuracy on the tensor cores is 3xTF32: three times the
+    # operations at the TF32 peak
+    flops = 5 * 2.0 * B * H * Q * S * D
+    n_bytes = nbytes(q, k, v, out32, go, mask, stats, *got)
+    bnd = (bound(n_bytes, 3 * flops, "tf32") if dtype == torch.float32
+           else bound(n_bytes, flops, name))
+    row = {"shape": f"B{B}xH{H}xQ{Q}xS{S}xD{D}", "queries": Q, "keys": S, "rel_errs": errs,
+           "max_abs_err": abs_err, "tol": BWD_TOL[name], **t, **bnd}
+    log(phase, kernel="K3_bwd", canvas=where, dtype=name, shape=row["shape"],
+        layout="strided head views, " + (f"per-head mask with a {dn}-row DN block" if dn
+                                         else "mask shared by the heads"),
+        rel_err_dq_dk_dv=[f"{e:.2e}" for e in errs], tol=BWD_TOL[name],
+        max_abs_err=f"{abs_err:.3e}", blocked_row_max_abs_dq=blocked_dq,
+        forward_max_abs_err=f"{fwd_err:.3e}", stats_max_rel_err=f"{max_err:.3e}",
+        stats_log2_sum_abs_err=f"{sum_err:.3e}", forward_tol=TOL[name],
+        rel_err_vs_autograd=[f"{e:.2e}" for e in auto_errs], autograd_tol=AUTOGRAD_TOL[name],
+        **({"rel_err_vs_tiled_arithmetic": [f"{e:.2e}" for e in tiled_errs]} if tiled else {}),
+        bitwise_reproducible=reproducible, library_rel_err=f"{lib_err:.3e}", **fmt_times(t),
+        bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
+        library="backward of F.scaled_dot_product_attention (forward and backward less the "
+                "forward)", card=repr(card))
+    at = f"{phase} K3 {where} {name} B={B} Q={Q} S={S}"
+    if not (rounds and max(fwd_err, max_err, sum_err) <= TOL[name]):
+        raise AssertionError(f"{at}: the float32 output rounds to the output: {rounds}; output "
+                             f"{fwd_err}, row maximum {max_err}, log2 of the row sum {sum_err} "
+                             f"against the plain version, above {TOL[name]}")
+    if not (reproducible and max(tiled_errs) <= BWD_TOL[name]):
+        raise AssertionError(f"{at}: two backward calls differ ({reproducible=}), or "
+                             f"{tiled_errs} against the kernel's tiled arithmetic")
+    if not (max(errs) <= BWD_TOL[name] and blocked_dq == 0.0):
+        raise AssertionError(f"{at}: backward relative errors {errs} against the plain "
+                             f"backward above {BWD_TOL[name]}, or a gradient {blocked_dq} to "
+                             "the q of a row blocked everywhere")
+    if not (max(auto_errs) <= AUTOGRAD_TOL[name] and lib_err <= AUTOGRAD_TOL[name]):
+        raise AssertionError(f"{at}: backward {auto_errs} against autograd of the plain "
+                             f"forward, or the library call computes another function "
+                             f"(relative error {lib_err})")
+    return row
+
+
+def phase_k3_bwd(torch, card: str) -> dict:
+    """K3's backward at K3_BWD_SHAPES with the image decoder's 20-row DN block
+    (`hold_k3_bwd_at`, held also against the tiled arithmetic), float32 and
+    bfloat16; in bfloat16 also `spread_delta_check`."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    H, D, DN = 8, 32, 20
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         per_shape = []
         for B, Q, S in K3_BWD_SHAPES:
-            # strided head views of (B, N, H * D) projections, as the decoder's
-            q, k, v = (torch.randn((B, n, H * D), generator=g, device="cuda").to(dtype)
-                       .view(B, n, H, D).transpose(1, 2) for n in (Q, S, S))
-            go = torch.randn((B, Q, H, D), generator=g, device="cuda").to(dtype).transpose(1, 2)
-            # the learnable queries' rows are shared by the heads; the DN block in
-            # front is per head; row 0 is blocked everywhere
-            shared = torch.rand((B, 1, Q, S), generator=g, device="cuda") < 0.7
-            mask = shared.expand(B, H, Q, S).clone()
-            mask[:, :, :DN] = torch.rand((B, H, DN, S), generator=g, device="cuda") < 0.9
-            mask[:, :, 0] = True
-            out, stats, out32 = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
-            # the float32 output the backward takes delta from: out before its rounding
-            if not torch.equal(out32.to(dtype), out):
-                raise AssertionError(f"K3 forward with statistics {name} S={S}: the float32 "
-                                     "output does not round to the output")
-            # the forward that writes the statistics is an instantiation of its
-            # own: its output against the plain version, and the statistics
-            # against the plain logits' row maximum (base 2, relative: a row
-            # blocked everywhere has -1e9 log2 e) and log2 of the row's sum
-            fwd_err = (out.float() - mac.masked_attention_plain(
-                q.float(), k.float(), v.float(), mask)).abs().max().item()
-            logits = (torch.einsum("bhqd,bhsd->bhqs", q.float(), k.float()) / math.sqrt(D)
-                      ).masked_fill_(mask, -1e9)
-            row_max = logits.amax(-1)
-            log2_sum = (logits - row_max[..., None]).exp_().sum(-1).log2()
-            row_max = row_max * math.log2(math.e)
-            max_err = ((stats[..., 0] - row_max).abs() / row_max.abs().clamp(min=1.0)).max().item()
-            sum_err = (stats[..., 1].log2() - log2_sum).abs().max().item()
-            del logits, row_max, log2_sum
-            got = mac.masked_attn_bwd(go, q, k, v, mask, out32, stats)
-            torch.cuda.synchronize()
-            want = mac.masked_attention_backward_plain(go.float(), q.float(), k.float(),
-                                                       v.float(), mask)
-            errs = [rel_err(x, w) for x, w in zip(got, want)]
-            abs_err = max((x.float() - w).abs().max().item() for x, w in zip(got, want))
-            blocked_row_dq = got[0][:, :, 0].abs().max().item()
-            # dq is summed over the key chunks in a fixed order: two calls, equal bits
-            again = mac.masked_attn_bwd(go, q, k, v, mask, out32, stats)
-            reproducible = all(torch.equal(a, b) for a, b in zip(got, again))
-            del again
-            tiled_errs = [rel_err(x, w) for x, w in zip(
-                got, mac.masked_attention_backward_tiled(go, q, k, v, mask, out32, stats))]
-            # through the Function, against autograd of the plain forward
-            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-            mac.masked_attention(*leaves, mask).backward(go)
-            plain_leaves = [t.detach().float().clone().requires_grad_() for t in (q, k, v)]
-            auto = torch.autograd.grad(mac.masked_attention_plain(*plain_leaves, mask),
-                                       plain_leaves, go.float())
-            auto_errs = [rel_err(leaf.grad, w) for leaf, w in zip(leaves, auto)]
-            del want, auto, leaves, plain_leaves
-            # the one library call for the same function: the backward of SDPA with
-            # an additive -1e9 mask. On a row blocked everywhere SDPA's backward
-            # computes something else (its forward does not), so the library gets
-            # the same mask with one key of that row open, and is held against
-            # the plain backward on that mask
-            lib_mask = mask.clone()
-            lib_mask[:, :, 0, 0] = False
-            additive = torch.zeros((B, H, Q, S), dtype=dtype, device="cuda")
-            additive.masked_fill_(lib_mask, -1e9)
-            lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-            lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=additive)
-            lib_grads = torch.autograd.grad(lib_out, lib_leaves, go, retain_graph=True)
-            lib_want = mac.masked_attention_backward_plain(go.float(), q.float(), k.float(),
-                                                           v.float(), lib_mask)
-            lib_err = max(rel_err(x, w) for x, w in zip(lib_grads, lib_want))
-            del lib_grads, lib_want, lib_mask
-            if not lib_err <= AUTOGRAD_TOL[name]:
-                raise AssertionError(f"K3 backward {name} S={S}: the library call computes "
-                                     f"another function (relative error {lib_err})")
-            t = timed(lambda: mac.masked_attn_bwd(go, q, k, v, mask, out32, stats),
-                      lambda: mac.masked_attention_backward_plain(go, q, k, v, mask),
-                      calls=10, plain_calls=2)
-            # a backward cannot be captured apart from its forward (the engine ties
-            # it to the forward's stream): the library's time is forward and
-            # backward together less the forward alone, each by graph replay
-
-            def lib_forward(backward=False):
-                # fresh leaves: autograd ties a leaf to the stream it was made on
-                leaves = [t.detach().requires_grad_(backward) for t in (q, k, v)]
-                lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=additive)
-                return torch.autograd.grad(lib_out, leaves, go) if backward else lib_out
-
-            both = two_clocks(lambda: lib_forward(backward=True), 10)
-            alone = two_clocks(lib_forward, 10)
-            t["library_ms"] = both["ms"] - alone["ms"]
-            t["library_issue_ms"] = both["issue_ms"] - alone["issue_ms"]
-            # five products of 2 Q S D operations per head; as in the forward's
-            # bound, float32 accuracy on the tensor cores is 3xTF32: three times
-            # the operations at the TF32 peak
-            flops = 5 * 2.0 * B * H * Q * S * D
-            n_bytes = nbytes(q, k, v, out32, go, mask, stats, *got)
-            bnd = (bound(n_bytes, 3 * flops, "tf32") if dtype == torch.float32
-                   else bound(n_bytes, flops, name))
-            log("K3_bwd", dtype=name, shape=f"B{B}xH{H}xQ{Q}xS{S}xD{D}",
-                layout="strided head views, per-head mask with a DN block",
-                rel_err_dq_dk_dv=[f"{e:.2e}" for e in errs], tol=BWD_TOL[name],
-                max_abs_err=f"{abs_err:.3e}", blocked_row_max_abs_dq=blocked_row_dq,
-                forward_max_abs_err=f"{fwd_err:.3e}", stats_max_rel_err=f"{max_err:.3e}",
-                stats_log2_sum_abs_err=f"{sum_err:.3e}", forward_tol=TOL[name],
-                rel_err_vs_autograd=[f"{e:.2e}" for e in auto_errs],
-                autograd_tol=AUTOGRAD_TOL[name],
-                rel_err_vs_tiled_arithmetic=[f"{e:.2e}" for e in tiled_errs],
-                bitwise_reproducible=reproducible, **fmt_times(t),
-                bound_ms=f"{bnd['bound_ms']:.5f}", bound_by=bnd["bound_by"],
-                library="backward of F.scaled_dot_product_attention (forward and backward "
-                        "less the forward)", card=repr(card))
-            if not max(fwd_err, max_err, sum_err) <= TOL[name]:
-                raise AssertionError(f"K3 forward with statistics {name} S={S}: output "
-                                     f"{fwd_err}, row maximum {max_err}, log2 of the row sum "
-                                     f"{sum_err} against the plain version, above {TOL[name]}")
-            if not (reproducible and max(tiled_errs) <= BWD_TOL[name]):
-                raise AssertionError(f"K3 backward {name} S={S}: two calls differ "
-                                     f"({reproducible=}), or {tiled_errs} against the kernel's "
-                                     "tiled arithmetic")
-            if not (max(errs) <= BWD_TOL[name] and blocked_row_dq == 0.0):
-                raise AssertionError(f"K3 backward {name} S={S}: relative errors {errs} against "
-                                     f"the plain backward above {BWD_TOL[name]}, or a gradient "
-                                     f"{blocked_row_dq} to the q of a row blocked everywhere")
-            if not max(auto_errs) <= AUTOGRAD_TOL[name]:
-                raise AssertionError(f"K3 backward {name} S={S}: {auto_errs} against autograd "
-                                     "of the plain forward")
-            per_shape.append({"shape": f"B{B}xH{H}xQ{Q}xS{S}", "max_abs_err": abs_err, **t,
-                              **bnd})
-            del q, k, v, go, mask, shared, additive, out, out32, stats, got, lib_leaves, lib_out
+            per_shape.append(hold_k3_bwd_at(torch, card, "K3_bwd", "DN block", g, B, Q, S, dtype,
+                                            dn=20, tiled=True))
+            torch.cuda.empty_cache()
         if dtype == torch.bfloat16:
             spread_delta_check(torch, card, g)
         # a training step visits each of the three training lengths three times:
@@ -1508,7 +1571,7 @@ def phase_k3_bwd(torch, card: str) -> dict:
                         for key in ("ms", "issue_ms", "plain_ms", "plain_issue_ms", "library_ms",
                                     "library_issue_ms", "bound_ms")},
                      "bound_by": train[-1]["bound_by"]}
-        res[(name, 200)] = [r for r in per_shape if "xQ200x" in r["shape"]]
+        res[(name, 200)] = [r for r in per_shape if r["queries"] == 200]
     return res
 
 
@@ -2767,7 +2830,8 @@ def default_scores(config: str):
 
 
 def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: str = "",
-                    recipe=RELEASED_SH, scores=None, steps: int = TRAIN_NET_STEPS) -> tuple:
+                    recipe=RELEASED_SH, scores=None, steps: int = TRAIN_NET_STEPS,
+                    video: bool = False) -> tuple:
     """The released recipe launched as its users launch it: `train_net.main`
     with the overrides of run_50ep_no_noise_all_ly.sh, full width and depth,
     its own batch (16 images, LSJ at 1024) from phase train_coco's dataset
@@ -2788,12 +2852,15 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
     YAML says), `scores` results -> the finite scores to print
     (`default_scores`). Returns the launches of the steps and of the
     evaluation, and the steps' seconds (the profiled last left out), the last
-    step's device busy ms, the peak memory and the last data_time."""
+    step's device busy ms, the peak memory and the last data_time. With
+    `video`, the video entry point `train_net_video.main` instead, whose
+    batch is SOLVER.IMS_PER_BATCH clips of its clip mapper, evaluated on
+    TRAIN_NET_EVAL_IMAGES clips (`--max-eval-videos`: K1 6 and K3 9 a clip)."""
     import shutil
 
     from torch.profiler import ProfilerActivity, profile
 
-    from mp_former_tpu_torch import train_net
+    from mp_former_tpu_torch import train_net, train_net_video
     from mp_former_tpu_torch.engine.trainer import Trainer
     from mp_former_tpu_torch.utils.cuda_timing import device_busy_us
 
@@ -2803,7 +2870,8 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
     opts = ["--config-file", os.path.join(REPO, config)]
     overrides = [*recipe, "SOLVER.MAX_ITER", str(steps),
                  "TPU.GRAD_ACCUM_STEPS", str(accum), "SEED", str(SEED), "OUTPUT_DIR", out_dir]
-    parse = train_net.default_argument_parser().parse_args
+    entry = train_net_video if video else train_net
+    parse = entry.default_argument_parser().parse_args
     seconds, busy, kernels = [], [], []
     run_step = Trainer.run_step
 
@@ -2838,7 +2906,7 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
     reset_kernel_counts()
     torch.manual_seed(SEED)  # the model's initialisation
     with mock.patch.object(Trainer, "run_step", timed_step):
-        train_net.main(parse([*opts, *overrides]))
+        entry.main(parse([*opts, *overrides]))
     launches = kernel_counts(backward=True)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     with open(os.path.join(out_dir, "config.yaml")) as f:
@@ -2849,10 +2917,15 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
     with open(os.path.join(out_dir, "metrics.json")) as f:
         lines = [json.loads(x) for x in f.read().splitlines()]
     cfg = load_cfg(config, overrides, released_decoder=False)
-    crop = (cfg.INPUT.CROP.SIZE if cfg.INPUT.CROP.ENABLED
-            else (cfg.INPUT.IMAGE_SIZE, cfg.INPUT.IMAGE_SIZE))
-    log(phase, steps=steps, batch=f"{cfg.SOLVER.IMS_PER_BATCH}x{crop[0]}x{crop[1]}",
-        mapper=cfg.INPUT.DATASET_MAPPER_NAME, accum=accum,
+    if video:
+        batch = (f"{cfg.SOLVER.IMS_PER_BATCH} clips x {cfg.INPUT.SAMPLING_FRAME_NUM} frames on "
+                 "{}x{}".format(*video_train_canvas(cfg)))
+    else:
+        crop = (cfg.INPUT.CROP.SIZE if cfg.INPUT.CROP.ENABLED
+                else (cfg.INPUT.IMAGE_SIZE, cfg.INPUT.IMAGE_SIZE))
+        batch = f"{cfg.SOLVER.IMS_PER_BATCH}x{crop[0]}x{crop[1]}"
+    log(phase, steps=steps, batch=batch,
+        mapper="YTVISDatasetMapper" if video else cfg.INPUT.DATASET_MAPPER_NAME, accum=accum,
         remat=remat, launches=launches, expected=expected)
     log(phase, steps_s=[f"{t:.4f}" for t in seconds[:-1]],
         profiled_last_step_s=f"{seconds[-1]:.4f}", device_busy_ms_last_step=f"{busy[0]:.1f}",
@@ -2870,8 +2943,9 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
 
     reset_kernel_counts()
     t0 = time.perf_counter()
-    results = train_net.main(parse([*opts, "--eval-only", "--resume", "--max-eval-images",
-                                    str(TRAIN_NET_EVAL_IMAGES), *overrides]))
+    results = entry.main(parse([*opts, "--eval-only", "--resume",
+                                "--max-eval-videos" if video else "--max-eval-images",
+                                str(TRAIN_NET_EVAL_IMAGES), *overrides]))
     eval_s = time.perf_counter() - t0
     launches_eval = kernel_counts(backward=True)
     expected_eval = {k: TRAIN_NET_EVAL_IMAGES * v for k, v in COCO_EVAL_EXPECTED.items()}
@@ -3426,50 +3500,59 @@ def phase_slice_swin(torch, card: str) -> tuple:
     return launches, launches16
 
 
-def phase_swin_step(torch, card: str) -> dict:
-    """Step 0 of the Swin-L recipe on SWIN_STEP_BATCH generated images of
-    1024x1024 (its LSJ canvas), through the kernels and through autograd of
-    the plain ops, at phase train's tolerances (`hold_step`): every gradient,
-    the backbone's among them, which reach it through K1's and K3's
-    backward kernels. The plain ops take the kernel path's attention masks
-    (`PairedAttention`, as phase slice_swin) and ReLU decisions
-    (`PairedRelu`)."""
-    from mp_former_tpu_torch.data.synthetic import synthetic_batches
-    from mp_former_tpu_torch.models.criterion import build_criterion
-
-    cfg = load_cfg(SWIN_CONFIG, ["SEED", str(SEED)], released_decoder=False)
-    model = seeded_model(torch, cfg).to("cuda")
-    criterion = build_criterion(cfg)
-    batch = next(synthetic_batches(SWIN_STEP_BATCH, BS16_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
-                                   TRAIN_MAX_INSTANCES, seed=SEED)).to("cuda")
-    expected = step_expected(TRAIN_EXPECTED, cfg.TPU.REMAT_ENCODER)
+def paired_step(torch, card: str, phase: str, model, criterion, batch, what: str) -> dict:
+    """Step 0 of `model` on `batch` through the kernels and through autograd
+    of the plain ops, at phase train's tolerances (`hold_step`): every
+    gradient, the backbone's among them, which reach it through K1's and
+    K3's backward kernels. The plain ops take the kernel path's attention
+    masks (`PairedAttention`) and ReLU decisions (`PairedRelu`), each
+    decision taken otherwise within its margin of 0. Counts the launches
+    (K1 12 with the encoder recomputed, K1 backward 6, K3 and K3 backward 9)
+    and returns them."""
+    expected = step_expected(TRAIN_EXPECTED, model.sem_seg_head.pixel_decoder.transformer.remat)
     pairing, relus = PairedAttention(model), PairedRelu()
     reset_kernel_counts()
     with pairing.recording(), relus.recording():
         k_losses, k_grads, assignments = loss_and_gradients(torch, model, criterion, batch)
     launches = kernel_counts(backward=True)
     if launches != expected:
-        raise AssertionError(f"swin_step: kernel launches {launches}, expected {expected}")
+        raise AssertionError(f"{phase}: kernel launches {launches}, expected {expected}")
     model.zero_grad(set_to_none=True)
     with plain_ops(), pairing.replaying(), relus.replaying():
         p_losses, p_grads, _ = loss_and_gradients(torch, model, criterion, batch, assignments)
-    log("swin_step", attention_decisions_taken_otherwise=pairing.flips,
+    log(phase, attention_decisions_taken_otherwise=pairing.flips,
         their_largest_abs_mask_logit=f"{pairing.margin:.3e}", margin=ATTN_FLIP_MARGIN,
         relu_decisions_taken_otherwise=relus.flips,
         their_largest_abs_input=f"{relus.margin:.3e}", relu_margin=RELU_FLIP_MARGIN)
     if pairing.margin > ATTN_FLIP_MARGIN or relus.margin > RELU_FLIP_MARGIN:
-        raise AssertionError(f"swin_step: an attention decision differs at a mask logit of "
+        raise AssertionError(f"{phase}: an attention decision differs at a mask logit of "
                              f"{pairing.margin}, a ReLU decision at an input of {relus.margin}")
     backbone = [(rel_err(k_grads[n], p_grads[n]), n) for n in p_grads
                 if n.startswith("backbone.")]
-    log("swin_step", batch=f"{SWIN_STEP_BATCH}x{BS16_SIZE}x{BS16_SIZE}", launches=launches,
-        backbone_gradients=len(backbone), backbone_grad_max_rel_err=f"{max(backbone)[0]:.3e}",
-        worst_backbone=max(backbone)[1], card=repr(card))
-    hold_step(torch, "swin_step", k_losses, k_grads, p_losses, p_grads)
-    if len(backbone) != sum(1 for n, _ in model.named_parameters() if n.startswith("backbone.")):
-        raise AssertionError("swin_step: a backbone parameter got no gradient")
-    log("swin_step", ok=True)
+    log(phase, batch=what, launches=launches, backbone_gradients=len(backbone),
+        backbone_grad_max_rel_err=f"{max(backbone)[0]:.3e}", worst_backbone=max(backbone)[1],
+        card=repr(card))
+    hold_step(torch, phase, k_losses, k_grads, p_losses, p_grads)
+    trained = [n for n, p in model.named_parameters() if n.startswith("backbone.")
+               and p.requires_grad]
+    if len(backbone) != len(trained):
+        raise AssertionError(f"{phase}: a backbone parameter got no gradient")
+    log(phase, ok=True)
     return launches
+
+
+def phase_swin_step(torch, card: str) -> dict:
+    """Step 0 of the Swin-L recipe on SWIN_STEP_BATCH generated images of
+    1024x1024 (its LSJ canvas) against the plain ops (`paired_step`)."""
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.models.criterion import build_criterion
+
+    cfg = load_cfg(SWIN_CONFIG, ["SEED", str(SEED)], released_decoder=False)
+    model = seeded_model(torch, cfg).to("cuda")
+    batch = next(synthetic_batches(SWIN_STEP_BATCH, BS16_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                   TRAIN_MAX_INSTANCES, seed=SEED)).to("cuda")
+    return paired_step(torch, card, "swin_step", model, build_criterion(cfg), batch,
+                       f"{SWIN_STEP_BATCH}x{BS16_SIZE}x{BS16_SIZE}")
 
 
 def phase_train_swin(torch, card: str) -> dict:
@@ -3725,6 +3808,135 @@ def phase_eval_ytvis(torch, card: str) -> dict:
     return launches
 
 
+# slice 6, training (A20b): the YouTube-VIS recipes train on the JAX clip
+# mapper's static canvas, max(MIN_SIZE_TRAIN) by MAX_SIZE_TRAIN rounded up
+# to 32 (480x1344: levels 15x42, 30x84 and 60x168), 16 clips of 2 frames a
+# batch, from a synthetic train split of 720x1280 videos written beside
+# eval_ytvis's clips (so `ytvis_2019_train` and `ytvis_2019_val` read one root)
+VIDEO_TRAIN_VIDEOS, VIDEO_TRAIN_LENGTH = 16, 3
+VIDEO_STEP_CLIPS = 2
+VIDEO_TRAIN = (("train_video", YTVIS_CONFIG, []),
+               ("train_video_bf16", YTVIS_CONFIG, ["TPU.COMPUTE_DTYPE", "bfloat16"]),
+               # 32 frames of Swin-L fit with each block recomputed in the backward
+               ("train_video_swin", YTVIS_SWIN_CONFIG, ["MODEL.SWIN.USE_CHECKPOINT", "True"]))
+
+
+def video_train_canvas(cfg) -> tuple:
+    """The clip mapper's canvas of a landscape video (`video/ytvis.py:
+    YTVISDatasetMapper`): max(MIN_SIZE_TRAIN) by MAX_SIZE_TRAIN, each rounded
+    up to 32."""
+    return ((max(cfg.INPUT.MIN_SIZE_TRAIN) + 31) // 32 * 32,
+            (cfg.INPUT.MAX_SIZE_TRAIN + 31) // 32 * 32)
+
+
+def phase_video_train_canvases(torch, card: str) -> dict:
+    """K1, K3 and their backward kernels at the shapes of the YouTube-VIS
+    recipes' training batch (16 clips of 2 frames on the 480x1344 canvas):
+    K1 and its backward on 32 frames of 13230 queries, K3 and its backward
+    at B = 16 with 100 and 200 queries over the keys of both frames of each
+    level (S = 1260, 5040, 20160), the mask shared by the heads; float32 and
+    bfloat16, held against the plain versions (forwards at TOL times the
+    plain output's largest entry where that is below 1, backwards at BWD_TOL
+    of each gradient's largest entry) and timed beside the bound and SDPA's
+    forward and backward."""
+    cfg = load_cfg(YTVIS_CONFIG, [], released_decoder=False)
+    h, w = video_train_canvas(cfg)
+    clips, t = cfg.SOLVER.IMS_PER_BATCH, cfg.INPUT.SAMPLING_FRAME_NUM
+    if (h, w, clips, t) != (480, 1344, 16, 2):
+        raise AssertionError(f"video_train_canvases: {YTVIS_CONFIG} gives {clips} clips of {t} "
+                             f"frames on {h}x{w}")
+    shapes = canvas_levels(h, w)
+    where = f"{clips} clips x {t} frames of {h}x{w}"
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        row = hold_k1_at(torch, g, shapes, clips * t, dtype)
+        log_canvas_row("video_train_canvases", "K1", where, name, row, card)
+        res[("K1", where, name)] = row
+        res[("K1_bwd", where, name)] = hold_k1_bwd_at(
+            torch, card, "video_train_canvases", where, g, shapes, clips * t, dtype,
+            plain_calls=1)
+        torch.cuda.empty_cache()
+        for Q in K3_QUERIES:
+            for lh, lw in shapes:
+                at = f"{where}, {Q} queries, S = {t * lh * lw}"
+                row = hold_k3_at(torch, g, Q, t * lh * lw, dtype, batch=clips)
+                log_canvas_row("video_train_canvases", "K3", at, name, row, card)
+                res[("K3", at, name)] = row
+                res[("K3_bwd", at, name)] = hold_k3_bwd_at(
+                    torch, card, "video_train_canvases", at, g, clips, Q, t * lh * lw, dtype,
+                    calls=5, plain_calls=1)
+                torch.cuda.empty_cache()
+    log("video_train_canvases", ok=True)
+    return res
+
+
+def write_video_train() -> str:
+    """The synthetic train split of the video training phases: VIDEO_TRAIN_VIDEOS
+    videos of VIDEO_TRAIN_LENGTH frames of 720x1280 (40 classes) under
+    VIDEO_ORACLE_ROOT, beside eval_ytvis's clips; returns its json."""
+    from tools.make_synthetic_ytvis_torch import write_dataset
+
+    t0 = time.perf_counter()
+    json_file = write_dataset(VIDEO_ORACLE_ROOT, videos=VIDEO_TRAIN_VIDEOS,
+                              frames=(VIDEO_TRAIN_LENGTH,), height=VIDEO_SIZE[0],
+                              width=VIDEO_SIZE[1], classes=40, split="train", seed=SEED + 3)
+    log("write_video_train", json=json_file, videos=VIDEO_TRAIN_VIDEOS,
+        frames=VIDEO_TRAIN_LENGTH, size=f"{VIDEO_SIZE[0]}x{VIDEO_SIZE[1]}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return json_file
+
+
+def phase_video_step(torch, card: str, json_file: str) -> dict:
+    """Step 0 of the R50 YouTube-VIS 2019 recipe at full width (seeded
+    weights) on VIDEO_STEP_CLIPS clips of the train split through
+    `YTVISDatasetMapper` and `collate_clips` (2 frames on the 480x1344
+    canvas, ground truth at full resolution), through the kernels against
+    the plain ops given the kernel path's attention and ReLU decisions
+    (`paired_step`, the tube criterion's random points drawn alike). The
+    seeded weights are the reference init's: the encoder's sampling-offset
+    weights are 0, so every sampling location is a pixel centre of its own
+    level, where the derivative in the location jumps, and the kernels and
+    the plain ops must round the pixel coordinate alike (ROADMAP C9, C11)."""
+    from mp_former_tpu_torch.video.criterion import build_video_criterion
+    from mp_former_tpu_torch.video.ytvis import (YTVISDatasetMapper, collate_clips,
+                                                 load_ytvis_json)
+
+    cfg = load_cfg(YTVIS_CONFIG, ["SEED", str(SEED)], released_decoder=False)
+    records = load_ytvis_json(json_file, os.path.join(VIDEO_ORACLE_ROOT, "ytvis_2019", "train",
+                                                      "JPEGImages"))
+    mapper = YTVISDatasetMapper(cfg, max_instances=cfg.TPU.MAX_INSTANCES)
+    samples = [mapper(rec, np.random.RandomState(SEED + i))
+               for i, rec in enumerate(records[:VIDEO_STEP_CLIPS])]
+    batch = collate_clips(samples).to("cuda")
+    model = seeded_model(torch, cfg).to("cuda")
+    what = "{} clips x {} frames of {}x{}, {} slots".format(*batch.images.shape[:4],
+                                                          batch.targets.num_instances)
+    return paired_step(torch, card, "video_step", model, build_video_criterion(cfg), batch, what)
+
+
+def phase_train_video(torch, card: str) -> dict:
+    """The video recipes of VIDEO_TRAIN through `train_net_video.main` as
+    their YAML says, at their own batch (16 clips of 2 frames, the 480x1344
+    canvas) from the synthetic train split, as phase train_net_accum1 runs
+    the released recipe (3 steps, the second's launches held against the
+    plain versions, the last profiled), then `--eval-only --resume` on
+    eval_ytvis's 4 clips: finite tube AP. `ytvis_2019_{train,val}` read
+    VIDEO_ORACLE_ROOT."""
+    paths = {}
+    root = os.environ["DETECTRON2_DATASETS"]
+    os.environ["DETECTRON2_DATASETS"] = VIDEO_ORACLE_ROOT  # read by register_all_ytvis
+    try:
+        for phase, config, overrides in VIDEO_TRAIN:
+            paths[phase], paths[phase + "_eval"], _ = phase_train_net(
+                torch, card, 1, config, phase, recipe=overrides, video=True)
+            torch.cuda.empty_cache()
+    finally:
+        os.environ["DETECTRON2_DATASETS"] = root
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3834,6 +4046,15 @@ def main() -> int:
     swin_step = phase_swin_step(torch, card)
     torch.cuda.empty_cache()
     swin_paths = phase_train_swin(torch, card)
+    torch.cuda.empty_cache()
+    # slice 6 (A20b): the video recipes train, K1, K3 and their backward
+    # kernels at the shapes of their batch first
+    video_train_canvases = phase_video_train_canvases(torch, card)
+    torch.cuda.empty_cache()
+    train_json = write_video_train()
+    video_paths["video_step"] = phase_video_step(torch, card, train_json)
+    torch.cuda.empty_cache()
+    video_paths.update(phase_train_video(torch, card))
     by_path = {"slice": s1, "slice2": s2, "tap_weighting_route": route, "train": train,
                "train_coco": train_coco, "slice_bf16": s1_bf16, "slice2_bf16": s2_bf16,
                "eval_bf16": eval_bf16, "train_bf16": train_bf16, "train_tpu": train_tpu,
@@ -3847,12 +4068,14 @@ def main() -> int:
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",
          "replaces": "mp_former_tpu/ops/msda_pallas.py:134", "launches": s1["msda_fwd"],
          **k1["float32"], "at_test_canvases": test_canvas_rows(canvases, "K1"),
-         "at_video_canvases": test_canvas_rows(video_canvases, "K1")},
+         "at_video_canvases": test_canvas_rows(video_canvases, "K1"),
+         "at_video_train_canvases": test_canvas_rows(video_train_canvases, "K1")},
         {"name": "masked_attn_fwd", "route": "cuda", "source": csrc + "masked_attn_fwd.cu",
          "replaces": "mp_former_tpu/ops/fused_masked_attention.py:63",
          "launches": s1["masked_attn_fwd"], **k3[("float32", 100)],
          "at_q200": k3[("float32", 200)], "at_test_canvases": test_canvas_rows(canvases, "K3"),
-         "at_video_canvases": test_canvas_rows(video_canvases, "K3")},
+         "at_video_canvases": test_canvas_rows(video_canvases, "K3"),
+         "at_video_train_canvases": test_canvas_rows(video_train_canvases, "K3")},
         {"name": "tap_weight_fwd", "route": "cuda", "source": csrc + "tap_weight_fwd.cu",
          "replaces": "mp_former_tpu/ops/tap_weighting.py:244", "launches": s2["tap_weight_fwd"],
          **k2[("headshare", "float32")]},
@@ -3866,13 +4089,15 @@ def main() -> int:
          "replaces": "mp_former_tpu/ops/msda_pallas.py:249 (the VJP of the kernel at :134, "
                      "a recompute through XLA)",
          "launches": train["msda_bwd"], **k1_bwd[("train", "float32")],
-         "at_bs16": k1_bwd[("bs16", "float32")]},
+         "at_bs16": k1_bwd[("bs16", "float32")],
+         "at_video_train_canvases": test_canvas_rows(video_train_canvases, "K1_bwd")},
         {"name": "masked_attn_bwd", "route": "cuda", "source": csrc + "masked_attn_bwd.cu",
          "replaces": "mp_former_tpu/ops/fused_masked_attention.py:63 (no VJP: training takes "
                      "the einsum branch, mp_former_tpu/models/transformer_decoder/"
                      "primitives.py:72)",
          "launches": train["masked_attn_bwd"], **k3_bwd["float32"],
-         "at_q200": k3_bwd[("float32", 200)]},
+         "at_q200": k3_bwd[("float32", 200)],
+         "at_video_train_canvases": test_canvas_rows(video_train_canvases, "K3_bwd")},
         {"name": "tap_weight_bwd", "route": "cuda", "source": csrc + "tap_weight_bwd.cu",
          "replaces": "mp_former_tpu/ops/tap_weighting.py:284 (the custom_vjp's _bwd, plain XLA)",
          "launches": train_tpu["tap_weight_bwd"],

@@ -17,7 +17,13 @@
 //   dV    = p^T dO
 //   dP    = dO v^T
 //   dS    = p * (dP - delta), and 0 where the mask blocks: the -1e9 is a
-//           constant, so no gradient passes through a blocked logit
+//           constant, so no gradient passes through a blocked logit; and 0
+//           in a row where one key carries all of the weight (the forward's
+//           sum is 1): there delta = dP of that key
+//           exactly, and dP - delta would be the difference of two roundings
+//           of it (fault C10: a row that sees one key, values sharing an
+//           offset, and a dK that cancels to 1e-5 of its terms put dK 3.6e-4
+//           of its largest entry from float64)
 //   dQ    = dS k / sqrt(D)        dK = dS^T q / sqrt(D)
 //
 // A row whose keys are all blocked is uniform over all keys in the forward
@@ -439,7 +445,11 @@ masked_attn_bwd_keys(const Params p) {
           const bool ok = half ? hi_ok : lo_ok;
           const float pw = ok ? ex2((blocked ? kMasked : s[j][e]) - rd.x) * rd.y : 0.f;
           s[j][e] = pw;
-          dp[j][e] = (ok && !blocked) ? pw * (dp[j][e] - rd.z) : 0.f;
+          // a row whose weights sum to 1 relative to its maximum has one key
+          // carrying all of its weight (the others below 2^-24 of it): delta
+          // is that key's dP, and dS is 0 to float32 precision, where the
+          // difference of two roundings of dP is not (fault C10)
+          dp[j][e] = (ok && !blocked && rd.y != 1.f) ? pw * (dp[j][e] - rd.z) : 0.f;
           put_ds(ds_tile, r, key_local + 8 * half, dp[j][e]);
         }
       }

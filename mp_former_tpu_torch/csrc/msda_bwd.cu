@@ -184,8 +184,12 @@ msda_bwd_kernel(const T* __restrict__ grad_out, const T* __restrict__ value,
       const int l = i / P;
       const int H = s_levels[3 * l], W = s_levels[3 * l + 1], start = s_levels[3 * l + 2];
       const float2 xy = load_xy(loc_p + 2 * i);
-      const float x = xy.x * W - 0.5f;
-      const float y = xy.y * H - 0.5f;
+      // loc * W rounded, then - 0.5, as the JAX package and the plain version
+      // round it: contracted into one FMA, a location within an ulp of a pixel
+      // centre (every location at the reference init, on a level whose size is
+      // no power of two) would floor to the other side of the centre
+      const float x = __fmul_rn(xy.x, (float)W) - 0.5f;
+      const float y = __fmul_rn(xy.y, (float)H) - 0.5f;
       const float x0f = floorf(x), y0f = floorf(y);
       // false for a location that is not finite; also keeps the int conversions in range
       if (x0f >= -1.f && x0f <= (float)(W - 1) && y0f >= -1.f && y0f <= (float)(H - 1)) {

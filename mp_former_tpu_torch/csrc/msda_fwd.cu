@@ -3,10 +3,10 @@
 // Replaces the TPU kernel mp_former_tpu/ops/msda_pallas.py:_gather_weight_level
 // (body `_kernel`) together with the XLA index and weight math around it
 // (`_msda_pallas_impl`). Same result as the plain versions in
-// mp_former_tpu_torch/ops/msda_cuda.py: `ms_deform_attn_plain` (grid_sample
-// with zero padding and align_corners=False, weighted by the attention weights
-// and summed over levels and points) and `ms_deform_attn_folded`, which does
-// the arithmetic in this kernel's order.
+// mp_former_tpu_torch/ops/msda_cuda.py: `ms_deform_attn_plain` (bilinear
+// sampling with zero padding as grid_sample's align_corners=False, weighted by
+// the attention weights and summed over levels and points) and
+// `ms_deform_attn_folded`, which does the arithmetic in this kernel's order.
 //
 //   value               (B, S, M, D)        S = sum over levels of H_l * W_l
 //   levels              (L, 3) int32        (H_l, W_l, first token of level l)
@@ -41,9 +41,9 @@
 //   attention weight into four tap weights, with the tap index clamped onto
 //   the map: a tap off the map has weight 0 and a safe address, as the TPU
 //   kernel's formulation has it. (So a non-finite value next to the map's edge
-//   can reach the sum as 0 * inf, where grid_sample skips the tap.) A point
-//   whose location is not finite or lies a pixel or more off the map gets four
-//   zero weights.
+//   can reach the sum as 0 * inf, as in the plain versions; grid_sample
+//   skips the tap.) A point whose location is not finite or lies a pixel or
+//   more off the map gets four zero weights.
 // - The loop over the round's points takes offsets and weights from the
 //   owning lane by __shfl_sync within the group. It has no branch that
 //   depends on the data, and is unrolled kChunk points at a time so that
@@ -168,8 +168,12 @@ msda_fwd_kernel(const T* __restrict__ value, const int* __restrict__ levels,
       const int l = i / P;
       const int H = s_levels[3 * l], W = s_levels[3 * l + 1], start = s_levels[3 * l + 2];
       const float2 xy = load_xy(loc_p + 2 * i);
-      const float x = xy.x * W - 0.5f;
-      const float y = xy.y * H - 0.5f;
+      // loc * W rounded, then - 0.5, as the JAX package and the plain version
+      // round it: contracted into one FMA, a location within an ulp of a pixel
+      // centre (every location at the reference init, on a level whose size is
+      // no power of two) would floor to the other side of the centre
+      const float x = __fmul_rn(xy.x, (float)W) - 0.5f;
+      const float y = __fmul_rn(xy.y, (float)H) - 0.5f;
       const float x0f = floorf(x), y0f = floorf(y);
       // false for a location that is not finite; also keeps the int
       // conversions in range

@@ -21,7 +21,7 @@ from typing import Callable, ContextManager, Dict, Iterator, Optional, Tuple
 import torch
 from torch.profiler import record_function
 
-from ..structures import Batch, Targets
+from ..structures import Batch
 
 
 def compute_dn_groups(scalar: int, valid: torch.Tensor,
@@ -43,7 +43,8 @@ def compute_dn_groups(scalar: int, valid: torch.Tensor,
 
 def micro_batches(batch: Batch, accum: int) -> Iterator[Batch]:
     """The JAX package's strided split (`train_step.py:148-154`): micro-batch
-    k holds rows k, k + accum, ...; the whole batch when `accum` is 1."""
+    k holds rows k, k + accum, ...; the whole batch when `accum` is 1. The
+    targets keep their type (`Targets` or `VideoTargets`)."""
     b = batch.images.shape[0]
     if b % accum:
         raise ValueError(f"a batch of {b} images does not split into "
@@ -56,7 +57,8 @@ def micro_batches(batch: Batch, accum: int) -> Iterator[Batch]:
         return x.reshape(b // accum, accum, *x.shape[1:])[:, k].contiguous()
 
     for k in range(accum):
-        yield Batch(part(batch.images, k), Targets(*(part(t, k) for t in batch.targets)))
+        targets = batch.targets
+        yield Batch(part(batch.images, k), type(targets)(*(part(t, k) for t in targets)))
 
 
 def _stage_range(name: str) -> ContextManager:

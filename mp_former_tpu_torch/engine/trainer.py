@@ -10,6 +10,11 @@ start+7 of a `train()` call run under `torch.profiler` (the JAX trainer's
 trace window, `mp_former_tpu/engine/trainer.py:202-205`), exported as a Chrome
 trace into that directory. It runs on `cuda` unless the caller passes
 `device="cpu"`, and raises when asked for `cuda` and there is none.
+
+A video model trains through the same loop (`mp_former_tpu/engine/trainer.py:61-75`):
+the caller passes its criterion (`video/criterion.py:build_video_criterion`)
+and a loader of clips (`video/ytvis.py:build_clip_loader`), and `test`
+scores tube AP with the whole-clip loop (`:259-276`).
 """
 
 from __future__ import annotations
@@ -36,17 +41,19 @@ logger = logging.getLogger(__name__)
 
 class Trainer:
     def __init__(self, cfg, train_loader: Optional[Iterable[Batch]] = None,
-                 model: Optional[torch.nn.Module] = None,
+                 model: Optional[torch.nn.Module] = None, criterion=None,
                  device: Union[str, torch.device] = "cuda"):
         """`train_loader`: an iterable of `Batch`; None builds the cfg's
-        loader at each `train()` call and closes it when the call ends."""
+        loader at each `train()` call and closes it when the call ends.
+        `model` and `criterion` default to the cfg's image model and
+        `build_criterion(cfg)`."""
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda'): torch finds no CUDA device; pass "
                                "device='cpu' to train on the CPU with the kernels' plain versions")
         self.model = (model if model is not None else build_model(cfg)).to(self.device)
-        self.criterion = build_criterion(cfg)
+        self.criterion = criterion if criterion is not None else build_criterion(cfg)
         self.optimizer, self.scheduler = build_optimizer(cfg, self.model)
         self.clip_gradients = build_gradient_clipper(cfg)
         self.dn_group_bucket = int(cfg.TPU.DN_GROUP_BUCKET)
@@ -211,9 +218,14 @@ class Trainer:
         `mp_former_tpu/engine/trainer.py:253-287`): results keyed as the
         evaluators key them (by dataset name where there are several), None
         when nothing was evaluated. A dataset without an evaluator in the port
-        is logged and skipped. The model keeps its train/eval mode."""
+        is logged and skipped. A `VideoMaskFormer` scores each dataset's clips
+        whole with `video/eval_loop.py:inference_on_video_dataset` (tube AP
+        under "segm"; `max_images` caps the clips). The model keeps its
+        train/eval mode."""
         from ..data.catalog import DatasetCatalog
         from ..data.datasets import builtin  # noqa: F401  (registration)
+        from ..models.meta_arch.video_maskformer import VideoMaskFormer
+        from ..video.eval_loop import inference_on_video_dataset
         from .eval_loop import run_evaluation
 
         names = self.cfg.DATASETS.TEST
@@ -226,7 +238,11 @@ class Trainer:
                         logger.warning("eval dataset %s not registered; skipping", name)
                         continue
                     try:
-                        r = run_evaluation(self.cfg, self.model, name, max_images)
+                        if isinstance(self.model, VideoMaskFormer):
+                            r = inference_on_video_dataset(
+                                self.cfg, self.model, DatasetCatalog.get(name), max_images)
+                        else:
+                            r = run_evaluation(self.cfg, self.model, name, max_images)
                     except NotImplementedError as e:
                         logger.warning("%s", e)
                         continue

@@ -1,20 +1,23 @@
 """VideoMaskFormer meta-architecture (reference
 mask2former_video/video_maskformer_model.py:24-287,
-`mp_former_tpu/video/video_maskformer.py:31-70`), inference.
+`mp_former_tpu/video/video_maskformer.py:31-70`).
 
 Takes raw clips (B, T, H, W, 3) in `INPUT.FORMAT` channel order, H and W
 padded to a multiple of 32, any dtype: normalises them, runs the backbone and
 the pixel decoder on the B*T frames as one batch (reference :180-188) and
 hands the frames' maps to the temporal decoder with the clips' length T, so a
 clip runs at its own length. Returns `pred_logits` (B, Q, K+1), `pred_masks`
-(B, Q, T, H/4, W/4) and `aux_outputs`. `TPU.COMPUTE_DTYPE bfloat16` works as
-in `MaskFormer`. Training (the tube criterion, the clip mappers) is ROADMAP
-A20b.
+(B, Q, T, H/4, W/4) and `aux_outputs`, in serving and in training alike: the
+reference's video stack has no DN (mask-piloted) path, so `targets` and
+`dn_groups` change nothing in the forward (the losses take the targets,
+`video/criterion.py`), and `scalar` is 0, so that `engine/train_step.py`
+asks for no DN groups. `TPU.COMPUTE_DTYPE bfloat16` and `TPU.REMAT_ENCODER`
+work as in `MaskFormer`.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -25,12 +28,21 @@ from .maskformer import MaskFormer
 
 @META_ARCH_REGISTRY.register()
 class VideoMaskFormer(MaskFormer):
-    def forward(self, images: torch.Tensor, targets=None) -> Dict:
-        if targets is not None:
-            raise NotImplementedError("VideoMaskFormer serves only: video training (the tube "
-                                      "criterion and the clip mappers) is ROADMAP A20b")
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.scalar = 0  # no DN queries
+
+    def forward(self, images: torch.Tensor, targets=None, dn_groups=None,
+                generator: Optional[torch.Generator] = None) -> Dict:
+        """images (B, T, H, W, 3) raw pixels. `targets` (`VideoTargets`),
+        `dn_groups` and `generator` are accepted for the training step and
+        ignored, as the JAX model ignores `dn_groups`."""
         if images.dim() != 5:
             raise ValueError(f"clips must be (B, T, H, W, 3), got {tuple(images.shape)}")
+        if self.dropout > 0 and targets is not None:
+            raise NotImplementedError(
+                f"MODEL.MASK_FORMER.DROPOUT {self.dropout}: the port carries no dropout (the "
+                "video recipes train with 0.0)")
         x = self.normalized(images)
         with compute_region(x.device.type, self.compute_dtype):
             return self.sem_seg_head(self.backbone(x), num_frames=images.shape[1])

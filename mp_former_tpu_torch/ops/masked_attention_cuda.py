@@ -74,9 +74,10 @@ def masked_attention_backward_plain(grad_out: torch.Tensor, q: torch.Tensor, k: 
     written out on tensors (no autograd), in the backward kernel's arithmetic:
     p = softmax of the logits with the blocked ones REPLACED by -1e9, delta =
     rowsum(dO * O), dV = p^T dO, dS = p * (dO v^T - delta) and 0 where the mask
-    blocks (the -1e9 is a constant), dQ = dS k / sqrt(D), dK = dS^T q /
-    sqrt(D). A row blocked everywhere is uniform over all keys: dV gets dO / S
-    from it, dQ and dK nothing. delta is taken in float32 (float64 for
+    blocks (the -1e9 is a constant) or in a row where one key carries all of
+    the weight (its weight is 1: delta is that key's dP), dQ = dS k /
+    sqrt(D), dK = dS^T q / sqrt(D). A row blocked everywhere is uniform over
+    all keys: dV gets dO / S from it, dQ and dK nothing. delta is taken in float32 (float64 for
     float64 inputs) from O recomputed here in that type, or from `out`, the
     forward's output as the kernel is handed it (its float32 copy, before the
     rounding to bfloat16): where the weights are spread over many keys, dP -
@@ -93,7 +94,8 @@ def masked_attention_backward_plain(grad_out: torch.Tensor, q: torch.Tensor, k: 
     delta = (grad_out.to(acc) * out.to(acc)).sum(-1, keepdim=True)
     d_v = torch.einsum("bhqs,bhqd->bhsd", p, grad_out)
     d_p = torch.einsum("bhqd,bhsd->bhqs", grad_out, v)
-    d_s = (p * (d_p - delta).to(p.dtype)).masked_fill(m, 0.0)
+    one_key = p.amax(-1, keepdim=True) == 1
+    d_s = (p * (d_p - delta).to(p.dtype)).masked_fill(m | one_key, 0.0)
     d_q = torch.einsum("bhqs,bhsd->bhqd", d_s, k) * scale
     d_k = torch.einsum("bhqs,bhqd->bhsd", d_s, q) * scale
     return d_q, d_k, d_v
@@ -212,7 +214,8 @@ def masked_attention_backward_tiled(grad_out: torch.Tensor, q: torch.Tensor, k: 
     card of `sms` SMs) and 64-key tile, the queries in 32-row tiles; delta =
     dO . O in float32; S^T = (k log2(e) / sqrt(D)) q^T and dP^T = v dO^T, P = 2^(S
     - max) / sum (a blocked score is -1e9 log2 e, a key beyond S weighs 0), dS =
-    P (dP - delta) and 0 where blocked; float32 products as 3xTF32, bfloat16
+    P (dP - delta) and 0 where blocked or where the row's sum is 1 (one key
+    carries all of its weight); float32 products as 3xTF32, bfloat16
     products with P and dS rounded to bfloat16; dV += P^T dO and dK += dS^T q
     per tile; dQ summed over a chunk's tiles, then over the chunks in order,
     and scaled by 1 / sqrt(D) last. Returns (dq, dk, dv) in the input type,
@@ -276,6 +279,7 @@ def masked_attention_backward_tiled(grad_out: torch.Tensor, q: torch.Tensor, k: 
                 p = torch.exp2(s - m[:, :, None, r0:r1]) * inv_l[:, :, None, r0:r1]
                 p[:, :, n:] = 0.0
                 ds = (p * (dp - delta[:, :, None, r0:r1])).masked_fill(blk, 0.0)
+                ds = ds.masked_fill((inv_l[:, :, None, r0:r1] == 1.0), 0.0)  # one key: dS 0
                 ds[:, :, n:] = 0.0
                 dv[:, :, t0:t0 + n] += product("bkq,bqd->bkd", p.flatten(0, 1),
                                                gp[:, :, r0:r1].flatten(0, 1)).view(

@@ -2,9 +2,9 @@
 
 `msda_fwd` launches `csrc/msda_fwd.cu` (the port of the TPU kernel
 `mp_former_tpu/ops/msda_pallas.py:_gather_weight_level`);
-`ms_deform_attn_plain` is the same function in plain PyTorch, the grid_sample
-form of the reference's CPU path (`ms_deform_attn_core_pytorch`), and
-`ms_deform_attn_folded` is it once more in the kernel's own arithmetic.
+`ms_deform_attn_plain` is the same function in plain PyTorch, the reference's
+CPU path (`ms_deform_attn_core_pytorch`) as four gathers a level, and
+`ms_deform_attn_folded` is it once more in the kernel's own order of sums.
 `msda_bwd` launches `csrc/msda_bwd.cu`, the three gradients in one kernel (the
 JAX package's VJP, `msda_pallas.py:249-258`, recomputes through XLA instead);
 `ms_deform_attn_backward_plain` is the same three formulas on tensors, without
@@ -25,7 +25,6 @@ import functools
 from typing import Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from .cuda_build import DTYPE_CODES, check_inputs, launch
 
@@ -40,24 +39,40 @@ CHANNELS = 32
 def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                          sampling_locations: torch.Tensor,
                          attention_weights: torch.Tensor) -> torch.Tensor:
-    """grid_sample form (reference ms_deform_attn_func.py:52-72), in the
-    locations' type (float32 for a bfloat16 value, as the kernel's sampling
-    arithmetic); the result in value's type."""
+    """Bilinear sampling with zero padding (the reference's CPU path,
+    ms_deform_attn_func.py:52-72, grid_sample with align_corners=False) as
+    four gathers a level, autograd of plain ops. The pixel coordinate is
+    rounded as the JAX package (`ms_deform_attn.py:88`) and the kernels round
+    it, loc * W, then - 0.5: grid_sample's ((2 loc - 1 + 1) W - 1) / 2 floors
+    some pixel centres to the other side, where the derivative in the
+    location jumps (every location of the reference init, on a level whose
+    size is no power of two). A point whose location is not finite adds
+    nothing. Sampling arithmetic in float32 (float64 for float64 locations),
+    the result in value's type."""
     dtype = value.dtype
-    value = value.to(sampling_locations.dtype)
+    work = _work_dtype(sampling_locations)
     B, S, M, D = value.shape
     _, Q, _, L, P, _ = sampling_locations.shape
-    value_list = value.split([h * w for h, w in spatial_shapes], dim=1)
-    grids = 2 * sampling_locations - 1
-    samples = []
+    values = value.to(work).permute(0, 2, 1, 3).split([h * w for h, w in spatial_shapes], dim=2)
+    locs = sampling_locations.to(work).permute(0, 2, 3, 1, 4, 5)      # (B, M, L, Q, P, 2)
+    attn = attention_weights.to(work).permute(0, 2, 3, 1, 4)          # (B, M, L, Q, P)
+    out = torch.zeros((B * M, Q, D), dtype=work, device=value.device)
     for lid, (h, w) in enumerate(spatial_shapes):
-        v = value_list[lid].flatten(2).transpose(1, 2).reshape(B * M, D, h, w)
-        g = grids[:, :, :, lid].transpose(1, 2).flatten(0, 1)     # (B*M, Q, P, 2)
-        samples.append(F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
-                                     align_corners=False))        # (B*M, D, Q, P)
-    attn = attention_weights.transpose(1, 2).reshape(B * M, 1, Q, L * P)
-    out = (torch.stack(samples, dim=-2).flatten(-2) * attn).sum(-1).view(B, M * D, Q)
-    return out.transpose(1, 2).to(dtype).contiguous()
+        v = values[lid].reshape(B * M, h * w, D)
+        x = locs[:, :, lid, ..., 0] * w - 0.5
+        y = locs[:, :, lid, ..., 1] * h - 0.5
+        finite = torch.isfinite(x) & torch.isfinite(y)
+        x, y = torch.where(finite, x, -2.0), torch.where(finite, y, -2.0)  # no tap on the map
+        x0, y0 = x.floor(), y.floor()
+        tx, ty = x - x0, y - y0
+        for yi, wy in ((y0, 1 - ty), (y0 + 1, ty)):
+            for xi, wx in ((x0, 1 - tx), (x0 + 1, tx)):
+                on = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+                idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
+                taps = v.gather(1, idx.reshape(B * M, Q * P, 1).expand(-1, -1, D))
+                weight = (wx * wy * attn[:, :, lid] * on).reshape(B * M, Q * P, 1)
+                out = out + (taps * weight).view(B * M, Q, P, D).sum(2)
+    return out.view(B, M, Q, D).transpose(1, 2).reshape(B, Q, M * D).to(dtype)
 
 
 def _level_starts(shapes: Sequence[Tuple[int, int]]):

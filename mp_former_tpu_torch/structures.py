@@ -1,4 +1,5 @@
-"""Core data structures of training (`mp_former_tpu/structures.py:17-54`).
+"""Core data structures of training (`mp_former_tpu/structures.py:17-54`,
+`mp_former_tpu/video/video_maskformer.py:20-27`).
 
 Targets are padded to a fixed number of instance slots per image with a
 validity mask, as in the JAX package, so that a batch is a few dense tensors
@@ -9,7 +10,7 @@ have no counterpart here.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -41,9 +42,32 @@ class Targets(NamedTuple):
         return Targets(*(t[:, :n] for t in self))
 
 
+class VideoTargets(NamedTuple):
+    """Padded ground truth of a batch of clips, one tube a slot.
+
+    labels: (B, N) int64          class ids (junk where invalid)
+    masks:  (B, N, T, H, W) bool  bitmasks at the padded frames' resolution
+    valid:  (B, N) bool           which slots hold a tube present in some
+                                  sampled frame; an invalid slot may sit
+                                  between valid ones
+    """
+
+    labels: torch.Tensor
+    masks: torch.Tensor
+    valid: torch.Tensor
+
+    @property
+    def num_instances(self) -> int:
+        return self.labels.shape[1]
+
+    def to(self, device, non_blocking: bool = False) -> "VideoTargets":
+        return VideoTargets(*(t.to(device, non_blocking=non_blocking) for t in self))
+
+
 class Batch(NamedTuple):
-    images: torch.Tensor          # (B, H, W, 3) raw pixels in INPUT.FORMAT order
-    targets: Targets
+    images: torch.Tensor          # (B, H, W, 3) raw pixels in INPUT.FORMAT order,
+                                  # or (B, T, H, W, 3) RGB clips with VideoTargets
+    targets: Union[Targets, VideoTargets]
 
     def to(self, device, non_blocking: bool = False) -> "Batch":
         """On `device`; `non_blocking` copies from pinned memory without

@@ -1,6 +1,15 @@
 """The port's video entry point (`train_net_video.py:1-128`, the JAX package's
 video CLI, which mirrors the reference's). Same flags, same `KEY VALUE`
-overrides (flags first). A YouTube-VIS recipe is scored with
+overrides (flags first). A YouTube-VIS recipe trains with
+
+    python -m mp_former_tpu_torch.train_net_video \\
+        --config-file configs/youtubevis_2019/video_maskformer2_R50_bs16_8ep.yaml [--resume]
+
+(clips of DATASETS.TRAIN[0] through `video/ytvis.py:YTVISDatasetMapper`,
+SOLVER.IMS_PER_BATCH clips a step, the tube criterion of
+`video/criterion.py`, `Trainer` with its checkpoints, `metrics.json` and
+`--resume`; MODEL.WEIGHTS that is not found locally leaves the fresh
+initialization, with a warning) and is scored with
 
     python -m mp_former_tpu_torch.train_net_video \\
         --config-file configs/youtubevis_2019/video_maskformer2_R50_bs16_8ep.yaml \\
@@ -10,8 +19,7 @@ overrides (flags first). A YouTube-VIS recipe is scored with
 DATASETS.TEST[0] whole, in one forward, then tube AP, printed. It runs on
 `MODEL.DEVICE` (`cuda` by default; `cpu` runs the kernels' plain versions).
 Datasets come from `$DETECTRON2_DATASETS` (`video/ytvis.py:register_all_ytvis`),
-frames as `.npy` where no decoder is installed. Video training is ROADMAP
-A20b: without `--eval-only` the entry point raises.
+frames as `.npy` where no decoder is installed.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ def default_argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--eval-only", action="store_true")
     p.add_argument("--num-gpus", type=int, default=1,
-                   help="1 only: the port evaluates in one process on one card")
+                   help="1 only: the port runs in one process on one card")
     p.add_argument("--max-eval-videos", type=int, default=None)
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return p
@@ -37,7 +45,7 @@ def default_argument_parser() -> argparse.ArgumentParser:
 
 def setup(args):
     """The config from the file and the overrides, with the video keys,
-    frozen; logging; OUTPUT_DIR made."""
+    frozen; logging; OUTPUT_DIR made, the config dumped into it."""
     from .config import (add_deeplab_config, add_maskformer2_config,
                          add_maskformer2_video_config, get_cfg)
 
@@ -52,24 +60,20 @@ def setup(args):
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+        f.write(cfg.dump())
     return cfg
 
 
 def main(args):
     if args.num_gpus > 1:
-        raise NotImplementedError(f"--num-gpus {args.num_gpus}: the port evaluates on one card "
-                                  "in one process; distributed evaluation is ROADMAP A21")
-    if not args.eval_only:
-        raise NotImplementedError("video training (the clip mappers, the tube criterion and "
-                                  "the training step) is ROADMAP A20b: the port's video entry "
-                                  "point runs --eval-only")
+        raise NotImplementedError(f"--num-gpus {args.num_gpus}: the port trains and evaluates "
+                                  "on one card in one process; distributed training and "
+                                  "evaluation are ROADMAP A21")
     import torch
 
     from .data.catalog import DatasetCatalog
-    from .engine.convert import load_state_dict_file, load_weights, locate_weights
     from .models import build_model
-    from .train_net import eval_weights
-    from .video.eval_loop import inference_on_video_dataset
     from .video.ytvis import register_all_ytvis
 
     cfg = setup(args)
@@ -79,6 +83,25 @@ def main(args):
                            "pass MODEL.DEVICE cpu to run on the CPU with the kernels' plain "
                            "versions")
     register_all_ytvis()
+    if not args.eval_only:
+        from .engine.trainer import Trainer
+        from .video.criterion import build_video_criterion
+        from .video.ytvis import build_clip_loader
+
+        loader = build_clip_loader(cfg, DatasetCatalog.get(cfg.DATASETS.TRAIN[0]),
+                                   pin_memory=device.type == "cuda")
+        try:
+            trainer = Trainer(cfg, loader, model=build_model(cfg),
+                              criterion=build_video_criterion(cfg), device=device)
+            trainer.train(trainer.resume_or_load(resume=args.resume))
+        finally:
+            loader.close()
+        return None
+
+    from .engine.convert import load_state_dict_file, load_weights, locate_weights
+    from .train_net import eval_weights
+    from .video.eval_loop import inference_on_video_dataset
+
     weights = eval_weights(cfg, args.resume)
     local = locate_weights(weights)
     if local is None:

@@ -9,21 +9,32 @@ polygons, an RLE, or None where the object is absent), iscrowd, areas}]}.
 Frames follow the `.npy` rule (`data/datasets/register_all.py`): a frame the
 json names `<stem>.jpg` is read from `<stem>.npy`, (H, W, 3) uint8 BGR, where
 only that is on disk. Polygons are rasterised by `native/maskapi.cc`, the JAX
-package's rule. The clip mappers of training (`YTVISDatasetMapper`,
-`CocoClipDatasetMapper`) are ROADMAP A20b.
+package's rule.
+
+Training (`mp_former_tpu/video/ytvis.py:122-225`, the root
+`train_net_video.py:99-120`): `YTVISDatasetMapper` samples a clip and maps it
+to the JAX package's static canvas, `CocoClipDatasetMapper` repeats a COCO
+image into a clip, `collate_clips` stacks clips into a `Batch` of
+`VideoTargets`, and `build_clip_loader` puts them behind the `TrainLoader`.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..data.catalog import DatasetCatalog, MetadataCatalog
 from ..data.datasets.register_all import existing
+from ..data.loader import TrainLoader
+from ..data.transforms import apply_record_to_image, apply_to_sem_seg, resize_shortest_edge
+from ..engine.eval_loop import read_image
 from ..native import polygons_to_mask
+from ..structures import Batch, VideoTargets
 
 
 def load_ytvis_json(json_file: str, image_root: str, dataset_name=None) -> List[dict]:
@@ -127,3 +138,134 @@ def _seg_to_mask(seg, h, w) -> Optional[np.ndarray]:
             val = 1 - val
         return flat.reshape(mw, mh).T.astype(bool)
     return None
+
+
+class YTVISDatasetMapper:
+    """A video record -> a clip sample of the JAX package's static shape
+    (`mp_former_tpu/video/ytvis.py:122-196`). Draws from the sample's
+    `RandomState`, in the JAX order: the reference frame, the other
+    SAMPLING_FRAME_NUM - 1 frames chosen within +-SAMPLING_FRAME_RANGE of it
+    (the only frame again in a video of one), their shuffle where
+    SAMPLING_FRAME_SHUFFLE says, then the short side from MIN_SIZE_TRAIN
+    (long side capped at MAX_SIZE_TRAIN) and a flip with probability 1/2, the
+    same for every frame of the clip. As in the JAX mapper,
+    MIN_SIZE_TRAIN_SAMPLING and RANDOM_FLIP are not read, and the frames are
+    RGB whatever INPUT.FORMAT says. Every clip lies on one canvas,
+    max(MIN_SIZE_TRAIN) by MAX_SIZE_TRAIN rounded up to 32 (transposed for a
+    portrait video), padded with 128. A slot a non-crowd annotation, at most
+    `max_instances`: its mask in each sampled frame at full resolution
+    (nearest resize), its label, valid where the object is in some sampled
+    frame, so an invalid slot may lie between valid ones. Returns None where
+    a frame cannot be read."""
+
+    def __init__(self, cfg, max_instances: int = 40):
+        self.num_frames = cfg.INPUT.SAMPLING_FRAME_NUM
+        self.frame_range = cfg.INPUT.SAMPLING_FRAME_RANGE
+        self.shuffle = cfg.INPUT.SAMPLING_FRAME_SHUFFLE
+        self.min_sizes = list(cfg.INPUT.MIN_SIZE_TRAIN)
+        self.max_size = cfg.INPUT.MAX_SIZE_TRAIN
+        self.max_instances = max_instances
+        self.size_div = 32
+
+    def __call__(self, record: dict, rng: np.random.RandomState) -> Optional[dict]:
+        length = record["length"]
+        ref = rng.randint(length)
+        lo = max(0, ref - self.frame_range)
+        hi = min(length, ref + self.frame_range + 1)
+        pool = [i for i in range(lo, hi) if i != ref] or [ref]
+        picks = sorted([ref] + list(rng.choice(
+            pool, self.num_frames - 1, replace=len(pool) < self.num_frames - 1)))
+        if self.shuffle:
+            rng.shuffle(picks)
+
+        h, w = record["height"], record["width"]
+        rec = resize_shortest_edge(rng, h, w, self.min_sizes, self.max_size, flip=True)
+        d = self.size_div
+        short = (max(self.min_sizes) + d - 1) // d * d
+        long = (self.max_size + d - 1) // d * d
+        ph, pw = (short, long) if w >= h else (long, short)
+        ph = max(ph, (rec.out_h + d - 1) // d * d)
+        pw = max(pw, (rec.out_w + d - 1) // d * d)
+
+        n_cap = self.max_instances
+        frames = np.zeros((self.num_frames, ph, pw, 3), np.uint8)
+        masks = np.zeros((n_cap, self.num_frames, ph, pw), bool)
+        labels = np.zeros((n_cap,), np.int64)
+        annos = [a for a in record["annotations"] if not a.get("iscrowd", 0)][:n_cap]
+        for fi, frame_idx in enumerate(picks):
+            img = read_image({"file_name": record["file_names"][frame_idx]})
+            if img is None:
+                return None
+            out = apply_record_to_image(img[:, :, ::-1], rec, pad_value=128.0)
+            frames[fi, :out.shape[0], :out.shape[1]] = out
+            for ai, a in enumerate(annos):
+                segs = a.get("segmentations")
+                m = _seg_to_mask(segs[frame_idx], h, w) if segs else None
+                if m is None:
+                    continue
+                tm = apply_to_sem_seg(m, rec, False)
+                masks[ai, fi, :tm.shape[0], :tm.shape[1]] = tm
+                labels[ai] = a["category_id"]
+        valid = masks.any(axis=(1, 2, 3))
+        return {"image": frames, "labels": labels, "masks": masks, "valid": valid,
+                "video_id": record["video_id"], "height": h, "width": w}
+
+
+class CocoClipDatasetMapper:
+    """A COCO image -> a clip of SAMPLING_FRAME_NUM copies of it
+    (`mp_former_tpu/video/ytvis.py:199-225`, reference
+    data_video/dataset_mapper.py:272), through the LSJ instance mapper: one
+    transform for the whole clip, every tube the image's mask in each
+    frame."""
+
+    def __init__(self, cfg, is_train: bool = True, max_instances: int = 40):
+        from ..data.dataset_mappers.coco_instance_new_baseline import \
+            COCOInstanceNewBaselineDatasetMapper
+
+        self.num_frames = cfg.INPUT.SAMPLING_FRAME_NUM
+        self._image_mapper = COCOInstanceNewBaselineDatasetMapper(
+            cfg, is_train=is_train, max_instances=max_instances)
+
+    def __call__(self, record: dict, rng: np.random.RandomState) -> Optional[dict]:
+        s = self._image_mapper(record, rng)
+        if s is None:
+            return None
+        t = self.num_frames
+        return {"image": np.repeat(s["image"][None], t, axis=0), "labels": s["labels"],
+                "masks": np.repeat(s["masks"][:, None], t, axis=1), "valid": s["valid"],
+                "video_id": record.get("image_id", -1), "height": s["height"],
+                "width": s["width"]}
+
+
+def collate_clips(samples: List[Dict], pin_memory: bool = False) -> Batch:
+    """Clip samples -> a `Batch` of uint8 clips (B, T, H, W, 3) and
+    `VideoTargets` (int64 labels, bool masks and valid), pinned where asked.
+    The slot axis is cut after the batch's last valid slot (one slot where
+    none is valid): the clips' ground truth is at full resolution, and the
+    JAX package's cap of TPU.MAX_INSTANCES slots would copy and convert
+    gigabytes of empty tubes a step. An invalid slot costs every query the
+    same in the matcher and enters no loss, so the cut changes no loss (up to
+    exact ties in the assignment); it keeps invalid slots between valid ones."""
+    valid = np.stack([s["valid"] for s in samples])
+    n = max(1, int(np.flatnonzero(valid.any(0)).max(initial=-1)) + 1)
+
+    def stack(arrays, dtype):
+        t = torch.from_numpy(np.stack(arrays).astype(dtype, copy=False))
+        return t.pin_memory() if pin_memory else t
+
+    return Batch(stack([s["image"] for s in samples], np.uint8),
+                 VideoTargets(stack([s["labels"][:n] for s in samples], np.int64),
+                              stack([s["masks"][:n] for s in samples], bool),
+                              stack([s["valid"][:n] for s in samples], bool)))
+
+
+def build_clip_loader(cfg, records: List[dict], pin_memory: bool = False) -> TrainLoader:
+    """The training loader of the video entry point (the root
+    `train_net_video.py:99-120`): `records` through `YTVISDatasetMapper` with
+    TPU.MAX_INSTANCES slots, SOLVER.IMS_PER_BATCH clips a batch,
+    `collate_clips`."""
+    mapper = YTVISDatasetMapper(cfg, max_instances=cfg.TPU.MAX_INSTANCES)
+    return TrainLoader(records, mapper, cfg.SOLVER.IMS_PER_BATCH, seed=max(cfg.SEED, 0),
+                       num_workers=cfg.DATALOADER.NUM_WORKERS,
+                       filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
+                       collate_fn=functools.partial(collate_clips, pin_memory=pin_memory))

@@ -8,8 +8,8 @@ tensors; on the CPU the dispatchers take the plain forward and autograd.
 
 Tolerances, relative to each gradient's largest entry: 1e-5 against autograd
 and JAX in float32 (other summation orders; the test keeps sampling points a
-hair away from pixel borders, where grid_sample and the kernels' arithmetic
-round to different pixels), 1e-9 in float64.
+hair away from pixel borders, where the derivative in the location jumps),
+1e-9 in float64.
 """
 
 import numpy as np

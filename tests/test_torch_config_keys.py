@@ -26,8 +26,6 @@ SET_ASIDE = {
     # A18: StandardTransformerDecoder's encoder, the DN_RATIO modes
     "A18": {"MODEL.MASK_FORMER.ENC_LAYERS", "MODEL.MASK_FORMER.DN_RATIO"},
     "A19 test-time augmentation": {"TEST.AUG.FLIP", "TEST.AUG.MAX_SIZE", "TEST.AUG.MIN_SIZES"},
-    # the clip mapper's frame sampling (the video model reads SAMPLING_FRAME_NUM)
-    "A20b video training": {"INPUT.SAMPLING_FRAME_RANGE", "INPUT.SAMPLING_FRAME_SHUFFLE"},
     # A21 distributed: the device mesh and token sharding
     "A21": {"TPU.MESH_AXES", "TPU.MESH_SHAPE", "TPU.SHARD_TOKENS"},
     "A14h auction matcher": {"TPU.MATCHER_HOST_EXACT"},
@@ -63,14 +61,41 @@ def test_every_key_the_jax_package_reads_is_read_or_set_aside():
     assert "TPU.PROFILE_DIR" in _reads("mp_former_tpu_torch")
 
 
-def test_video_training_raises_and_names_its_item():
-    """The port's video entry point scores only: without --eval-only it
-    refuses to start, naming the roadmap item that ports video training,
-    before it reads a config or a dataset."""
+def test_video_training_raises_and_names_its_item(tmp_path, monkeypatch):
+    """The port's video entry point without --eval-only trains: it builds the
+    Trainer with the video model, the tube criterion and a loader of clips
+    through the clip mapper, which reads the frame sampling keys."""
     from mp_former_tpu_torch import train_net_video
+    from mp_former_tpu_torch.data.catalog import DatasetCatalog
+    from mp_former_tpu_torch.engine.trainer import Trainer
+    from mp_former_tpu_torch.models.meta_arch.video_maskformer import VideoMaskFormer
+    from mp_former_tpu_torch.video import ytvis
+    from mp_former_tpu_torch.video.criterion import VideoSetCriterion
+    from tools.make_synthetic_ytvis_torch import write_dataset
 
+    write_dataset(str(tmp_path), videos=1, frames=(2,), height=64, width=64, classes=40)
+    monkeypatch.setenv("DETECTRON2_DATASETS", str(tmp_path))
+    fresh = type(DatasetCatalog)()
+    monkeypatch.setattr(ytvis, "DatasetCatalog", fresh)
+    monkeypatch.setattr("mp_former_tpu_torch.data.catalog.DatasetCatalog", fresh)
+    built = []
+    monkeypatch.setattr(Trainer, "train", lambda self, start=None: built.append(self))
     args = train_net_video.default_argument_parser().parse_args(
-        ["--config-file", "configs/youtubevis_2019/video_maskformer2_R50_bs16_8ep.yaml"])
-    with pytest.raises(NotImplementedError, match="A20b"):
-        train_net_video.main(args)
-    assert "INPUT.SAMPLING_FRAME_NUM" in _reads("mp_former_tpu_torch")
+        ["--config-file", "configs/youtubevis_2019/video_maskformer2_R50_bs16_8ep.yaml",
+         "MODEL.DEVICE", "cpu", "MODEL.WEIGHTS", "", "MODEL.RESNETS.STEM_OUT_CHANNELS", "16",
+         "MODEL.RESNETS.WIDTH_PER_GROUP", "16", "MODEL.RESNETS.RES2_OUT_CHANNELS", "64",
+         "MODEL.SEM_SEG_HEAD.CONVS_DIM", "32", "MODEL.SEM_SEG_HEAD.MASK_DIM", "32",
+         "MODEL.MASK_FORMER.HIDDEN_DIM", "32", "MODEL.MASK_FORMER.DIM_FEEDFORWARD", "64",
+         "INPUT.SAMPLING_FRAME_RANGE", "3", "INPUT.SAMPLING_FRAME_SHUFFLE", "True",
+         "OUTPUT_DIR", str(tmp_path / "out")])
+    assert train_net_video.main(args) is None
+    trainer, = built
+    assert isinstance(trainer.model, VideoMaskFormer) and trainer.model.scalar == 0
+    assert isinstance(trainer.criterion, VideoSetCriterion)
+    mapper = trainer.train_loader.mapper
+    assert isinstance(mapper, ytvis.YTVISDatasetMapper)
+    assert (mapper.num_frames, mapper.frame_range, mapper.shuffle) == (2, 3, True)
+    assert trainer.train_loader.collate.func is ytvis.collate_clips
+    reads = _reads("mp_former_tpu_torch")
+    assert {"INPUT.SAMPLING_FRAME_NUM", "INPUT.SAMPLING_FRAME_RANGE",
+            "INPUT.SAMPLING_FRAME_SHUFFLE"} <= reads

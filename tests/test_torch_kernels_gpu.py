@@ -1295,3 +1295,151 @@ def test_msda_kernel_on_a_clips_frames(cuda, dtype, tol):
     assert (got.float() - want).abs().max().item() <= tol * min(1.0, want.abs().max().item())
     last = ms_deform_attn(value[-1:], VIDEO_LEVELS, loc[-1:], attn[-1:])
     assert torch.equal(last, got[-1:])
+
+
+# a training clip of the YouTube-VIS recipes: 2 frames on the JAX mapper's
+# static 480x1344 canvas (max MIN_SIZE_TRAIN by MAX_SIZE_TRAIN, each rounded
+# up to 32), 16 clips a batch: the pixel decoder's encoder on 32 frames whose
+# levels are 15x42, 30x84 and 60x168, the decoder's keys those of a level in
+# both frames of a clip
+TRAIN_CLIP_LEVELS = [(15, 42), (30, 84), (60, 168)]
+TRAIN_CLIP_FRAMES = 2
+TRAIN_CLIPS = 16
+
+
+@pytest.mark.parametrize("dtype,tol", BWD_TOLS)
+def test_masked_attention_backward_over_a_training_batch_of_clips(cuda, dtype, tol):
+    """K3's forward with statistics and its backward at the largest level of
+    a batch of training clips (B = 16, 100 queries, S = 2 x 60 x 168 = 20160
+    keys) with a mask shared by the heads, as the video decoder hands it,
+    against the plain backward; a row blocked everywhere gives its q
+    nothing."""
+    S = TRAIN_CLIP_FRAMES * TRAIN_CLIP_LEVELS[-1][0] * TRAIN_CLIP_LEVELS[-1][1]
+    assert S == 20160
+    B, H, Q = TRAIN_CLIPS, 8, 100
+    q, k, v = _head_views(cuda, B, H, Q, S, dtype, seed=11)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    grad_out = torch.randn((B, Q, H, 32), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    mask = torch.rand((B, Q, S), generator=g, device=cuda) < 0.7
+    mask[:, 0] = True
+    out, stats, out32 = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+    want_out = mac.masked_attention_plain(q.float(), k.float(), v.float(), mask)
+    assert (out.float() - want_out).abs().max().item() <= \
+        TOLS[dtype == torch.bfloat16][1] * min(1.0, want_out.abs().max().item())
+    del want_out
+    before = mac.BWD_LAUNCHES
+    got = mac.masked_attn_bwd(grad_out, q, k, v, mask, out32, stats)
+    assert mac.BWD_LAUNCHES == before + 1
+    want = mac.masked_attention_backward_plain(grad_out.float(), q.float(), k.float(),
+                                               v.float(), mask)
+    for name, x, w in zip("qkv", got, want):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert _rel(x, w) <= tol, name
+    assert got[0][:, :, 0].abs().max().item() == 0
+
+
+@pytest.mark.parametrize("dtype,tol", BWD_TOLS)
+def test_msda_backward_over_a_training_batch_of_frames(cuda, dtype, tol):
+    """K1's backward on a batch of training clips' 32 frames of 13230 queries
+    (the encoder's tokens of a 480x1344 canvas), against the plain backward;
+    the forward at the same shape against its plain version."""
+    S = sum(h * w for h, w in TRAIN_CLIP_LEVELS)
+    assert S == 13230
+    B = TRAIN_CLIPS * TRAIN_CLIP_FRAMES
+    value, loc, attn = (t.to(dtype).contiguous() for t in _msda_inputs(
+        cuda, B, S, 8, 32, TRAIN_CLIP_LEVELS, 4, seed=13))
+    fwd = msda_cuda.msda_fwd(value, TRAIN_CLIP_LEVELS, loc, attn)
+    want_fwd = msda_cuda.ms_deform_attn_plain(value.float(), TRAIN_CLIP_LEVELS, loc.float(),
+                                              attn.float())
+    assert (fwd.float() - want_fwd).abs().max().item() <= \
+        TOLS[dtype == torch.bfloat16][1] * min(1.0, want_fwd.abs().max().item())
+    del fwd, want_fwd
+    grad_out = torch.randn((B, S, 8 * 32), device=cuda).to(dtype)
+    before = msda_cuda.BWD_LAUNCHES
+    got = msda_cuda.msda_bwd(grad_out, value, TRAIN_CLIP_LEVELS, loc, attn)
+    assert msda_cuda.BWD_LAUNCHES == before + 1
+    want = msda_cuda.ms_deform_attn_backward_plain(grad_out.float(), value.float(),
+                                                   TRAIN_CLIP_LEVELS, loc.float(), attn.float())
+    for name, x, w, like in zip(("value", "loc", "attn"), got, want, (value, loc, attn)):
+        assert x.dtype == dtype and x.shape == like.shape, name
+        assert _rel(x, w) <= tol, name
+
+
+def test_msda_kernels_floor_pixel_centres_as_the_plain_version(cuda):
+    """Fault C9: at the reference init the encoder's sampling offsets are
+    whole pixels (their weights are 0), so every location is a pixel centre
+    of its level moved by whole pixels, loc = (i + 0.5) / W + o / W in
+    float32. On levels whose size is no power of two, loc W - 0.5 lies within
+    an ulp of an integer, and rounded once (an FMA) it floors to the other
+    side for some of them than rounded twice (loc W, then - 0.5), which is the
+    JAX package's arithmetic and the plain versions'. The kernels round as
+    they do: the backward's three gradients equal the plain backward's
+    (grad_loc jumps where a floor differs), the forward agrees with the plain
+    forward, and the backward with autograd of the plain forward (fault C11:
+    that went through grid_sample, which floors a third way)."""
+    shapes = TRAIN_CLIP_LEVELS
+    B, Q, M, P = 2, 2000, 8, 4
+    L = len(shapes)
+    S = sum(h * w for h, w in shapes)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    value = torch.randn((B, S, M, 32), generator=g, device=cuda)
+    attn = torch.randn((B, Q, M, L * P), generator=g, device=cuda).softmax(-1)
+    attn = attn.view(B, Q, M, L, P)
+    sizes = torch.tensor([[w, h] for h, w in shapes], device=cuda, dtype=torch.float32)
+    pixel = (torch.rand((B, Q, M, L, P, 2), generator=g, device=cuda) * sizes.view(L, 1, 2)
+             ).floor()
+    offset = torch.randint(-4, 5, (B, Q, M, L, P, 2), generator=g, device=cuda).float()
+    loc = (pixel + 0.5) / sizes.view(L, 1, 2) + offset / sizes.view(L, 1, 2)
+    once = (loc.double() * sizes.view(L, 1, 2).double() - 0.5).float().floor()
+    twice = (loc * sizes.view(L, 1, 2) - 0.5).floor()
+    assert (once != twice).float().mean().item() > 1e-3  # the case this test is about
+    grad_out = torch.randn((B, Q, M * 32), generator=g, device=cuda)
+    got = msda_cuda.msda_bwd(grad_out, value, shapes, loc, attn)
+    want = msda_cuda.ms_deform_attn_backward_plain(grad_out, value, shapes, loc, attn)
+    for name, x, w in zip(("value", "loc", "attn"), got, want):
+        assert _rel(x, w) <= 1e-5, name
+    out = msda_cuda.msda_fwd(value, shapes, loc, attn)
+    leaves = [t.clone().requires_grad_() for t in (value, loc, attn)]
+    plain = msda_cuda.ms_deform_attn_plain(leaves[0], shapes, leaves[1], leaves[2])
+    assert (out - plain).abs().max() <= 1e-4
+    for name, x, w in zip(("value", "loc", "attn"), got,
+                          torch.autograd.grad(plain, leaves, grad_out)):
+        assert _rel(x, w) <= 1e-5, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_attention_backward_gives_a_row_that_sees_one_key_nothing(cuda, dtype):
+    """Fault C10: a query row that sees one key puts all of its weight there,
+    so delta is that key's dP and its dS is 0: its q gets no gradient and
+    adds nothing to dK. The kernel computed dP - delta as the difference of
+    two roundings of dO . v, and with values sharing an offset (the decoder's
+    features) and a dK small beside that row's dP (its dO large here) the
+    difference put dK beyond BWD_TOL of the float64 backward; the plain
+    backward and the kernel now give that row dS = 0. In bfloat16 the row's
+    q gets nothing too (its products, rounded to 8 bits, are not held to the
+    float64 backward here)."""
+    B, H, Q, S, D = 2, 8, 64, 1024, 32
+    g = torch.Generator(device=cuda).manual_seed(15)
+
+    def rows(n, offset):
+        x = (offset * torch.randn((1, 1, H * D), generator=g, device=cuda)
+             + torch.randn((B, n, H * D), generator=g, device=cuda))
+        return x.to(dtype).view(B, n, H, D).transpose(1, 2)
+
+    q, k, v = rows(Q, 1.0), rows(S, 4.5), rows(S, 4.5)
+    scale = torch.full((1, Q, 1, 1), 1e-3, device=cuda)
+    scale[:, 3] = 1.0
+    grad_out = (torch.randn((B, Q, H, D), generator=g, device=cuda) * scale).to(dtype)
+    grad_out = grad_out.transpose(1, 2)
+    mask = torch.rand((B, Q, S), generator=g, device=cuda) < 0.3
+    mask[:, 3] = True
+    mask[:, 3, 17] = False
+    _, stats, out32 = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+    got = mac.masked_attn_bwd(grad_out, q, k, v, mask, out32, stats)
+    want = mac.masked_attention_backward_plain(grad_out.double(), q.double(), k.double(),
+                                               v.double(), mask)
+    assert want[0][:, :, 3].abs().max().item() == 0
+    assert got[0][:, :, 3].abs().max().item() == 0
+    if dtype == torch.float32:
+        for name, x, w in zip("qkv", got, want):
+            assert _rel(x, w) <= 1e-4, name

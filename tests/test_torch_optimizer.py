@@ -261,3 +261,33 @@ def test_swin_group_membership_matches_jax(freeze_at):
     assert frozen == {n for n in seen.keys() | frozen if freeze_at and n.startswith(stages)}
     assert seen["backbone.layers.3.blocks.1.attn.relative_position_bias_table"][0] == 0.02
     assert seen["backbone.norm3.weight"][0] == 0.01
+
+
+def test_video_group_membership_matches_jax():
+    """The video decoder's names (ROADMAP's `_EMBED_TOKENS` trap): weight
+    decay and LR multiplier of every parameter of the YouTube-VIS R50 recipe
+    by the JAX package's `is_norm_param` / `is_embed_param` /
+    `is_backbone_param`, against the port's groups; `query_embed`, the video
+    decoder's own table, decays as an embedding in both."""
+    from test_torch_video import SMALL as VIDEO_SMALL, build_video_pair
+
+    jcfg, _, params, tcfg, tmodel = build_video_pair(
+        frames=2, overrides=VIDEO_SMALL + SOLVER + ["MODEL.BACKBONE.FREEZE_AT", "0"])
+    s = jcfg.SOLVER
+
+    def per_leaf(fn):
+        return state_dict_from_jax_params(jax.tree_util.tree_map_with_path(
+            lambda path, a: np.full(np.shape(a), fn(path), np.float32), params))
+
+    want_wd = per_leaf(lambda path: s.WEIGHT_DECAY_NORM if jopt.is_norm_param(path) else
+                       s.WEIGHT_DECAY_EMBED if jopt.is_embed_param(path) else s.WEIGHT_DECAY)
+    want_mult = per_leaf(lambda path: s.BACKBONE_MULTIPLIER if jopt.is_backbone_param(path)
+                         else 1.0)
+    seen = {n: (g["weight_decay"], g["lr"]) for g in topt.param_groups(tcfg, tmodel)
+            for n in g["names"]}
+    assert seen.keys() == {n for n, _ in tmodel.named_parameters()}
+    for n in seen:
+        assert seen[n] == (pytest.approx(want_wd[n].flatten()[0].item()),
+                           pytest.approx(want_mult[n].flatten()[0].item())), n
+    assert seen["sem_seg_head.predictor.query_embed.weight"][0] == 0.02
+    assert seen["sem_seg_head.predictor.query_feat.weight"][0] == 0.02

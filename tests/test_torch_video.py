@@ -66,16 +66,24 @@ def video_cfgs(rel=R50, overrides=SMALL, frames=3):
     return tuple(out)
 
 
-def build_video_pair(frames=3, seed=0, overrides=SMALL):
+def _at_init(params, start, parts, path=""):
+    """`params` with each leaf whose path holds one of `parts` back at `start`."""
+    if isinstance(params, dict):
+        return {k: _at_init(v, start[k], parts, f"{path}/{k}") for k, v in params.items()}
+    return start if any(part in path for part in parts) else params
+
+
+def build_video_pair(frames=3, seed=0, overrides=SMALL, at_init=()):
     """The JAX model at `frames` frames and the port's, holding the same
     seeded, perturbed weights (the port's init carried into the JAX layout by
-    the JAX importer, as `test_torch_slice._build_pair` does)."""
+    the JAX importer, as `test_torch_slice._build_pair` does), apart from the
+    parameters whose path holds one of `at_init`, which keep the init."""
     jcfg, tcfg = video_cfgs(overrides=overrides, frames=frames)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         tmodel = build_model(tcfg)
     start = convert_maskformer_state_dict({k: v.numpy() for k, v in tmodel.state_dict().items()})
-    params = _perturb(start, np.random.RandomState(seed))
+    params = _at_init(_perturb(start, np.random.RandomState(seed)), start, at_init)
     load_weights(tmodel, state_dict_from_jax_params(params))
     return jcfg, jax_build_model(jcfg), params, tcfg, tmodel
 
@@ -141,7 +149,9 @@ def test_video_decoder_matches_jax():
 def test_video_maskformer_matches_jax():
     """A 3-frame clip of raw pixels through both models, the JAX package's
     unpadded forward; the port takes the clip's length from its frames, so a
-    model built for SAMPLING_FRAME_NUM 2 serves it the same; targets raise."""
+    model built for SAMPLING_FRAME_NUM 2 serves it the same; with targets
+    (and DN groups, which the video model has none of) it returns the same
+    outputs, for the losses."""
     jcfg, jmodel, params, tcfg, tmodel = build_video_pair(frames=3)
     clip = (np.random.RandomState(3).rand(1, 3, 64, 96, 3) * 255).astype(np.float32)
     want = jax.jit(lambda p, x: jmodel.apply({"params": p}, x, None, train=False))(
@@ -158,8 +168,9 @@ def test_video_maskformer_matches_jax():
         other.load_state_dict(tmodel.state_dict())
         again = other(torch.from_numpy(clip))
     torch.testing.assert_close(again["pred_masks"], got["pred_masks"], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="A20b"):
-        tmodel(torch.from_numpy(clip), targets=object())
+    train = tmodel(torch.from_numpy(clip), targets=object(), dn_groups=(2, 3))
+    assert train.keys() == got.keys() and train["pred_masks"].requires_grad
+    torch.testing.assert_close(train["pred_masks"].detach(), got["pred_masks"])
 
 
 def test_state_dict_round_trip_with_query_embed(tmp_path):
