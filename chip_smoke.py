@@ -255,7 +255,39 @@ result line):
     `train_net_video.main` at their own batch from that split, as phase 18
     (3 steps, the second's launches held against the plain versions, the
     last profiled: s/step, device busy ms, peak memory, data_time), then
-    `--eval-only --resume` on `eval_ytvis`'s 4 clips: finite tube AP.
+    `--eval-only --resume` on `eval_ytvis`'s 4 clips: finite tube AP;
+28. A18, after `remat`: `train_variants`, the LYSmooth decoder
+    (LAST_Q_RATIO 0.5) with pre-norm layers and DROPOUT 0.1 (the deformable
+    encoder's) in training mode under TPU.REMAT_ENCODER, at phase 13's batch:
+    step 0 against the plain ops given the kernel path's attention and ReLU
+    decisions (the dropout masks from the same generator seeded anew), then
+    against the same step with remat off (outputs bitwise equal, gradients
+    within 1e-5); `train_dn_modes`: the DN modes at phase 13's batch with
+    NUM_DN 5 over 20 slots (100 DN rows before the 100 learnable queries),
+    noise 0.2, ALL_LY_DN, label noise 0.2, for `points` with HEAD_DN,
+    `shift`, `scale`, `shift_scale`, `patch`, `points_MAE`, `base`, `lb`,
+    `mask`, and `mask` with HEAD_DN, each on a model built from its config
+    at the seeded init: step 0 against the plain ops as in `train_variants`
+    (K1 12, K1 backward 6, K3 and K3 backward 9 launches), 3 steps through
+    `Trainer` (device busy ms of a step, peak memory); the step 0 launches of
+    `points` and `mask` with HEAD_DN, `patch` and `points_MAE` held against
+    the plain versions on their own inputs (K3 at 200 queries, K3's backward
+    against float64 beside the float32 plain backward's distance), then K3 and its
+    backward at that shape (B = 8, 200 queries, S = 256 / 1024 / 4096, a
+    per-head 100-row DN block), timed beside the bound, the plain versions
+    and SDPA;
+29. `train_net_dn_default`, after `train_net_accum1`: the DN_query recipe
+    with the decoder `eval.sh` names and nothing else (DN_MODE `base`, NUM_DN
+    5, noise 0.2) through `train_net.main` as phase 18;
+30. `slice_maskformer1`, after `train_mapillary_pan`: MaskFormer-v1 on the
+    ADE20K semantic recipe (BasePixelDecoder, StandardTransformerDecoder on
+    res5, 6 decoder layers, DROPOUT 0.1; and TransformerEncoderPixelDecoder
+    with 6 encoder layers on `transformer_encoder`) serves 4 requests each
+    (no kernel on this path: its JAX twin runs no Pallas kernel), and each
+    per-pixel baseline head runs one forward; `train_maskformer1`: the first
+    configuration through `train_net.main` at the recipe's batch (16 crops of
+    512x512) from phase 21's data as phase 23, then `--eval-only --resume`:
+    finite mIoU.
 
 Every training phase recomputes the pixel decoder's encoder layers in the
 backward, as the recipes' `TPU.REMAT_ENCODER` default says: K1 (or K2) runs
@@ -307,6 +339,13 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # grad_value and K3's dq), and in K3 the forward's 3xTF32 row statistics
 # against float32 recomputation (~1e-6). bfloat16: outputs rounded to 8 bits.
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# K3's float32 backward against its plain version in float64 (the DN modes'
+# steps): the kernel lies up to ~3x further from float64 than the float32
+# plain backward on the same inputs (3xTF32 products, other summation
+# orders; at the seeded init dq within 1.4e-5 of its largest entry, the
+# float32 plain backward 1.3e-5). The limit is BWD_TOL or this factor times
+# the float32 plain backward's own distance, whichever is larger.
+F64_CONTROL_FACTOR = 4.0
 # against autograd of the plain forward: grid_sample rounds the sampling
 # coordinate differently (see TOL), which moves a point across a pixel border
 # now and then; there grad_loc, the slope of the bilinear surface, jumps. So
@@ -623,13 +662,15 @@ def hold_k1_at(torch, g, shapes, batch: int, dtype) -> dict:
             "max_abs_err": err, "plain_max_abs": out_max, "tol": tol, **times, **bnd}
 
 
-def hold_k3_at(torch, g, Q: int, keys: int, dtype, batch: int = 1) -> dict:
+def hold_k3_at(torch, g, Q: int, keys: int, dtype, batch: int = 1, dn: int = 0) -> dict:
     """K3 on Q queries over `keys` keys (the strided head views of `batch`
     images' projections) with a mask shared by the heads, as the decoder
-    hands it, 5 rows fully masked, against its plain version at TOL times the
-    plain output's largest entry where that is below 1 (`scaled_tol`; over
-    10^4 keys and more the outputs are averages, a few hundredths at most, and
-    an absolute limit would pass a kernel that lost a chunk of keys); SDPA on
+    hands it (with `dn`, a mask per head whose first `dn` rows, the DN block,
+    differ by head, as under HEAD_DN), 5 rows fully masked, against its plain
+    version at TOL times the plain output's largest entry where that is
+    below 1 (`scaled_tol`; over 10^4 keys and more the outputs are averages,
+    a few hundredths at most, and an absolute limit would pass a kernel that
+    lost a chunk of keys); SDPA on
     an additive mask held to the same limit; timed beside the plain version,
     the bound and SDPA."""
     import torch.nn.functional as F
@@ -641,12 +682,15 @@ def hold_k3_at(torch, g, Q: int, keys: int, dtype, batch: int = 1) -> dict:
     q, k, v = (torch.randn((batch, n, H * D), generator=g, device="cuda").to(dtype)
                .view(batch, n, H, D).transpose(1, 2) for n in (Q, keys, keys))
     mask = torch.rand((batch, Q, keys), generator=g, device="cuda") < 0.7
-    mask[:, :5] = True  # fully masked rows
+    if dn:
+        mask = mask[:, None].expand(batch, H, Q, keys).clone()
+        mask[:, :, :dn] = torch.rand((batch, H, dn, keys), generator=g, device="cuda") < 0.9
+    mask[..., :5, :] = True  # fully masked rows
     want = mac.masked_attention_plain(q.float(), k.float(), v.float(), mask)
     err = (mac.masked_attn_fwd(q, k, v, mask).float() - want).abs().max().item()
     tol, out_max = scaled_tol(TOL[name], want)
-    additive = torch.zeros((batch, 1, Q, keys), dtype=dtype, device="cuda")
-    additive.masked_fill_(mask[:, None], -1e9)
+    additive = torch.zeros((batch, H if dn else 1, Q, keys), dtype=dtype, device="cuda")
+    additive.masked_fill_(mask if dn else mask[:, None], -1e9)
     lib_err = (F.scaled_dot_product_attention(q, k, v, attn_mask=additive).float()
                - want).abs().max().item()
     del want
@@ -1227,6 +1271,12 @@ def rel_err(got, want) -> float:
     """max |got - want| relative to want's largest entry."""
     want = want.float()
     return ((got.float() - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+def rel_err64(got, want) -> float:
+    """`rel_err` taken in float64, for a float64 reference."""
+    want = want.double()
+    return ((got.double() - want).abs().max() / want.abs().max().clamp(min=1e-300)).item()
 
 
 def model_like_locations(torch, g, B, shapes, M, P):
@@ -1818,15 +1868,20 @@ def scaled_err(got, want) -> float:
     return ((got.float() - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
 
 
-def hold_recorded(torch, phase: str, recorded: dict, card: str) -> None:
+def hold_recorded(torch, phase: str, recorded: dict, card: str,
+                  k3_bwd_vs_float64: bool = False) -> None:
     """Every launch `recording_launches` kept from a training step, run again
     through its wrapper on the same inputs on the card and held against the
     kernel's plain version: a forward within TOL (`scaled_err`), a backward
     within BWD_TOL (K2's within K2_BWD_TOL) of each gradient's largest entry
     (K3's in float32 on the float32 output the kernel is handed; in bfloat16
     against the float32 plain backward, within the larger of BWD_TOL and the
-    distance of autograd of the plain bfloat16 forward). The launches made
-    here are not counted."""
+    distance of autograd of the plain bfloat16 forward). With
+    `k3_bwd_vs_float64`, K3's float32 backward is held against the plain
+    backward in float64 instead, within the larger of BWD_TOL and
+    F64_CONTROL_FACTOR times the float64 distance of the float32 plain
+    backward (the control, logged beside it). The launches made here are not
+    counted."""
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
     from mp_former_tpu_torch.ops import msda_cuda
     from mp_former_tpu_torch.ops import tap_weighting as tw
@@ -1874,20 +1929,31 @@ def hold_recorded(torch, phase: str, recorded: dict, card: str) -> None:
             # bfloat16 forward lies from it. float32: on the float32 output the
             # kernel is handed (where the weights spread over 16384 keys, dq
             # follows the last bits of O: the recomputed output's distance is
-            # logged beside it)
-            recomputed = mac.masked_attention_backward_plain(*f32(go, q, k, v), mask)
+            # logged beside it), or against float64 (F64_CONTROL_FACTOR)
             tol = BWD_TOL[name]
-            if name == "bfloat16":
-                errs = [rel_err(x, y) for x, y in zip(got, recomputed)]
-                refs = bf16_reference_errs(torch, go, q, k, v, mask, recomputed)
-                extra["rel_errs_bf16_autograd"] = [f"{e:.2e}" for e in refs]
-                tol = [max(tol, e) for e in refs]
+            if k3_bwd_vs_float64 and name == "float32":
+                exact = mac.masked_attention_backward_plain(
+                    *(t.double() for t in (go, q, k, v)), mask)
+                control = mac.masked_attention_backward_plain(*f32(go, q, k, v), mask, out=out32)
+                errs = [rel_err64(x, y) for x, y in zip(got, exact)]
+                controls = [rel_err64(x, y) for x, y in zip(control, exact)]
+                extra["against"] = "the plain backward in float64"
+                extra["control_f32_plain_errs"] = [f"{e:.2e}" for e in controls]
+                tol = [max(tol, F64_CONTROL_FACTOR * e) for e in controls]
+                del exact, control
             else:
-                errs = [rel_err(x, y) for x, y in zip(
-                    got, mac.masked_attention_backward_plain(*f32(go, q, k, v), mask, out=out32))]
-                extra["rel_errs_vs_recomputed_output"] = [
-                    f"{rel_err(x, y):.2e}" for x, y in zip(got, recomputed)]
-            del recomputed
+                recomputed = mac.masked_attention_backward_plain(*f32(go, q, k, v), mask)
+                if name == "bfloat16":
+                    errs = [rel_err(x, y) for x, y in zip(got, recomputed)]
+                    refs = bf16_reference_errs(torch, go, q, k, v, mask, recomputed)
+                    extra["rel_errs_bf16_autograd"] = [f"{e:.2e}" for e in refs]
+                    tol = [max(tol, e) for e in refs]
+                else:
+                    errs = [rel_err(x, y) for x, y in zip(got, mac.masked_attention_backward_plain(
+                        *f32(go, q, k, v), mask, out=out32))]
+                    extra["rel_errs_vs_recomputed_output"] = [
+                        f"{rel_err(x, y):.2e}" for x, y in zip(got, recomputed)]
+                del recomputed
         elif kernel == "tap_weight_fwd":
             taps, w, P, M, D = args
             name, shape = dtype_of(taps), f"B{taps.shape[0]}xPQ{taps.shape[1]}xTMD{taps.shape[2]}"
@@ -1902,9 +1968,9 @@ def hold_recorded(torch, phase: str, recorded: dict, card: str) -> None:
             tol = K2_BWD_TOL[name]
         torch.cuda.synchronize()
         tols = tol if isinstance(tol, list) else [tol] * len(errs)
+        extra.setdefault("against", "the plain version on the step's own inputs")
         log(phase, hold=kernel, dtype=name, shape=shape, errs=[f"{e:.2e}" for e in errs],
-            tol=[f"{t:.2e}" for t in tols], against="the plain version on the step's own inputs",
-            **extra, card=repr(card))
+            tol=[f"{t:.2e}" for t in tols], **extra, card=repr(card))
         if not all(e <= t for e, t in zip(errs, tols)):
             raise AssertionError(f"{phase}: {kernel} {name} at {shape} against its plain version "
                                  f"on the step's inputs: {errs}, above {tol}")
@@ -2183,15 +2249,15 @@ class PairedAttention:
         self.heads = self.decoder.forward_prediction_heads
         self.kept, self.flips, self.margin = [], 0, 0.0
 
-    def _record(self, output, mask_features, size):
-        out = self.heads(output, mask_features, size)
+    def _record(self, output, mask_features, size, *extra):
+        out = self.heads(output, mask_features, size, *extra)
         self.kept.append(out[2])
         return out
 
-    def _replay(self, output, mask_features, size):
+    def _replay(self, output, mask_features, size, *extra):
         from mp_former_tpu_torch.utils.interp import resize
 
-        cls, msk, attn = self.heads(output, mask_features, size)
+        cls, msk, attn = self.heads(output, mask_features, size, *extra)
         k_attn = self.kept.pop(0)
         differ = attn != k_attn
         if differ.any():
@@ -2831,7 +2897,8 @@ def default_scores(config: str):
 
 def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: str = "",
                     recipe=RELEASED_SH, scores=None, steps: int = TRAIN_NET_STEPS,
-                    video: bool = False) -> tuple:
+                    video: bool = False, base: dict = TRAIN_EXPECTED, loss_keys: int = 61,
+                    eval_base: dict = None) -> tuple:
     """The released recipe launched as its users launch it: `train_net.main`
     with the overrides of run_50ep_no_noise_all_ly.sh, full width and depth,
     its own batch (16 images, LSJ at 1024) from phase train_coco's dataset
@@ -2855,7 +2922,11 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
     step's device busy ms, the peak memory and the last data_time. With
     `video`, the video entry point `train_net_video.main` instead, whose
     batch is SOLVER.IMS_PER_BATCH clips of its clip mapper, evaluated on
-    TRAIN_NET_EVAL_IMAGES clips (`--max-eval-videos`: K1 6 and K3 9 a clip)."""
+    TRAIN_NET_EVAL_IMAGES clips (`--max-eval-videos`: K1 6 and K3 9 a clip).
+    `base`, `loss_keys`, `eval_base`: the launches a step (before remat and
+    accumulation), the count of loss keys and total_loss of a metrics line,
+    the launches an evaluated image, of a path other than the released
+    recipe's (MaskFormer-v1's runs no kernel)."""
     import shutil
 
     from torch.profiler import ProfilerActivity, profile
@@ -2912,7 +2983,7 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
     with open(os.path.join(out_dir, "config.yaml")) as f:
         dumped = f.read()
     remat = "REMAT_ENCODER: true" in dumped
-    per_step = step_expected(TRAIN_EXPECTED, remat, accum)
+    per_step = step_expected(base, remat, accum)
     expected = {k: steps * v for k, v in per_step.items()}
     with open(os.path.join(out_dir, "metrics.json")) as f:
         lines = [json.loads(x) for x in f.read().splitlines()]
@@ -2938,7 +3009,7 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
         raise AssertionError(f"{phase}: launches {launches}, expected {expected} (remat "
                              f"{remat}), {len(seconds)} steps")
     losses = [k for k in lines[-1] if k.startswith("loss_") or k == "total_loss"]
-    if not all(np.isfinite(v) for x in lines for v in x.values()) or len(losses) != 61:
+    if not all(np.isfinite(v) for x in lines for v in x.values()) or len(losses) != loss_keys:
         raise AssertionError(f"{phase}: metrics.json lines {lines}")
 
     reset_kernel_counts()
@@ -2948,7 +3019,8 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
                                 str(TRAIN_NET_EVAL_IMAGES), *overrides]))
     eval_s = time.perf_counter() - t0
     launches_eval = kernel_counts(backward=True)
-    expected_eval = {k: TRAIN_NET_EVAL_IMAGES * v for k, v in COCO_EVAL_EXPECTED.items()}
+    expected_eval = {k: TRAIN_NET_EVAL_IMAGES * v
+                     for k, v in (eval_base or COCO_EVAL_EXPECTED).items()}
     scores = (scores or default_scores(config))(results)
     log(phase, evaluated=TRAIN_NET_EVAL_IMAGES, launches=launches_eval, expected=expected_eval,
         results=sorted(results), **{k: f"{v:.4f}" for k, v in scores.items()},
@@ -3937,6 +4009,266 @@ def phase_train_video(torch, card: str) -> dict:
     return paths
 
 
+# A18: MP-Former's mask-piloted (DN) modes at phase train's batch (B = 8,
+# 512x512): the released recipe's config with the MaskDN decoder, NUM_DN 5
+# over TPU.DN_MAX_GT 20 slots (100 DN rows in front of the 100 learnable
+# queries: K3 on 200), noise 0.2, ALL_LY_DN, label noise 0.2; each run's
+# model built from its own config (DN_MODE, HEAD_DN) at the seeded init.
+# The runs in DN_MODE_HELD keep their step's launches and hold them against
+# the plain versions on their own inputs, K3's backward against float64:
+# per-head DN rows (`points`, `mask`) and rows with a few open keys (`patch`,
+# `points_MAE`)
+DN_MODES_OVERRIDES = ["MODEL.DN.NUM_DN", "5", "MODEL.DN.NOISE_SCALE", "0.2",
+                      "MODEL.MASK_FORMER.ALL_LY_DN", "True",
+                      "MODEL.MASK_FORMER.LB_NOISE_RATIO", "0.2", "TPU.DN_MAX_GT", "20",
+                      "SOLVER.IMS_PER_BATCH", str(TRAIN_BATCH), "SEED", str(SEED)]
+DN_MODE_RUNS = (("points", True), ("shift", False), ("scale", False), ("shift_scale", False),
+                ("patch", False), ("points_MAE", False), ("base", False), ("lb", False),
+                ("mask", False), ("mask", True))
+DN_MODE_HELD = (("points", True), ("patch", False), ("points_MAE", False), ("mask", True))
+DN_QUERIES = 200
+# the modes' steps after step 0: one timed, one warm, one profiled
+DN_MODE_STEPS = 3
+
+
+def phase_train_dn_modes(torch, card: str) -> tuple:
+    """Each run of DN_MODE_RUNS on a model built from its config (`DN_MODE`
+    and `HEAD_DN` set there) at the seeded init: step 0 through the kernels
+    against autograd of the plain ops given the kernel path's attention and
+    ReLU decisions (`paired_step`: K1 12, K1 backward 6, K3 and K3 backward 9
+    launches; both passes draw the DN noise from a generator seeded anew),
+    then DN_MODE_STEPS steps through `Trainer`, the launches counted: the
+    first one's seconds, the device busy ms of the last (profiled) and the
+    peak memory, a line a mode. The runs of DN_MODE_HELD keep their step 0's
+    launches, held against the plain versions on the step's own inputs
+    (`hold_recorded`, K3's backward against float64), where K3 sees 200
+    queries (per head under HEAD_DN); then K3 and its backward at that shape
+    (B = 8, Q = 200, the three levels' keys, a per-head 100-row DN block),
+    float32, timed beside the bound, the plain versions and SDPA. Returns
+    the launches of all steps, the per-mode numbers and the K3 rows."""
+    import gc
+    import shutil
+
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.engine.trainer import Trainer
+    from mp_former_tpu_torch.utils.cuda_timing import busy_ms
+
+    phase = "train_dn_modes"
+    out_dir = os.path.join(REPO, "output", f"chip_smoke_{phase}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def mode_cfg(mode, head_dn):
+        return load_cfg(CONFIG, [*DN_MODES_OVERRIDES, "MODEL.MASK_FORMER.DN_MODE", mode,
+                                 "MODEL.MASK_FORMER.HEAD_DN", str(head_dn), "OUTPUT_DIR", out_dir])
+
+    cfg = mode_cfg(*DN_MODE_RUNS[0])
+    batches = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                TRAIN_MAX_INSTANCES, seed=SEED)
+    first = next(batches).to("cuda")
+    batch = f"{TRAIN_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}"
+    total = dict.fromkeys(kernel_counts(backward=True), 0)
+    runs = {}
+    for mode, head_dn in DN_MODE_RUNS:
+        cfg = mode_cfg(mode, head_dn)
+        trainer = Trainer(cfg, batches, model=seeded_model(torch, cfg), device="cuda")
+        model = trainer.model
+        run = mode + (" HEAD_DN" if head_dn else "")
+        held = (mode, head_dn) in DN_MODE_HELD
+        with (recording_launches() if held else contextlib.nullcontext()) as kept:
+            launches = paired_step(torch, card, phase, model, criterion=trainer.criterion,
+                                   batch=first, what=f"{batch}, DN_MODE {run}")
+        if held:
+            shapes = sorted({sig for k, sig in kept if k == "masked_attn_fwd"})
+            log(phase, mode=run, k3_q_k_v_mask_shapes=[[a[0] for a in sig[:4]] for sig in shapes])
+            # under HEAD_DN the first layer's mask is per head, and every
+            # layer's where the mode refreshes the DN rows (`points`)
+            per_head = [len(sig[3][0]) == 4 for sig in shapes]
+            if not (all(sig[0][0][2] == DN_QUERIES for sig in shapes)
+                    and any(per_head) == head_dn):
+                raise AssertionError(f"{phase} {run}: K3 did not see {DN_QUERIES} queries with "
+                                     f"a {'per-head' if head_dn else 'shared'} mask: {shapes}")
+            hold_recorded(torch, phase, kept, card, k3_bwd_vs_float64=True)
+            del kept
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run_step(next(batches))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        # one warm step and one profiled (the profiler adds seconds of host time)
+        busy = busy_ms(lambda: trainer.run_step(next(batches)), calls=1)
+        steps = kernel_counts(backward=True)
+        expected = {k: DN_MODE_STEPS * v for k, v in launches.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(phase, mode=run, steps=DN_MODE_STEPS, launches=steps, expected=expected,
+            device_busy_ms_profiled_step=f"{busy:.3f}", first_step_s=f"{step_s:.4f}",
+            peak_memory_allocated_GiB=f"{peak:.2f}", card=repr(card))
+        if steps != expected:
+            raise AssertionError(f"{phase} {run}: launches {steps}, expected {expected}")
+        for k, v in launches.items():
+            total[k] += v + steps[k]
+        runs[run] = {"busy_ms": busy, "step_s": step_s, "peak_GiB": peak}
+        del trainer, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    k3_rows = {"K3": [], "K3_bwd": []}
+    dn = DN_QUERIES - cfg.MODEL.MASK_FORMER.NUM_OBJECT_QUERIES
+    for h, w in TRAIN_SHAPES:
+        row = hold_k3_at(torch, g, DN_QUERIES, h * w, torch.float32, batch=TRAIN_BATCH, dn=dn)
+        log_canvas_row(phase, "K3", "DN modes, per-head DN block", "float32", row, card)
+        k3_rows["K3"].append(row)
+        k3_rows["K3_bwd"].append(hold_k3_bwd_at(
+            torch, card, phase, "DN modes, per-head DN block", g, TRAIN_BATCH, DN_QUERIES, h * w,
+            torch.float32, dn=dn))
+        torch.cuda.empty_cache()
+    log(phase, modes=len(runs), ok=True)
+    return total, runs, k3_rows
+
+
+def phase_train_variants(torch, card: str) -> dict:
+    """The decoder variants at phase train's batch and weights' seed: the
+    LYSmooth decoder (LAST_Q_RATIO 0.5; no recipe sets it) with pre-norm
+    layers and DROPOUT 0.1 in the deformable encoder, in training mode,
+    under TPU.REMAT_ENCODER. Step 0 through the kernels against autograd of
+    the plain ops (`paired_step`; the dropout masks drawn from the same
+    generator seeded anew), then against the same step with remat off (the
+    masks are drawn before the recomputed region): outputs bitwise equal,
+    losses within REMAT_LOSS_TOL, gradients within REMAT_GRAD_TOL; the
+    dropout acted (the training forward differs from the eval forward)."""
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.models.criterion import build_criterion
+
+    phase = "train_variants"
+    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME",
+                            "MultiScaleMaskedTransformerDecoderMaskDNLYSmooth",
+                            "MODEL.MASK_FORMER.LAST_Q_RATIO", "0.5",
+                            "MODEL.MASK_FORMER.PRE_NORM", "True",
+                            "MODEL.MASK_FORMER.DROPOUT", "0.1", "TPU.REMAT_ENCODER", "True"])
+    model = seeded_model(torch, cfg).to("cuda").train()
+    criterion = build_criterion(cfg)
+    batch = next(synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                   TRAIN_MAX_INSTANCES, seed=SEED)).to("cuda")
+    encoder = model.sem_seg_head.pixel_decoder.transformer
+    if not (encoder.remat and encoder.encoder.layers[0].dropout == 0.1
+            and model.sem_seg_head.predictor.last_q_ratio == 0.5
+            and model.sem_seg_head.predictor.transformer_ffn_layers[0].normalize_before):
+        raise AssertionError(f"{phase}: the cfg did not reach the model")
+    launches = paired_step(torch, card, phase, model, criterion, batch,
+                           f"{TRAIN_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}, LYSmooth 0.5, pre-norm, "
+                           "dropout 0.1, remat")
+    outputs = []
+    hook = model.register_forward_hook(lambda m, args, out: outputs.append(
+        out["pred_masks"].detach().clone()))
+    try:
+        on = loss_and_gradients(torch, model, criterion, batch)
+        encoder.remat = False
+        reset_kernel_counts()
+        off = loss_and_gradients(torch, model, criterion, batch, on[2])
+        off_launches = kernel_counts(backward=True)
+        with torch.no_grad():
+            model.eval()
+            eval_masks = model(batch.images)["pred_masks"]
+            model.train()
+    finally:
+        hook.remove()
+        encoder.remat = True
+    same_out = torch.equal(outputs[0], outputs[1])
+    dropped = (outputs[0] - eval_masks).abs().max().item()
+    loss_err = max(abs(on[0][k] - v) / max(abs(v), 1e-6) for k, v in off[0].items())
+    errs = sorted(((rel_err(on[1][k], off[1][k]), k) for k in off[1]), reverse=True)
+    log(phase, compare="remat on against off, dropout 0.1", outputs_bitwise_equal=same_out,
+        loss_max_rel_err=f"{loss_err:.3e}", loss_tol=REMAT_LOSS_TOL, gradients=len(errs),
+        grad_max_rel_err=f"{errs[0][0]:.3e}", grad_tol=REMAT_GRAD_TOL["float32"],
+        worst=[(k, f"{e:.2e}") for e, k in errs[:3]], launches_remat_off=off_launches,
+        train_vs_eval_masks_max_abs_diff=f"{dropped:.3e}", card=repr(card))
+    if not (same_out and on[0].keys() == off[0].keys() and loss_err <= REMAT_LOSS_TOL
+            and on[1].keys() == off[1].keys() and errs[0][0] <= REMAT_GRAD_TOL["float32"]
+            and off_launches == step_expected(TRAIN_EXPECTED, False) and dropped > 1e-3):
+        raise AssertionError(f"{phase}: remat on against off with dropout: outputs equal "
+                             f"{same_out}, losses {loss_err}, gradients {errs[:3]}, launches "
+                             f"{off_launches}; dropout changed the masks by {dropped}")
+    log(phase, ok=True)
+    return launches
+
+
+# MaskFormer-v1 (A18): the ADE20K semantic R50 recipe with the values
+# mp_former_tpu/config/defaults.py gives the v1 keys; its JAX twin runs no
+# Pallas kernel (plain XLA attention), so the path launches none here
+V1_OVERRIDES = ["MODEL.SEM_SEG_HEAD.PIXEL_DECODER_NAME", "BasePixelDecoder",
+                "MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME", "StandardTransformerDecoder",
+                "MODEL.MASK_FORMER.TRANSFORMER_IN_FEATURE", "res5",
+                "MODEL.MASK_FORMER.DEC_LAYERS", "6", "MODEL.MASK_FORMER.DROPOUT", "0.1"]
+V1_VARIANTS = {"maskformer1": V1_OVERRIDES,
+               "maskformer1_tx": [*V1_OVERRIDES, "MODEL.SEM_SEG_HEAD.PIXEL_DECODER_NAME",
+                                  "TransformerEncoderPixelDecoder",
+                                  "MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS", "6",
+                                  "MODEL.MASK_FORMER.TRANSFORMER_IN_FEATURE",
+                                  "transformer_encoder"]}
+NO_KERNELS = {"msda_fwd": 0, "tap_weight_fwd": 0, "masked_attn_fwd": 0, "msda_bwd": 0,
+              "masked_attn_bwd": 0, "tap_weight_bwd": 0}
+
+
+def phase_slice_maskformer1(torch, card: str) -> dict:
+    """Both MaskFormer-v1 configurations (V1_VARIANTS) at full width with
+    seeded weights serve REQUESTS through `Predictor` (semantic
+    segmentation, 150 classes): no kernel launched, finite probabilities at
+    each request's size, warm latency and device busy ms of a request, the
+    peak memory; then each per-pixel baseline head (on the first
+    configuration) runs one forward of a 512x512 image: finite per-pixel
+    logits (1, 150, 512, 512)."""
+    from mp_former_tpu_torch.engine.predictor import Predictor
+    from mp_former_tpu_torch.utils.cuda_timing import busy_ms
+
+    phase = "slice_maskformer1"
+    rng = np.random.RandomState(SEED)
+    images = [rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for h, w in REQUESTS]
+    out = {}
+    for name, overrides in V1_VARIANTS.items():
+        cfg = load_cfg(ADE_SEM_CONFIG, overrides, released_decoder=False)
+        predictor = Predictor(cfg, model=seeded_model(torch, cfg), device="cuda")
+        predictor(images[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        latencies = []
+        for img in images:
+            t0 = time.perf_counter()
+            sem = predictor(img)["sem_seg"]
+            latencies.append(time.perf_counter() - t0)
+            if sem.shape != (150, *img.shape[:2]) or not np.isfinite(sem).all():
+                raise AssertionError(f"{phase} {name}: sem_seg {sem.shape}")
+        launches = kernel_counts(backward=True)
+        busy = busy_ms(lambda: predictor(images[0]), calls=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(phase, config=name, requests=len(images), launches=launches,
+            latency_ms=[round(t * 1e3, 2) for t in latencies],
+            device_busy_ms_request_0=f"{busy:.3f}", peak_memory_allocated_GiB=f"{peak:.2f}",
+            card=repr(card))
+        if launches != NO_KERNELS:
+            raise AssertionError(f"{phase} {name}: launches {launches}, the path has no kernel")
+        out[name] = launches
+        del predictor
+        torch.cuda.empty_cache()
+    canvas = torch.from_numpy(rng.randint(0, 256, (1, 512, 512, 3)).astype(np.uint8)).cuda()
+    for head in ("PerPixelBaselineHead", "PerPixelBaselinePlusHead"):
+        cfg = load_cfg(ADE_SEM_CONFIG, [*V1_OVERRIDES, "MODEL.SEM_SEG_HEAD.NAME", head],
+                       released_decoder=False)
+        model = seeded_model(torch, cfg).to("cuda")
+        with torch.inference_mode():
+            logits = model(canvas)["sem_seg_logits"]
+        log(phase, head=head, sem_seg_logits=tuple(logits.shape),
+            finite=bool(torch.isfinite(logits).all()))
+        if logits.shape != (1, 150, 512, 512) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{phase} {head}: sem_seg_logits {tuple(logits.shape)}")
+        del model
+    log(phase, ok=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4017,6 +4349,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     remat = phase_remat(torch, card)
     torch.cuda.empty_cache()
+    # A18: the decoder variants and the DN modes at phase train's batch
+    train_variants = phase_train_variants(torch, card)
+    torch.cuda.empty_cache()
+    train_dn_modes, _, dn_k3 = phase_train_dn_modes(torch, card)
+    torch.cuda.empty_cache()
     train_tpu_bs16 = phase_train_tpu_bs16(torch, card)
     torch.cuda.empty_cache()
     # the released recipe at its own batch through the entry point: micro-batches
@@ -4026,6 +4363,12 @@ def main() -> int:
         train_net_paths[f"train_net_accum{a}"], train_net_paths[f"train_net_accum{a}_eval"], _ = \
             phase_train_net(torch, card, a)
         torch.cuda.empty_cache()
+    # the DN_query recipe with the decoder eval.sh names and nothing else: DN_MODE base
+    train_net_paths["train_net_dn_default"], train_net_paths["train_net_dn_default_eval"], _ = \
+        phase_train_net(torch, card, 1, CONFIG, "train_net_dn_default",
+                        recipe=["MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME",
+                                "MultiScaleMaskedTransformerDecoderMaskDN"])
+    torch.cuda.empty_cache()
     # slice 4 (A16a): COCO panoptic, scored against its own plain-op predictions,
     # then the panoptic launcher at its own batch
     eval_panoptic = phase_eval_panoptic(torch, card)
@@ -4041,6 +4384,14 @@ def main() -> int:
         train_net_paths[phase], train_net_paths[phase + "_eval"], _ = phase_train_net(
             torch, card, 1, config, phase, recipe=(), scores=scores)
         torch.cuda.empty_cache()
+    # MaskFormer-v1 (A18) serves and trains from the ADE20K data
+    maskformer1 = phase_slice_maskformer1(torch, card)
+    torch.cuda.empty_cache()
+    train_net_paths["train_maskformer1"], train_net_paths["train_maskformer1_eval"], _ = \
+        phase_train_net(torch, card, 1, ADE_SEM_CONFIG, "train_maskformer1", recipe=V1_OVERRIDES,
+                        scores=SEGM_TRAIN["train_ade20k_sem"][1], base=NO_KERNELS,
+                        loss_keys=6 * 3 * 2 + 1, eval_base=NO_KERNELS)
+    torch.cuda.empty_cache()
     # slice 5 (A17): the Swin-L recipe's step against the plain ops, then its
     # training batch through the entry point
     swin_step = phase_swin_step(torch, card)
@@ -4062,7 +4413,9 @@ def main() -> int:
                "train_tpu_bs16": train_tpu_bs16, "eval_panoptic": eval_panoptic["launches"],
                "eval_cityscapes": eval_cityscapes["launches"], **train_net_paths,
                "slice_swin": s_swin, "slice_swin_bf16": s_swin_bf16, "swin_step": swin_step,
-               **swin_paths, **video_paths}
+               **swin_paths, **video_paths, "train_variants": train_variants,
+               "train_dn_modes": train_dn_modes,
+               **{f"slice_{k}": v for k, v in maskformer1.items()}}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",
@@ -4075,7 +4428,9 @@ def main() -> int:
          "launches": s1["masked_attn_fwd"], **k3[("float32", 100)],
          "at_q200": k3[("float32", 200)], "at_test_canvases": test_canvas_rows(canvases, "K3"),
          "at_video_canvases": test_canvas_rows(video_canvases, "K3"),
-         "at_video_train_canvases": test_canvas_rows(video_train_canvases, "K3")},
+         "at_video_train_canvases": test_canvas_rows(video_train_canvases, "K3"),
+         "at_dn_modes": [{"dtype": "float32", "mask": "per-head DN block", **r}
+                         for r in dn_k3["K3"]]},
         {"name": "tap_weight_fwd", "route": "cuda", "source": csrc + "tap_weight_fwd.cu",
          "replaces": "mp_former_tpu/ops/tap_weighting.py:244", "launches": s2["tap_weight_fwd"],
          **k2[("headshare", "float32")]},
@@ -4097,7 +4452,9 @@ def main() -> int:
                      "primitives.py:72)",
          "launches": train["masked_attn_bwd"], **k3_bwd["float32"],
          "at_q200": k3_bwd[("float32", 200)],
-         "at_video_train_canvases": test_canvas_rows(video_train_canvases, "K3_bwd")},
+         "at_video_train_canvases": test_canvas_rows(video_train_canvases, "K3_bwd"),
+         "at_dn_modes": [{"dtype": "float32", "mask": "per-head DN block", **r}
+                         for r in dn_k3["K3_bwd"]]},
         {"name": "tap_weight_bwd", "route": "cuda", "source": csrc + "tap_weight_bwd.cu",
          "replaces": "mp_former_tpu/ops/tap_weighting.py:284 (the custom_vjp's _bwd, plain XLA)",
          "launches": train_tpu["tap_weight_bwd"],

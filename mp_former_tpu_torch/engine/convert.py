@@ -5,8 +5,10 @@
 
 `state_dict_from_jax_params` is the inverse of the JAX package's
 `engine/checkpoint_import.py:convert_maskformer_state_dict` (:260-276) for the
-port's models (a d2 ResNet or Swin backbone, MSDeformAttn pixel decoder,
-masked-attention decoder, the video decoder's `query_embed` among them):
+port's models (a d2 ResNet or Swin backbone, the MSDeformAttn or an FPN pixel
+decoder, the masked-attention decoder, the video decoder's `query_embed`
+among them, or MaskFormer-v1's `StandardTransformerDecoder`, or a per-pixel
+baseline head's 1x1 conv):
 conv kernels HWIO -> OIHW, Dense (in, out) -> Linear (out, in), q/k/v
 projections concatenated into `in_proj_*`,
 LayerNorm/GroupNorm `scale` -> `weight`, a Swin's position embedding
@@ -140,6 +142,57 @@ def _pixel_decoder(sd, p: Mapping, pre: str = "sem_seg_head.pixel_decoder.") -> 
         k += 1
 
 
+def _fpn_pixel_decoder(sd, p: Mapping, pre: str = "sem_seg_head.pixel_decoder.") -> None:
+    """BasePixelDecoder / TransformerEncoderPixelDecoder (the inverse of JAX
+    `checkpoint_import.py:convert_fpn_pixel_decoder`)."""
+    for name in sorted(n for n in p if re.fullmatch(r"(adapter|layer)_\d+", n)):
+        _conv(sd, f"{pre}{name}", p[name]["conv"])
+        if "gn" in p[name]:
+            _norm(sd, f"{pre}{name}.norm", p[name]["gn"])
+    _conv(sd, f"{pre}mask_features", p["mask_features"])
+    if "input_proj" in p:
+        _conv(sd, f"{pre}input_proj", p["input_proj"])
+    i = 0
+    while f"transformer_layer_{i}" in p:
+        _encoder_layer(sd, f"{pre}transformer.encoder.layers.{i}", p[f"transformer_layer_{i}"])
+        i += 1
+
+
+def _encoder_layer(sd, t: str, layer: Mapping) -> None:
+    """A DETR encoder layer (self_attn, norm1, linear1, linear2, norm2)."""
+    _mha(sd, f"{t}.self_attn", layer["self_attn"])
+    for n in ("norm1", "norm2"):
+        _norm(sd, f"{t}.{n}", layer[n])
+    for n in ("linear1", "linear2"):
+        _dense(sd, f"{t}.{n}", layer[n])
+
+
+def _standard_predictor(sd, p: Mapping, pre: str = "sem_seg_head.predictor.") -> None:
+    """StandardTransformerDecoder (the inverse of JAX
+    `checkpoint_import.py:convert_standard_predictor`)."""
+    _put(sd, f"{pre}query_embed.weight", p["query_embed"])
+    _norm(sd, f"{pre}transformer.decoder.norm", p["decoder_norm"])
+    _dense(sd, f"{pre}class_embed", p["class_embed"])
+    for i in range(3):
+        _dense(sd, f"{pre}mask_embed.layers.{i}", p["mask_embed"][f"layers_{i}"])
+    if "input_proj" in p:
+        _conv(sd, f"{pre}input_proj", p["input_proj"])
+    i = 0
+    while f"decoder_layer_{i}" in p:
+        layer, t = p[f"decoder_layer_{i}"], f"{pre}transformer.decoder.layers.{i}"
+        for n in ("self_attn", "multihead_attn"):
+            _mha(sd, f"{t}.{n}", layer[n])
+        for n in ("linear1", "linear2"):
+            _dense(sd, f"{t}.{n}", layer[n])
+        for n in ("norm1", "norm2", "norm3"):
+            _norm(sd, f"{t}.{n}", layer[n])
+        i += 1
+    i = 0
+    while f"encoder_layer_{i}" in p:
+        _encoder_layer(sd, f"{pre}transformer.encoder.layers.{i}", p[f"encoder_layer_{i}"])
+        i += 1
+
+
 def _predictor(sd, p: Mapping, pre: str = "sem_seg_head.predictor.") -> None:
     _put(sd, f"{pre}query_feat.weight", p["query_feat"])
     _put(sd, f"{pre}level_embed.weight", p["level_embed"])
@@ -182,8 +235,14 @@ def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Ten
     (_swin if "patch_embed_proj" in backbone else _backbone)(sd, backbone)
     if "sem_seg_head" in params:
         head = params["sem_seg_head"]
-        _pixel_decoder(sd, head["pixel_decoder"])
-        _predictor(sd, head["predictor"])
+        pixel, predictor = head["pixel_decoder"], head["predictor"]
+        (_pixel_decoder if "transformer" in pixel else _fpn_pixel_decoder)(sd, pixel)
+        if "kernel" in predictor:  # a per-pixel baseline head's 1x1 conv
+            _conv(sd, "sem_seg_head.predictor", predictor)
+        elif "query_feat" in predictor:
+            _predictor(sd, predictor)
+        else:
+            _standard_predictor(sd, predictor)
     return sd
 
 

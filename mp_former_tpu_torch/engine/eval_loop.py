@@ -112,7 +112,9 @@ def run_evaluation(cfg, model: torch.nn.Module, dataset_name: str,
     forward per image, on the model's own device, post-processed for every
     task of the evaluators (`EvaluatorSet.tasks`), with the dataset's thing
     classes for the panoptic fusion. `max_images` caps the records, so an
-    unreadable one shrinks the evaluated set, as in the JAX package."""
+    unreadable one shrinks the evaluated set, as in the JAX package. The
+    `Predictor` puts the model in `.eval()` mode (`Trainer.test` restores
+    its own)."""
     from ..data.catalog import DatasetCatalog, MetadataCatalog
     from ..evaluation.build import build_evaluator, is_thing_array
 

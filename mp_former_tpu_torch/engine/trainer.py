@@ -52,7 +52,8 @@ class Trainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda'): torch finds no CUDA device; pass "
                                "device='cpu' to train on the CPU with the kernels' plain versions")
-        self.model = (model if model is not None else build_model(cfg)).to(self.device)
+        # training mode: MODEL.MASK_FORMER.DROPOUT acts (`build_model` returns `.eval()`)
+        self.model = (model if model is not None else build_model(cfg)).to(self.device).train()
         self.criterion = criterion if criterion is not None else build_criterion(cfg)
         self.optimizer, self.scheduler = build_optimizer(cfg, self.model)
         self.clip_gradients = build_gradient_clipper(cfg)
@@ -220,8 +221,8 @@ class Trainer:
         when nothing was evaluated. A dataset without an evaluator in the port
         is logged and skipped. A `VideoMaskFormer` scores each dataset's clips
         whole with `video/eval_loop.py:inference_on_video_dataset` (tube AP
-        under "segm"; `max_images` caps the clips). The model keeps its
-        train/eval mode."""
+        under "segm"; `max_images` caps the clips). The model evaluates in
+        `.eval()` mode and is put back in its own mode afterwards."""
         from ..data.catalog import DatasetCatalog
         from ..data.datasets import builtin  # noqa: F401  (registration)
         from ..models.meta_arch.video_maskformer import VideoMaskFormer
@@ -231,6 +232,7 @@ class Trainer:
         names = self.cfg.DATASETS.TEST
         results = {}
         mode = self.model.training
+        self.model.eval()
         try:
             with torch.no_grad():
                 for name in names:

@@ -6,8 +6,10 @@ Takes what `MaskFormer.__call__` takes: raw pixels (B, H, W, 3) in
 Normalises, runs backbone -> head and returns the prediction dict
 (`pred_logits` (B, Q, K+1), `pred_masks` (B, Q, H/4, W/4), `aux_outputs`).
 With `targets` (training) the decoder also runs MP-Former's mask-piloted (DN)
-queries and the dict carries `dn_out`. The losses are in `models/criterion.py`,
-post-processing in `mp_former_tpu_torch/inference.py`.
+queries and the dict carries `dn_out`. `MODEL.MASK_FORMER.DROPOUT` acts in
+training mode (`.train()`, which `Trainer` sets), drawn from the forward's
+`generator`; `build_model` returns the model in `.eval()`. The losses are in
+`models/criterion.py`, post-processing in `mp_former_tpu_torch/inference.py`.
 
 `TPU.COMPUTE_DTYPE bfloat16` (`compute_dtype`) is the JAX package's
 AMP-equivalent mode: the normalisation stays float32 (JAX `maskformer.py:85-88`),
@@ -44,12 +46,11 @@ class MaskFormer(nn.Module):
     def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
                  pixel_mean: Sequence[float], pixel_std: Sequence[float],
                  size_divisibility: int = 32, scalar: int = 5, noise_scale: float = 0.2,
-                 dropout: float = 0.0, compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.compute_dtype = compute_dtype
         # DN (mask-piloted) training (reference from_config :121-122)
         self.scalar, self.noise_scale = scalar, noise_scale
-        self.dropout = dropout
         self.backbone = backbone
         self.sem_seg_head = sem_seg_head
         self.size_divisibility = size_divisibility
@@ -63,8 +64,7 @@ class MaskFormer(nn.Module):
         head = build_sem_seg_head(cfg, backbone.output_shape())
         return cls(backbone, head, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
                    cfg.MODEL.MASK_FORMER.SIZE_DIVISIBILITY, cfg.MODEL.DN.NUM_DN,
-                   cfg.MODEL.DN.NOISE_SCALE, cfg.MODEL.MASK_FORMER.DROPOUT,
-                   compute_dtype(cfg))
+                   cfg.MODEL.DN.NOISE_SCALE, compute_dtype(cfg))
 
     def normalized(self, images: torch.Tensor) -> torch.Tensor:
         """(..., H, W, 3) raw pixels, H and W multiples of SIZE_DIVISIBILITY ->
@@ -82,18 +82,15 @@ class MaskFormer(nn.Module):
         """images (B, H, W, 3) raw pixels, H and W multiples of 32. `targets`
         switches DN training on; `dn_groups` is (groups, batch_max) from
         `engine/train_step.py:compute_dn_groups` for NUM_DN >= 100 (a bare int
-        is the group count alone); the DN noise comes from `generator`."""
+        is the group count alone); the DN noise and the dropout masks come
+        from `generator`."""
         if images.dim() != 4:
             raise ValueError(f"images must be (B, H, W, 3), got {tuple(images.shape)}")
         x = self.normalized(images)
-        if self.dropout > 0 and targets is not None:
-            raise NotImplementedError(
-                f"MODEL.MASK_FORMER.DROPOUT {self.dropout}: the port carries no dropout (the "
-                "recipes train with 0.0, which only the pixel decoder's encoder would read)")
         with compute_region(x.device.type, self.compute_dtype):
             features = self.backbone(x)
             if targets is None:
-                return self.sem_seg_head(features)
+                return self.sem_seg_head(features, generator=generator)
             groups, batch_max = dn_groups if isinstance(dn_groups, tuple) else (dn_groups, None)
             dn_args = DNArgs(targets=targets, scalar=self.scalar, noise_scale=self.noise_scale,
                              groups=groups, batch_max=batch_max)

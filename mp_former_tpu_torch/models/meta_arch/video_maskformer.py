@@ -34,15 +34,13 @@ class VideoMaskFormer(MaskFormer):
 
     def forward(self, images: torch.Tensor, targets=None, dn_groups=None,
                 generator: Optional[torch.Generator] = None) -> Dict:
-        """images (B, T, H, W, 3) raw pixels. `targets` (`VideoTargets`),
-        `dn_groups` and `generator` are accepted for the training step and
-        ignored, as the JAX model ignores `dn_groups`."""
+        """images (B, T, H, W, 3) raw pixels. `targets` (`VideoTargets`) and
+        `dn_groups` are accepted for the training step and ignored, as the
+        JAX model ignores `dn_groups`; `generator` feeds the pixel decoder's
+        dropout in training mode."""
         if images.dim() != 5:
             raise ValueError(f"clips must be (B, T, H, W, 3), got {tuple(images.shape)}")
-        if self.dropout > 0 and targets is not None:
-            raise NotImplementedError(
-                f"MODEL.MASK_FORMER.DROPOUT {self.dropout}: the port carries no dropout (the "
-                "video recipes train with 0.0)")
         x = self.normalized(images)
         with compute_region(x.device.type, self.compute_dtype):
-            return self.sem_seg_head(self.backbone(x), num_frames=images.shape[1])
+            return self.sem_seg_head(self.backbone(x), generator=generator,
+                                     num_frames=images.shape[1])

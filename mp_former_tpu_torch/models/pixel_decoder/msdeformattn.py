@@ -10,6 +10,10 @@ choose the deformable sampling engine (`ops/ms_deform_attn.py:MSDeformAttn`).
 `TPU.REMAT_ENCODER` / `TPU.REMAT_POLICY` recompute the encoder layers in the
 backward (`MSDeformAttnTransformerEncoderOnly`). Only the unrolled encoder is
 ported: `TPU.SCAN_ENCODER` and `TPU.SHARD_TOKENS` are TPU devices.
+`MODEL.MASK_FORMER.DROPOUT` is the encoder layers' dropout in training mode
+(JAX `msdeformattn.py:48-61`: after the deformable attention, after the FFN's
+ReLU and after its output), drawn from the generator `forward_features`
+takes.
 
 In a bfloat16 compute region (`TPU.COMPUTE_DTYPE bfloat16`) the module follows
 its reference, the JAX package (`msdeformattn.py:285-332`), and departs on
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +38,7 @@ from torch.utils import checkpoint as ckpt
 
 from ...ops.ms_deform_attn import MSDeformAttn
 from ...utils import float32_region, region_dtype
-from ...utils.layers import Conv2d, LayerNorm, c2_xavier_fill
+from ...utils.layers import Conv2d, LayerNorm, apply_keep, c2_xavier_fill, keep_masks
 from ...utils.registry import PIXEL_DECODER_REGISTRY
 from ...utils.shape_spec import ShapeSpec
 from ..transformer_decoder.position_encoding import position_embedding_sine
@@ -54,12 +58,13 @@ def _reference_points(spatial_shapes: Sequence[Tuple[int, int]],
 
 
 class MSDeformAttnTransformerEncoderLayer(nn.Module):
-    """Post-norm deformable self-attention + FFN (dropout is 0 at eval)."""
+    """Post-norm deformable self-attention + FFN, with dropout in training."""
 
     def __init__(self, d_model: int = 256, d_ffn: int = 1024, n_levels: int = 3,
                  n_heads: int = 8, n_points: int = 4, sampling_engine: str = "packed2x2",
-                 pallas_weighting: bool = False):
+                 pallas_weighting: bool = False, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                       sampling_engine, pallas_weighting)
         self.norm1 = LayerNorm(d_model)
@@ -67,9 +72,24 @@ class MSDeformAttnTransformerEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm2 = LayerNorm(d_model)
 
-    def forward(self, src, pos, reference_points, spatial_shapes):
-        src = self.norm1(src + self.self_attn(src + pos, reference_points, src, spatial_shapes))
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+    def keep_masks(self, src: torch.Tensor, generator) -> Optional[Tuple[torch.Tensor, ...]]:
+        """The layer's three dropout masks for an input like `src` (B, S, C),
+        in the JAX layer's order (attention output, ReLU, FFN output), or
+        None in eval mode or without dropout."""
+        if not (self.training and self.dropout > 0):
+            return None
+        b, n, c = src.shape
+        return keep_masks([(b, n, c), (b, n, self.linear1.out_features), (b, n, c)],
+                          self.dropout, generator, src.device)
+
+    def forward(self, src, pos, reference_points, spatial_shapes, keeps=None):
+        """`keeps`: the layer's `keep_masks`, or None for no dropout."""
+        k_attn, k_relu, k_out = keeps if keeps is not None else (None, None, None)
+        p = self.dropout
+        attn = self.self_attn(src + pos, reference_points, src, spatial_shapes)
+        src = self.norm1(src + apply_keep(attn, k_attn, p))
+        h = apply_keep(F.relu(self.linear1(src)), k_relu, p)
+        return self.norm2(src + apply_keep(self.linear2(h), k_out, p))
 
 
 class MSDeformAttnTransformerEncoder(nn.Module):
@@ -94,18 +114,21 @@ class MSDeformAttnTransformerEncoderOnly(nn.Module):
     `remat` (TPU.REMAT_ENCODER, the JAX package's `msdeformattn.py:197-205`)
     recomputes each encoder layer in the backward instead of keeping its
     activations (`torch.utils.checkpoint`, non-reentrant), wherever autograd
-    records (`torch.is_grad_enabled()`; the model stays in `.eval()` while it
-    trains). `remat_policy` (TPU.REMAT_POLICY): "dots" keeps the outputs of
+    records (`torch.is_grad_enabled()`, whatever the module's train/eval
+    mode). `remat_policy` (TPU.REMAT_POLICY): "dots" keeps the outputs of
     matrix products and recomputes the rest (selective checkpointing, the
     JAX package's `dots_saveable`); any other value recomputes everything.
-    Autocast's state is replayed in the recompute; the layers draw nothing at
-    random, so the RNG state is not kept."""
+    Autocast's state is replayed in the recompute. `torch.utils.checkpoint`
+    would restore the global RNG but not the explicit generator the dropout
+    draws from, so each layer's dropout masks are drawn before its
+    recomputed region and handed in: the recompute drops what the forward
+    dropped, as flax's remat replays its dropout keys."""
 
     def __init__(self, d_model: int = 256, nhead: int = 8, num_encoder_layers: int = 6,
                  dim_feedforward: int = 1024, num_feature_levels: int = 3,
                  enc_n_points: int = 4, sampling_engine: str = "packed2x2",
                  pallas_weighting: bool = False, remat: bool = False,
-                 remat_policy: str = "full"):
+                 remat_policy: str = "full", dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.remat = remat
@@ -113,7 +136,7 @@ class MSDeformAttnTransformerEncoderOnly(nn.Module):
         self.encoder = MSDeformAttnTransformerEncoder([
             MSDeformAttnTransformerEncoderLayer(d_model, dim_feedforward, num_feature_levels,
                                                 nhead, enc_n_points, sampling_engine,
-                                                pallas_weighting)
+                                                pallas_weighting, dropout)
             for _ in range(num_encoder_layers)])
         self.level_embed = nn.Parameter(torch.empty(num_feature_levels, d_model))
         # reference _reset_parameters: xavier on every matrix, then the
@@ -126,9 +149,10 @@ class MSDeformAttnTransformerEncoderOnly(nn.Module):
                 m._reset_parameters()
         nn.init.normal_(self.level_embed)
 
-    def forward(self, srcs: List[torch.Tensor], pos_embeds: List[torch.Tensor]):
+    def forward(self, srcs: List[torch.Tensor], pos_embeds: List[torch.Tensor],
+                generator: Optional[torch.Generator] = None):
         """srcs, pos_embeds: per-level (B, C, H, W). Returns (memory (B, S, C),
-        spatial_shapes)."""
+        spatial_shapes). `generator` feeds the dropout in training mode."""
         spatial_shapes = [tuple(s.shape[-2:]) for s in srcs]
         src_flat = torch.cat([s.flatten(2).transpose(1, 2) for s in srcs], 1)
         pos_flat = torch.cat([p.flatten(2).transpose(1, 2) + self.level_embed[i][None, None]
@@ -137,12 +161,13 @@ class MSDeformAttnTransformerEncoderOnly(nn.Module):
         ref = ref.expand(src_flat.shape[0], -1, -1, -1)
         out = src_flat
         for layer in self.encoder.layers:
+            keeps = layer.keep_masks(out, generator)
             if self.remat and torch.is_grad_enabled():
-                out = ckpt.checkpoint(layer, out, pos_flat, ref, spatial_shapes,
+                out = ckpt.checkpoint(layer, out, pos_flat, ref, spatial_shapes, keeps,
                                       use_reentrant=False, preserve_rng_state=False,
                                       **self._remat_context())
             else:
-                out = layer(out, pos_flat, ref, spatial_shapes)
+                out = layer(out, pos_flat, ref, spatial_shapes, keeps)
         return out, spatial_shapes
 
     def _remat_context(self) -> dict:
@@ -166,7 +191,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
                  transformer_in_features: Sequence[str] = ("res3", "res4", "res5"),
                  common_stride: int = 4, maskformer_num_feature_levels: int = 3,
                  sampling_engine: str = "packed2x2", pallas_weighting: bool = False,
-                 remat: bool = False, remat_policy: str = "full"):
+                 remat: bool = False, remat_policy: str = "full", transformer_dropout: float = 0.0):
         super().__init__()
         self.conv_dim = conv_dim
         self.in_features = sorted(input_shape, key=lambda k: input_shape[k].stride)
@@ -185,7 +210,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
             dim_feedforward=transformer_dim_feedforward,
             num_feature_levels=len(self.transformer_in_features),
             sampling_engine=sampling_engine, pallas_weighting=pallas_weighting,
-            remat=remat, remat_policy=remat_policy)
+            remat=remat, remat_policy=remat_policy, dropout=transformer_dropout)
         self.mask_features = Conv2d(conv_dim, mask_dim, kernel_size=1)
         c2_xavier_fill(self.mask_features)
         self.maskformer_num_feature_levels = maskformer_num_feature_levels
@@ -223,9 +248,11 @@ class MSDeformAttnPixelDecoder(nn.Module):
             pallas_weighting=cfg.TPU.PALLAS_TAP_WEIGHTING,
             remat=cfg.TPU.REMAT_ENCODER,
             remat_policy=cfg.TPU.REMAT_POLICY,
+            transformer_dropout=cfg.MODEL.MASK_FORMER.DROPOUT,
         )
 
-    def forward_features(self, features: Dict[str, torch.Tensor]):
+    def forward_features(self, features: Dict[str, torch.Tensor],
+                         generator: Optional[torch.Generator] = None):
         device_type = next(iter(features.values())).device.type
         dtype = region_dtype(device_type)
         srcs, pos = [], []
@@ -236,7 +263,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
             h, w = x.shape[-2:]
             pe = position_embedding_sine(h, w, self.conv_dim // 2, device=x.device, dtype=dtype)
             pos.append(pe.permute(2, 0, 1)[None].expand(x.shape[0], -1, -1, -1))
-        memory, spatial_shapes = self.transformer(srcs, pos)
+        memory, spatial_shapes = self.transformer(srcs, pos, generator)
         out, start = [], 0
         B = memory.shape[0]
         for h, w in spatial_shapes:

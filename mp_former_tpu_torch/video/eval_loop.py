@@ -78,7 +78,9 @@ def inference_on_video_dataset(cfg, model: torch.nn.Module, records: List[dict],
     """Tube AP over YTVIS-style records, each clip whole in one forward on
     the model's device (reference video_maskformer_model.py:255-287).
     `max_videos` caps the records, so an unreadable one shrinks the evaluated
-    set, as in the JAX package; `max_frames` cuts long clips (None: no cut)."""
+    set, as in the JAX package; `max_frames` cuts long clips (None: no cut).
+    The model is put in `.eval()` mode (`Trainer.test` restores its own)."""
+    model.eval()
     evaluator = YTVISEvaluator(records)
     num_classes = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
     device = next(model.parameters()).device

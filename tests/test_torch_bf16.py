@@ -131,7 +131,8 @@ def test_boundary_types_match_jax(released):
     model.backbone.register_forward_hook(lambda m, i, o: seen.update(backbone=o))
     decoder = model.sem_seg_head.pixel_decoder
     forward_features = decoder.forward_features
-    decoder.forward_features = lambda f: seen.setdefault("pixel_decoder", forward_features(f))
+    decoder.forward_features = lambda f, *rest: seen.setdefault("pixel_decoder",
+                                                               forward_features(f, *rest))
     with torch.no_grad():
         out = model(torch.from_numpy(released["img"]))
 

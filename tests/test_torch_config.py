@@ -53,7 +53,7 @@ def test_slice_config_and_overrides():
 
 @pytest.mark.parametrize("key,value,match", [
     ("TPU.SAMPLING_ENGINE", "headshare", None),  # ported: the model builds
-    ("MODEL.MASK_FORMER.PRE_NORM", "True", "post-norm only"),
+    ("MODEL.MASK_FORMER.PRE_NORM", "True", None),  # ported: pre-norm layers (A18)
 ])
 def test_unported_settings_raise(key, value, match):
     from mp_former_tpu_torch.models import build_model
@@ -65,6 +65,10 @@ def test_unported_settings_raise(key, value, match):
     cfg.merge_from_list([key, value])
     if match is None:
         model = build_model(cfg)
+        if key == "MODEL.MASK_FORMER.PRE_NORM":
+            layers = model.sem_seg_head.predictor.transformer_ffn_layers
+            assert all(layer.normalize_before for layer in layers)
+            return
         offsets = model.state_dict()[
             "sem_seg_head.pixel_decoder.transformer.encoder.layers.0.self_attn.sampling_offsets.weight"]
         assert offsets.shape == (3 * 4 * 2, 256)  # one location set for all heads

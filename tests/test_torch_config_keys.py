@@ -23,8 +23,6 @@ GET = re.compile(r"\bcfg\.(" + PATH + r")\.get\(\s*[\"']([A-Z][A-Z0-9_]*)[\"']")
 GETATTR = re.compile(r"getattr\(\s*cfg\.(" + PATH + r")\s*,\s*[\"']([A-Z][A-Z0-9_]*)[\"']")
 
 SET_ASIDE = {
-    # A18: StandardTransformerDecoder's encoder, the DN_RATIO modes
-    "A18": {"MODEL.MASK_FORMER.ENC_LAYERS", "MODEL.MASK_FORMER.DN_RATIO"},
     "A19 test-time augmentation": {"TEST.AUG.FLIP", "TEST.AUG.MAX_SIZE", "TEST.AUG.MIN_SIZES"},
     # A21 distributed: the device mesh and token sharding
     "A21": {"TPU.MESH_AXES", "TPU.MESH_SHAPE", "TPU.SHARD_TOKENS"},
@@ -61,7 +59,7 @@ def test_every_key_the_jax_package_reads_is_read_or_set_aside():
     assert "TPU.PROFILE_DIR" in _reads("mp_former_tpu_torch")
 
 
-def test_video_training_raises_and_names_its_item(tmp_path, monkeypatch):
+def test_video_training_builds_trainer_with_clip_loader(tmp_path, monkeypatch):
     """The port's video entry point without --eval-only trains: it builds the
     Trainer with the video model, the tube criterion and a loader of clips
     through the clip mapper, which reads the frame sampling keys."""

@@ -212,14 +212,21 @@ def test_dn_self_attention_mask_matches_jax():
 
 
 def test_other_dn_modes_and_dropout_raise_by_name(base):
+    """Every DN mode of the JAX decoder and DROPOUT > 0 train now (their
+    parity is in tests/test_torch_dn_modes.py and
+    tests/test_torch_decoder_variants.py); a DN_MODE that the JAX decoder
+    does not know raises by name when the decoder is built."""
     params, img = base
-    _, tmodel = models_for(params, ["MODEL.MASK_FORMER.DN_MODE", "shift"])
+    with pytest.raises(ValueError, match="'shifted'"):
+        models_for(params, ["MODEL.MASK_FORMER.DN_MODE", "shifted"])
+    _, tmodel = models_for(params, ["MODEL.MASK_FORMER.DN_MODE", "shift",
+                                    "MODEL.MASK_FORMER.DROPOUT", "0.1"])
     _, tt = make_targets(b=1, counts=(2,))
-    with pytest.raises(NotImplementedError, match="'shift'"):
-        tmodel(torch.from_numpy(img), tt)
-    tmodel.dropout = 0.1
-    with pytest.raises(NotImplementedError, match="DROPOUT 0.1"):
-        tmodel(torch.from_numpy(img), tt)
-    # inference is untouched by either
     with torch.no_grad():
-        assert "dn_out" not in tmodel(torch.from_numpy(img))
+        eval_out = tmodel(torch.from_numpy(img))
+        assert "dn_out" not in eval_out
+        out = tmodel.train()(torch.from_numpy(img), tt, generator=torch.Generator().manual_seed(0))
+        assert out["dn_out"]["dn_args"]["pad_size"] == 5 * 6  # NUM_DN 5 x 6 slots
+        # dropout acts in training mode only: inference is untouched by it
+        again = tmodel.eval()(torch.from_numpy(img))
+    torch.testing.assert_close(again["pred_logits"], eval_out["pred_logits"], rtol=0, atol=0)

@@ -1443,3 +1443,71 @@ def test_masked_attention_backward_gives_a_row_that_sees_one_key_nothing(cuda, d
     if dtype == torch.float32:
         for name, x, w in zip("qkv", got, want):
             assert _rel(x, w) <= 1e-4, name
+
+
+def _dn_mode_mask(kind, B, H, Q, S, dn, g, device):
+    """The attention masks of MP-Former's DN modes at a 64-wide level (S =
+    64 * rows): the learnable queries' rows shared by the heads, 70% blocked;
+    the first `dn` rows (the DN block) as a mode makes them. `per_head_dn`:
+    point noise per head (HEAD_DN in `points` / `mask`), (B, H, Q, S);
+    `patch`: each DN row open only inside a small rectangle (v8 on an empty
+    ground truth), (B, Q, S); `points_MAE`: each DN row with one open key (a
+    mask that noise blocked but for one pixel), and one row blocked
+    everywhere, (B, Q, S)."""
+    w = 64
+    h = S // w
+    shared = torch.rand((B, Q, S), generator=g, device=device) < 0.7
+    if kind == "per_head_dn":
+        mask = shared[:, None].expand(B, H, Q, S).clone()
+        mask[:, :, :dn] = torch.rand((B, H, dn, S), generator=g, device=device) < 0.9
+        return mask
+    mask = shared
+    if kind == "patch":
+        rr = torch.arange(h, device=device)[:, None]
+        cc = torch.arange(w, device=device)[None]
+        y0 = torch.randint(0, h - 4, (B, dn, 1, 1), generator=g, device=device)
+        x0 = torch.randint(0, w - 6, (B, dn, 1, 1), generator=g, device=device)
+        ph = torch.randint(1, 4, (B, dn, 1, 1), generator=g, device=device)
+        pw = torch.randint(1, 6, (B, dn, 1, 1), generator=g, device=device)
+        rect = (rr >= y0) & (rr < y0 + ph) & (cc >= x0) & (cc < x0 + pw)
+        mask[:, :dn] = ~rect.view(B, dn, S)
+    else:  # points_MAE
+        mask[:, :dn] = True
+        key = torch.randint(0, S, (B, dn), generator=g, device=device)
+        mask[:, :dn].scatter_(2, key[..., None], False)
+        mask[:, dn - 1] = True
+    return mask
+
+
+@pytest.mark.parametrize("dtype,fwd_tol,bwd_tol", [(torch.float32, 1e-4, 1e-4),
+                                                   (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("kind,S", [("per_head_dn", 1024), ("patch", 4096), ("points_MAE", 4096)])
+def test_masked_attention_kernels_on_dn_mode_masks(cuda, dtype, fwd_tol, bwd_tol, kind, S):
+    """K3 and its backward on the masks the DN modes hand them at phase
+    train's batch: 200 queries (a 100-row DN block before the 100 learnable
+    queries), per-head DN rows, rows open only inside a small rectangle, rows
+    with one open key (dS 0 there, fault C10), a row blocked everywhere;
+    strided head views; against the plain versions."""
+    B, H, Q, dn = 2, 8, 200, 100
+    q, k, v = _head_views(cuda, B, H, Q, S, dtype, seed=S + len(kind))
+    g = torch.Generator(device=cuda).manual_seed(S + 3 * len(kind))
+    grad_out = torch.randn((B, Q, H, 32), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    mask = _dn_mode_mask(kind, B, H, Q, S, dn, g, cuda)
+    open_keys = (~mask[..., :dn, :]).sum(-1)
+    if kind == "points_MAE":
+        assert (open_keys[..., :dn - 1] == 1).all() and (open_keys[..., dn - 1] == 0).all()
+    elif kind == "patch":
+        assert 1 <= open_keys.min().item() and open_keys.max().item() <= 15
+    want = mac.masked_attention_plain(q.float(), k.float(), v.float(), mask)
+    got = mac.masked_attention(q, k, v, mask)
+    assert got.dtype == dtype and (got.float() - want).abs().max().item() <= fwd_tol
+    _, stats, out32 = mac.masked_attn_fwd(q, k, v, mask, with_stats=True)
+    want = mac.masked_attention_backward_plain(grad_out.float(), q.float(), k.float(), v.float(),
+                                               mask)
+    got = mac.masked_attn_bwd(grad_out, q, k, v, mask, out32, stats)
+    for name, x, w in zip("qkv", got, want):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert _rel(x, w) <= bwd_tol, name
+    if kind == "points_MAE":
+        # a row that sees one key gives nothing to q, and a row blocked everywhere neither
+        assert got[0][:, :, :dn].abs().max().item() == 0

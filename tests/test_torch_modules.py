@@ -140,25 +140,26 @@ def test_decoder_eval_path_matches_jax():
 
 
 def test_decoder_refuses_dn_training():
-    """DN training is ported for `DN_MODE points` only: any other mode is
-    refused by name, and `points` runs."""
+    """DN training takes every mode of the JAX decoder (their parity:
+    tests/test_torch_dn_modes.py) and refuses, by name, a mode the JAX
+    decoder does not know, when the decoder is built."""
     from mp_former_tpu_torch.structures import DNArgs, Targets
 
     targets = Targets(torch.tensor([[1, 0]]), torch.ones(1, 2, 16, 16, dtype=torch.bool),
                       torch.rand(1, 2, 4), torch.tensor([[True, False]]))
     dn_args = DNArgs(targets, scalar=2, noise_scale=0.0)
     feats, mask_features = [torch.zeros(1, 8, 2, 2)] * 3, torch.zeros(1, 8, 4, 4)
-    for mode in ("base", "shift", "points_MAE"):
+    with pytest.raises(ValueError, match="'points_mae'"):
+        MultiScaleMaskedTransformerDecoderMaskDN(8, num_classes=3, hidden_dim=8, num_queries=2,
+                                                 nheads=2, dec_layers=1, mask_dim=8,
+                                                 dn_mode="points_mae")
+    for mode in ("points", "base", "shift", "points_MAE"):
         dec = MultiScaleMaskedTransformerDecoderMaskDN(8, num_classes=3, hidden_dim=8,
                                                        num_queries=2, nheads=2, dec_layers=1,
                                                        mask_dim=8, dn_mode=mode)
-        with pytest.raises(NotImplementedError, match=repr(mode)):
-            dec(feats, mask_features, dn_args=dn_args)
-    dec = MultiScaleMaskedTransformerDecoderMaskDN(8, num_classes=3, hidden_dim=8, num_queries=2,
-                                                   nheads=2, dec_layers=1, mask_dim=8)
-    out = dec(feats, mask_features, dn_args=dn_args)
-    assert out["dn_out"]["pred_logits"].shape == (1, 4, 4)
-    assert out["pred_logits"].shape == (1, 2, 4)
+        out = dec(feats, mask_features, dn_args=dn_args)
+        assert out["dn_out"]["pred_logits"].shape == (1, 4, 4), mode
+        assert out["pred_logits"].shape == (1, 2, 4), mode
 
 
 @pytest.mark.parametrize("h,w", [(13, 21), (25, 34)])

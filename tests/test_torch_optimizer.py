@@ -291,3 +291,45 @@ def test_video_group_membership_matches_jax():
                            pytest.approx(want_mult[n].flatten()[0].item())), n
     assert seen["sem_seg_head.predictor.query_embed.weight"][0] == 0.02
     assert seen["sem_seg_head.predictor.query_feat.weight"][0] == 0.02
+
+
+def test_maskformer1_group_membership_matches_jax():
+    """MaskFormer-v1's modules (TransformerEncoderPixelDecoder, the
+    StandardTransformerDecoder with its own encoder): weight decay and LR
+    multiplier of every parameter against the JAX package's rules.
+    `query_embed`, the decoder's table, decays as an embedding in both
+    (ROADMAP's `_EMBED_TOKENS` trap). One difference is kept: the JAX rule
+    finds norms by path token (`_gn`, `norm`, ...) and misses the FPN's
+    GroupNorms, whose token is `gn`; the port, as the reference, gives every
+    norm module WEIGHT_DECAY_NORM."""
+    from test_torch_maskformer1 import ADE, V1, VARIANTS
+
+    jcfg, _, params, tcfg, tmodel, _ = _build_pair(
+        V1 + VARIANTS["transformer_encoder"] + SOLVER + ["MODEL.BACKBONE.FREEZE_AT", "0"],
+        IMG, ADE)
+    s = jcfg.SOLVER
+
+    def per_leaf(fn):
+        return state_dict_from_jax_params(jax.tree_util.tree_map_with_path(
+            lambda path, a: np.full(np.shape(a), fn(path), np.float32), params))
+
+    want_wd = per_leaf(lambda path: s.WEIGHT_DECAY_NORM if jopt.is_norm_param(path) else
+                       s.WEIGHT_DECAY_EMBED if jopt.is_embed_param(path) else s.WEIGHT_DECAY)
+    want_mult = per_leaf(lambda path: s.BACKBONE_MULTIPLIER if jopt.is_backbone_param(path)
+                         else 1.0)
+    seen = {n: (g["weight_decay"], g["lr"]) for g in topt.param_groups(tcfg, tmodel)
+            for n in g["names"]}
+    assert seen.keys() == {n for n, _ in tmodel.named_parameters()}
+    fpn_gn = set()
+    for n in seen:
+        want = (want_wd[n].flatten()[0].item(), want_mult[n].flatten()[0].item())
+        if seen[n] != (pytest.approx(want[0]), pytest.approx(want[1])):
+            fpn_gn.add(n)
+            assert seen[n] == (s.WEIGHT_DECAY_NORM, 1.0) and want == (pytest.approx(s.WEIGHT_DECAY), 1.0), n
+    assert fpn_gn == {f"sem_seg_head.pixel_decoder.{m}_{k}.norm.{w}" for m, ks in
+                      (("adapter", (1, 2, 3)), ("layer", (1, 2, 3, 4))) for k in ks
+                      for w in ("weight", "bias")}
+    assert seen["sem_seg_head.predictor.query_embed.weight"][0] == 0.02
+    assert seen["sem_seg_head.predictor.transformer.decoder.norm.weight"][0] == 0.01
+    assert seen["sem_seg_head.predictor.transformer.encoder.layers.0.norm1.weight"][0] == 0.01
+    assert seen["sem_seg_head.pixel_decoder.transformer.encoder.layers.1.linear1.weight"][0] == 0.05
