@@ -287,7 +287,21 @@ result line):
     per-pixel baseline head runs one forward; `train_maskformer1`: the first
     configuration through `train_net.main` at the recipe's batch (16 crops of
     512x512) from phase 21's data as phase 23, then `--eval-only --resume`:
-    finite mIoU.
+    finite mIoU;
+31. A16c, A19 and A22, after `train_video`, forward only: `eval_lvis` (8
+    synthetic LVIS v1 images of 512x512 from `tools/make_synthetic_lvis_torch.py`,
+    their ground truth joined by the plain ops' best detection of each of an
+    image's first 3 classes, not exhaustively annotated (`write_lvis_oracle`),
+    through `run_evaluation` with the released instance recipe at 1203 classes
+    and 300 detections an image: K1 6 and K3 9 launches an image; AP above 0,
+    and AP, APr, APc and APf through the kernels against the plain ops given
+    the kernel path's decisions), `tta_semantic` (`SemanticSegmentorWithTTA` with the
+    ADE20K R50 semantic recipe's TEST.AUG, 12 passes on a 512x683 image: K1 72
+    and K3 108 launches; the averaged probabilities against the plain ops)
+    and `demo` (`demo.demo` on two `.npy` images and `predict.main` on one with
+    the COCO panoptic recipe, `demo_video.demo` on an 8-frame 720x1280 clip
+    with the R50 YouTube-VIS 2019 recipe: K1 6 and K3 9 a forward, their PNGs
+    written; `forward_raw` against the plain ops).
 
 Every training phase recomputes the pixel decoder's encoder layers in the
 backward, as the recipes' `TPU.REMAT_ENCODER` default says: K1 (or K2) runs
@@ -378,7 +392,13 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 
 
+_STARTED = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
+    """One line of a phase's fields, ending with the script's seconds so far
+    (`at_s`), which split its 1200 s budget between the phases."""
+    fields["at_s"] = f"{time.perf_counter() - _STARTED:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -869,20 +889,12 @@ def load_cfg(config: str, overrides, released_decoder: bool = True):
     """The recipe `config` with `overrides`; `released_decoder`: with the DN
     decoder, as eval.sh runs the released recipe (the ADE20K, Cityscapes
     and Mapillary Vistas recipes run their own, the vanilla one)."""
-    from mp_former_tpu_torch.config import (add_deeplab_config, add_maskformer2_config,
-                                            add_maskformer2_video_config, get_cfg)
+    from mp_former_tpu_torch.config import build_cfg
 
-    cfg = get_cfg()
-    add_deeplab_config(cfg)
-    add_maskformer2_config(cfg)
-    add_maskformer2_video_config(cfg)  # the video recipes' keys; the others leave them be
-    cfg.merge_from_file(os.path.join(REPO, config))
-    if released_decoder:
-        cfg.merge_from_list(["MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME",
-                             "MultiScaleMaskedTransformerDecoderMaskDN"])
-    cfg.merge_from_list(list(overrides))
-    cfg.freeze()
-    return cfg
+    decoder = (["MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME",
+                "MultiScaleMaskedTransformerDecoderMaskDN"] if released_decoder else [])
+    # with the video recipes' keys; the others leave them be
+    return build_cfg(os.path.join(REPO, config), decoder + list(overrides), video=True)
 
 
 def slice_cfg():
@@ -2950,8 +2962,8 @@ def phase_train_net(torch, card: str, accum: int, config: str = CONFIG, phase: s
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step = trainer.iteration
-        if step == steps - 1:  # the last step, profiled
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if step == steps - 1:  # the last step, profiled (the device only, as `busy_ms`)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 out = run_step(trainer, batch)
                 torch.cuda.synchronize()
             events = prof.key_averages()
@@ -4269,6 +4281,370 @@ def phase_slice_maskformer1(torch, card: str) -> dict:
     return out
 
 
+# A16c, A19, A22: LVIS evaluation, semantic test-time augmentation and the
+# demo, video-demo and predict entry points, forward only through K1 and K3
+LVIS_IMAGES, LVIS_SIZE, LVIS_CATEGORIES = 8, 512, 1203
+LVIS_OVERRIDES = ["MODEL.SEM_SEG_HEAD.NUM_CLASSES", str(LVIS_CATEGORIES),
+                  "TEST.DETECTIONS_PER_IMAGE", "300", "DATASETS.TEST", "('lvis_v1_val',)"]
+LVIS_AP_TOL = 0.01
+TTA_IMAGE = (512, 683)  # an ADE20K image's size, as phase write_segm writes them
+DEMO_ROOT = os.path.join(REPO, "output", "chip_smoke_demo")
+DEMO_IMAGES = ((480, 640), (640, 480))
+DEMO_CLIP = (8, 720, 1280)
+
+
+def paired_plain(torch, model):
+    """Context managers (kernel run, plain run): the second replays the
+    first's attention and ReLU decisions through the plain ops
+    (`PairedAttention`, `PairedRelu`); `check(phase)` then requires every
+    decision taken otherwise to sit within its margin of 0."""
+    attn, relu = PairedAttention(model), PairedRelu()
+
+    @contextlib.contextmanager
+    def kernel_run():
+        with attn.recording(), relu.recording():
+            yield
+
+    @contextlib.contextmanager
+    def plain_run():
+        with plain_ops(), attn.replaying(), relu.replaying():
+            yield
+
+    def check(phase: str) -> dict:
+        out = {"attention_flips": attn.flips, "attention_margin": attn.margin,
+               "relu_flips": relu.flips, "relu_margin": relu.margin}
+        log(phase, decisions_taken_otherwise={k: (f"{v:.3e}" if isinstance(v, float) else v)
+                                              for k, v in out.items()},
+            margins=(ATTN_FLIP_MARGIN, RELU_FLIP_MARGIN))
+        if attn.margin > ATTN_FLIP_MARGIN or relu.margin > RELU_FLIP_MARGIN:
+            raise AssertionError(f"{phase}: a decision differs away from 0: {out}")
+        if attn.kept or relu.kept:
+            raise AssertionError(f"{phase}: the plain run took fewer decisions than the kernel run")
+        return out
+
+    return kernel_run, plain_run, check
+
+
+LVIS_ORACLE_CLASSES = 3
+
+
+def row_run_polygons(mask) -> list:
+    """(H, W) bool -> COCO polygons, one rectangle a run of pixels in a row:
+    the rasteriser (pycocotools' rule) fills [x0, x1) x [y, y + 1) of each,
+    so their union gives back the mask but for a few pixels of the narrowest
+    runs."""
+    polygons = []
+    for y, row in enumerate(mask):
+        edges = np.diff(np.concatenate([[0], row.astype(np.int8), [0]]))
+        for x0, x1 in zip(np.nonzero(edges == 1)[0], np.nonzero(edges == -1)[0]):
+            polygons.append([float(x0), float(y), float(x1), float(y), float(x1), float(y + 1),
+                             float(x0), float(y + 1)])
+    return polygons
+
+
+def write_lvis_oracle(torch, cfg, model, records, json_file: str) -> tuple:
+    """Ground truth the seeded model scores on: for each of the first
+    LVIS_ORACLE_CLASSES classes among an image's detections through the plain
+    ops (masks of at least 64 pixels), the best detection of that class,
+    added to the LVIS json beside the shapes' polygons as its mask's row runs
+    (`row_run_polygons`). Its category joins the image's positive set, leaves
+    its negative set and is marked not exhaustively annotated: at random
+    weights the queries' masks are nearly one map and the classes nearly one
+    ranking, so the class's other detections cover the same pixels, and
+    LVIS ignores them rather than count them false. Returns the count added
+    and the least IoU of a written polygon set, rasterised back, with its
+    mask."""
+    from mp_former_tpu_torch.engine.eval_loop import read_image
+    from mp_former_tpu_torch.engine.predictor import Predictor
+    from mp_former_tpu_torch.native import polygons_to_mask
+
+    predictor = Predictor(cfg, model=model, device="cuda")
+    with open(json_file) as f:
+        data = json.load(f)
+    images = {img["id"]: img for img in data["images"]}
+    aid = max(a["id"] for a in data["annotations"]) + 1
+    added, ious = 0, []
+    for rec in records:
+        with plain_ops():
+            inst = predictor(read_image(rec), (rec["height"], rec["width"]),
+                             tasks=["instance"])["instances"]
+        img = images[rec["image_id"]]
+        taken = set()
+        for j in np.argsort(-inst["scores"]):
+            m, cat = inst["masks"][j], int(inst["classes"][j]) + 1  # contiguous id -> LVIS id
+            if cat in taken or m.sum() < 64:
+                continue
+            if len(taken) == LVIS_ORACLE_CLASSES:
+                break
+            taken.add(cat)
+            ys, xs = np.nonzero(m)
+            polygons = row_run_polygons(m)
+            back = polygons_to_mask(polygons, *m.shape)
+            ious.append(float((back & m).sum() / (back | m).sum()))
+            data["annotations"].append({
+                "id": aid, "image_id": rec["image_id"], "category_id": cat,
+                "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min() + 1),
+                         float(ys.max() - ys.min() + 1)],
+                "area": float(m.sum()), "segmentation": polygons})
+            img["neg_category_ids"] = [c for c in img["neg_category_ids"] if c != cat]
+            if cat not in img["not_exhaustive_category_ids"]:
+                img["not_exhaustive_category_ids"].append(cat)
+            aid += 1
+            added += 1
+    with open(json_file, "w") as f:
+        json.dump(data, f)
+    return added, min(ious, default=0.0)
+
+
+def phase_eval_lvis(torch, card: str) -> dict:
+    """A16c: LVIS v1 scored through the port. `tools/make_synthetic_lvis_torch.py`
+    writes LVIS_IMAGES images of LVIS_SIZE^2 (the COCO tool's shapes and exact
+    polygons; 1203 categories, r / c / f each with ground truth, negative and
+    not-exhaustive sets) where the builtin `lvis_v1_val` reads them, and
+    `write_lvis_oracle` adds ground truth the seeded model can score on; the
+    released instance recipe at full width with 1203 classes and 300
+    detections an image (seeded weights) runs `run_evaluation` through the
+    kernels, counted (K1 6 and K3 9 an image): AP above 0; then the same
+    images through the plain ops given the kernel path's decisions into a
+    second LVIS evaluator: AP, APr, APc and APf within LVIS_AP_TOL, the sorted
+    scores within 1e-3 of the image's largest score, and the masks of the
+    detections that keep their rank, class and score (within 1e-4 of the
+    largest) a pooled IoU of at least 0.99."""
+    from mp_former_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
+    from mp_former_tpu_torch.data.datasets.register_all import register_all
+    from mp_former_tpu_torch.engine.eval_loop import read_image, run_evaluation
+    from mp_former_tpu_torch.engine.predictor import Predictor
+    from mp_former_tpu_torch.evaluation.build import build_evaluator
+    from tools.make_synthetic_lvis_torch import write_lvis
+
+    t0 = time.perf_counter()
+    json_file = write_lvis(SEGM_ROOT, "val", LVIS_IMAGES, LVIS_SIZE, COCO_CLASSES, SEED + 5)
+    register_all(SEGM_ROOT)  # the builtin names, where nothing registered them yet
+    if MetadataCatalog.get("lvis_v1_val").get("json_file") != json_file:
+        raise AssertionError("eval_lvis: lvis_v1_val does not read the written split")
+    cfg = load_cfg(CONFIG, LVIS_OVERRIDES)
+    model = seeded_model(torch, cfg).to("cuda").eval()
+    added, least_iou = write_lvis_oracle(torch, cfg, model, DatasetCatalog.get("lvis_v1_val"),
+                                         json_file)
+    records = DatasetCatalog.get("lvis_v1_val")
+    log("eval_lvis", images=len(records), json=os.path.relpath(json_file, REPO),
+        annotations=sum(len(r["annotations"]) for r in records), oracle_annotations=added,
+        oracle_least_iou=f"{least_iou:.4f}", write_s=f"{time.perf_counter() - t0:.2f}")
+    if added < len(records) or least_iou < 0.95:
+        raise AssertionError(f"eval_lvis: {added} oracle annotations, least IoU {least_iou}: "
+                             "AP would be vacuous")
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        kernel = run_evaluation(cfg, model, "lvis_v1_val")["segm"]
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts(backward=True)
+    expected = {k: len(records) * v for k, v in COCO_EVAL_EXPECTED.items()}
+    if launches != expected:
+        raise AssertionError(f"eval_lvis: kernel launches {launches}, expected {expected}")
+
+    predictor = Predictor(cfg, model=model, device="cuda")
+    evset = build_evaluator(cfg, "lvis_v1_val", records)
+    evset.reset()
+    kernel_run, plain_run, check = paired_plain(torch, model)
+    # the scores are a softmax over 1204 logits times a mask score, so near
+    # 1e-3 at this init: they are held relative to each image's largest
+    score_err, top_scores, inter, union, kept = 0.0, [], 0, 0, 0
+    for rec in records:
+        image = read_image(rec)
+        hw = (rec["height"], rec["width"])
+        with kernel_run():
+            k = predictor(image, hw, tasks=["instance"])["instances"]
+        with plain_run():
+            p = predictor(image, hw, tasks=["instance"])["instances"]
+        evset.process(rec, {"instance": (p["scores"], p["classes"], p["masks"])})
+        top = float(p["scores"].max())
+        top_scores.append(top)
+        score_err = max(score_err,
+                        float(np.abs(np.sort(k["scores"]) - np.sort(p["scores"])).max()) / top)
+        same = (k["classes"] == p["classes"]) & (np.abs(k["scores"] - p["scores"]) < 1e-4 * top)
+        inter += int((k["masks"][same] & p["masks"][same]).sum())
+        union += int((k["masks"][same] | p["masks"][same]).sum())
+        kept += int(same.sum())
+    flips = check("eval_lvis")
+    plain = evset.evaluate()["segm"]
+    per_category = evset.entries[0].evaluator._ap.per_category_ap()
+    log("eval_lvis", plain_path_ap_by_category={c + 1: round(v, 2) for c, v in per_category.items()
+                                                if np.isfinite(v)})
+    iou = inter / union if union else 1.0
+    keys = ("AP", "APr", "APc", "APf", "AP50")
+    log("eval_lvis", launches=launches, expected=expected,
+        kernel_path={k: f"{kernel[k]:.4f}" for k in keys},
+        plain_path={k: f"{plain[k]:.4f}" for k in keys}, ap_tol=LVIS_AP_TOL,
+        largest_score_by_image=[f"{t:.4e}" for t in top_scores],
+        sorted_scores_max_err_rel_to_largest=f"{score_err:.3e}", scores_rel_tol=1e-3,
+        same_detection_rel_tol=1e-4, detections_kept=kept,
+        masks_pooled_iou=f"{iou:.6f}", iou_min=0.99,
+        s_per_image=f"{seconds / len(records):.4f}", card=repr(card))
+    finite = all(np.isfinite(kernel[k]) and np.isfinite(plain[k]) for k in keys[:4])
+    if not (finite and kernel["AP"] > 0
+            and all(abs(kernel[k] - plain[k]) <= LVIS_AP_TOL for k in keys[:4])
+            and score_err < 1e-3 and kept > 0 and iou >= 0.99):
+        raise AssertionError("eval_lvis: the LVIS evaluation disagrees between the kernels and "
+                             "the plain ops")
+    restore_kernel_counts(launches)
+    log("eval_lvis", ok=True)
+    return {"launches": launches, "kernel": kernel, "plain": plain, "s_per_image":
+            seconds / len(records), **flips}
+
+
+def phase_tta_semantic(torch, card: str) -> dict:
+    """A19: `SemanticSegmentorWithTTA` with the ADE20K R50 semantic recipe's
+    own TEST.AUG (6 short sides x flip = 12 passes) at full width (seeded
+    weights) on one 512x683 image: K1 6 and K3 9 launches a pass, counted;
+    the seconds an image; then the same passes through the plain ops given
+    the kernel run's attention and ReLU decisions: the averaged class
+    probabilities within TOL["float32"] of their largest entry."""
+    from mp_former_tpu_torch.test_time_augmentation import SemanticSegmentorWithTTA, tta_size
+
+    cfg = load_cfg(ADE_SEM_CONFIG, [], released_decoder=False)
+    model = seeded_model(torch, cfg).to("cuda").eval()
+    tta = SemanticSegmentorWithTTA(cfg, model)
+    n_passes = len(tta.min_sizes) * (2 if tta.flip else 1)
+    image = np.random.RandomState(SEED + 6).randint(0, 256, (*TTA_IMAGE, 3), dtype=np.uint8)
+    tta(image)  # warm: each pass's canvas once
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    probs = tta(image)
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts(backward=True)
+    expected = {k: n_passes * v for k, v in COCO_EVAL_EXPECTED.items()}
+    if launches != expected:
+        raise AssertionError(f"tta_semantic: kernel launches {launches}, expected {expected}")
+    kernel_run, plain_run, check = paired_plain(torch, model)
+    with kernel_run():
+        k_probs = tta(image)
+    with plain_run():
+        p_probs = tta(image)
+    flips = check("tta_semantic")
+    scale = max(1.0, float(np.abs(p_probs).max()))
+    err = float(np.abs(k_probs - p_probs).max()) / scale
+    shape = (cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, *TTA_IMAGE)
+    log("tta_semantic", passes=n_passes, sizes=tta.min_sizes, max_size=tta.max_size,
+        flip=tta.flip, canvases=[tta_size(*TTA_IMAGE, s, tta.max_size) for s in tta.min_sizes],
+        launches=launches, expected=expected, probs_shape=probs.shape,
+        kernel_vs_plain_rel_err=f"{err:.3e}", tol=TOL["float32"],
+        repeat_max_abs_diff=f"{float(np.abs(probs - k_probs).max()):.3e}",
+        s_per_image=f"{seconds:.4f}", card=repr(card))
+    if not (probs.shape == shape and np.isfinite(probs).all() and probs.min() >= 0
+            and err <= TOL["float32"]):
+        raise AssertionError(f"tta_semantic: probabilities {probs.shape} against {shape}, "
+                             f"kernel against plain {err}")
+    restore_kernel_counts(launches)
+    log("tta_semantic", ok=True)
+    return {"launches": launches, "passes": n_passes, "s_per_image": seconds, "rel_err": err,
+            **flips}
+
+
+def demo_run(phase: str, run, forwards: int, stems) -> dict:
+    """One entry point's `run()` counted: K1 6 and K3 9 launches a forward
+    (times `forwards`), and its output files (`stems` and an image
+    extension)."""
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    run()
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts(backward=True)
+    expected = {k: forwards * v for k, v in COCO_EVAL_EXPECTED.items()}
+    # a PNG through zlib without cv2; where cv2 is installed the JAX demos'
+    # own names (a video's frames as .jpg)
+    found = [next((stem + ext for ext in (".png", ".jpg") if os.path.isfile(stem + ext)), None)
+             for stem in stems]
+    missing = [s for s, f in zip(stems, found) if f is None]
+    log("demo", run=phase, launches=launches, expected=expected, files=len(stems),
+        missing=missing, written=sorted({os.path.splitext(f)[1] for f in found if f}),
+        seconds=f"{seconds:.2f}")
+    if launches != expected or missing:
+        raise AssertionError(f"demo: {phase}: launches {launches} (expected {expected}), "
+                             f"missing {missing}")
+    magic = {".png": b"\x89PNG\r\n\x1a\n", ".jpg": b"\xff\xd8\xff"}
+    for f in found:
+        want = magic[os.path.splitext(f)[1]]
+        with open(f, "rb") as fh:
+            if fh.read(len(want)) != want:
+                raise AssertionError(f"demo: {phase}: {f} is not what its extension says")
+    return launches
+
+
+def phase_demo(torch, card: str) -> dict:
+    """A22: the demos as a user runs them, on `.npy` inputs under
+    DEMO_ROOT, with the COCO panoptic recipe (`predict.py`'s default: 133
+    classes, 100 queries) and the R50 YouTube-VIS 2019 recipe at full width,
+    their seeded weights through MODEL.WEIGHTS as reference `.pth` files:
+    `demo.demo` on two images (instance and semantic drawings), `predict.main`
+    on one (instance, semantic, panoptic), `demo_video.demo` on an 8-frame
+    720x1280 clip (8 drawn frames); K1 6 and K3 9 launches a forward each.
+    Where cv2 is installed the drawings carry the JAX demo's labels and the
+    video frames are `.jpg`; without cv2 every drawing is a PNG without
+    labels. Then the image demo's
+    `forward_raw` through the kernels against the plain ops given the kernel
+    path's decisions (`compare_outputs`' limits)."""
+    from mp_former_tpu_torch import predict
+    from mp_former_tpu_torch.demo import demo
+    from mp_former_tpu_torch.demo.predictor import Predictor as DemoPredictor
+    from mp_former_tpu_torch.demo_video import demo as demo_video
+
+    os.makedirs(DEMO_ROOT, exist_ok=True)
+    rng = np.random.RandomState(SEED + 7)
+    images = []
+    for i, hw in enumerate(DEMO_IMAGES):
+        images.append(os.path.join(DEMO_ROOT, f"image{i}.npy"))
+        np.save(images[-1], rng.randint(0, 256, (*hw, 3), dtype=np.uint8))
+    clip = os.path.join(DEMO_ROOT, "clip.npy")
+    np.save(clip, rng.randint(0, 256, (*DEMO_CLIP, 3), dtype=np.uint8))
+    weights = {}
+    for name, config, released in (("panoptic", PAN_CONFIG, False),
+                                   ("video", YTVIS_CONFIG, False)):
+        weights[name] = os.path.join(DEMO_ROOT, f"{name}.pth")
+        torch.save({"model": seeded_model(torch, load_cfg(config, [], released)).state_dict()},
+                   weights[name])
+    out = os.path.join(DEMO_ROOT, "out")
+    launches = {}
+    launches["demo_image"] = demo_run(
+        "demo.demo", lambda: demo.main(["--config-file", os.path.join(REPO, PAN_CONFIG),
+                                        "--input", *images, "--output", out,
+                                        "MODEL.WEIGHTS", weights["panoptic"]]),
+        len(images), [os.path.join(out, f"image{i}_{t}") for i in range(len(images))
+                      for t in ("instance", "semantic")])
+    prefix = os.path.join(DEMO_ROOT, "prediction")
+    launches["predict"] = demo_run(
+        "predict.main", lambda: predict.main(["--image", images[0], "--config-file",
+                                              os.path.join(REPO, PAN_CONFIG), "--weights",
+                                              weights["panoptic"], "--output", prefix]),
+        1, [f"{prefix}_{t}" for t in ("instance", "semantic", "panoptic")])
+    vout = os.path.join(DEMO_ROOT, "video")
+    launches["demo_video"] = demo_run(
+        "demo_video.demo", lambda: demo_video.main(
+            ["--config-file", os.path.join(REPO, YTVIS_CONFIG), "--input", clip, "--output",
+             vout, "--max-frames", str(DEMO_CLIP[0]), "MODEL.WEIGHTS", weights["video"]]),
+        1, [os.path.join(vout, f"frame_{t:04d}") for t in range(DEMO_CLIP[0])])
+
+    cfg = load_cfg(PAN_CONFIG, ["MODEL.WEIGHTS", weights["panoptic"]], released_decoder=False)
+    pred = DemoPredictor(cfg)
+    model = pred.engine.model
+    image = np.load(images[0])
+    canvas, _ = pred.engine.preprocess(image)
+    kernel_run, plain_run, check = paired_plain(torch, model)
+    with kernel_run():
+        k_raw = pred.forward_raw(image)
+    with plain_run():
+        p_raw = pred.forward_raw(image)
+    flips = check("demo")
+    compare_outputs(torch, "demo", "forward_raw, kernel vs plain ops", cfg, canvas,
+                    {"pred_logits": torch.from_numpy(k_raw[0])[None],
+                     "pred_masks": torch.from_numpy(k_raw[1])[None]},
+                    {"pred_logits": torch.from_numpy(p_raw[0])[None],
+                     "pred_masks": torch.from_numpy(p_raw[1])[None]})
+    log("demo", ok=True, card=repr(card))
+    return {"launches": launches, **flips}
+
+
 def main() -> int:
     import torch
 
@@ -4406,6 +4782,13 @@ def main() -> int:
     video_paths["video_step"] = phase_video_step(torch, card, train_json)
     torch.cuda.empty_cache()
     video_paths.update(phase_train_video(torch, card))
+    torch.cuda.empty_cache()
+    # A16c, A19, A22: LVIS scored, semantic test-time augmentation, the demos
+    eval_lvis = phase_eval_lvis(torch, card)
+    torch.cuda.empty_cache()
+    tta_semantic = phase_tta_semantic(torch, card)
+    torch.cuda.empty_cache()
+    demos = phase_demo(torch, card)
     by_path = {"slice": s1, "slice2": s2, "tap_weighting_route": route, "train": train,
                "train_coco": train_coco, "slice_bf16": s1_bf16, "slice2_bf16": s2_bf16,
                "eval_bf16": eval_bf16, "train_bf16": train_bf16, "train_tpu": train_tpu,
@@ -4415,7 +4798,9 @@ def main() -> int:
                "slice_swin": s_swin, "slice_swin_bf16": s_swin_bf16, "swin_step": swin_step,
                **swin_paths, **video_paths, "train_variants": train_variants,
                "train_dn_modes": train_dn_modes,
-               **{f"slice_{k}": v for k, v in maskformer1.items()}}
+               **{f"slice_{k}": v for k, v in maskformer1.items()},
+               "eval_lvis": eval_lvis["launches"], "tta_semantic": tta_semantic["launches"],
+               **demos["launches"]}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",

@@ -1,4 +1,5 @@
 from .cfg import CfgNode
+from .build import build_cfg, cfg_device
 from .defaults import (
     get_cfg,
     add_deeplab_config,
@@ -12,4 +13,6 @@ __all__ = [
     "add_deeplab_config",
     "add_maskformer2_config",
     "add_maskformer2_video_config",
+    "build_cfg",
+    "cfg_device",
 ]

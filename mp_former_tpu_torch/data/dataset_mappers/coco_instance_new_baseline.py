@@ -20,10 +20,12 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from ...engine.eval_loop import read_image
 from ...evaluation.coco_eval import rle_to_mask
 from ...native import polygons_to_mask
+from ...utils.boxes import box_xyxy_to_cxcywh, masks_to_boxes
 from ...utils.registry import DATASET_MAPPER_REGISTRY
 from ..transforms import (TransformRecord, apply_record_to_image, apply_to_sem_seg,
                           block_any_pool, lsj_transform, resolve_gt_mask_stride)
@@ -46,15 +48,6 @@ def _mask_from_segmentation(seg, rec: TransformRecord, stride: int = 1) -> Optio
             m = block_any_pool(m, stride)[:h, :w]
         return m
     return None
-
-
-def _masks_to_boxes_np(masks: np.ndarray) -> np.ndarray:
-    boxes = np.zeros((masks.shape[0], 4), np.float32)
-    for i, m in enumerate(masks):
-        ys, xs = np.nonzero(m)
-        if len(ys):
-            boxes[i] = [xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]
-    return boxes
 
 
 @DATASET_MAPPER_REGISTRY.register(name="coco_instance_lsj")
@@ -100,12 +93,12 @@ class COCOInstanceNewBaselineDatasetMapper:
                 labels[idx] = a["category_id"]
                 valid[idx] = True
                 idx += 1
-            b = _masks_to_boxes_np(masks[:idx])
+            # every kept mask is non-empty: its box ends one past its last pixel
+            b = masks_to_boxes(torch.from_numpy(masks[:idx]))
+            b[:, 2:] += 1
             # cxcywh normalised by the mask canvas (reference
             # maskformer_model.py:295): the normalisation cancels the stride
-            cx = (b[:, 0] + b[:, 2]) / 2
-            cy = (b[:, 1] + b[:, 3]) / 2
-            boxes[:idx] = np.stack([cx, cy, b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], -1) / ms
+            boxes[:idx] = (box_xyxy_to_cxcywh(b) / ms).numpy()
 
         return {
             "image": image,  # uint8, INPUT.FORMAT order; the model normalises

@@ -2,12 +2,12 @@
 `mp_former_tpu/data/datasets/builtin.py`): in the standard d2 layout under
 $DETECTRON2_DATASETS, read once, when this module is first imported, the COCO
 2017 instance splits (`coco.py`), and COCO panoptic, ADE20K, Cityscapes,
-Mapillary Vistas, ADE20K-full and COCO-stuff-10k (`register_all.py`). A
-caller that needs another root registers under a name of its own
-(`register_coco_instances`, `register_coco_panoptic`, `register_sem_seg`,
-`register_cityscapes_instance`, `register_cityscapes_panoptic`) or calls
-`register_all_coco` / `register_all` / `register_more` with the root before
-anything imports this module. LVIS waits for ROADMAP A16c."""
+Mapillary Vistas, ADE20K-full, COCO-stuff-10k and LVIS v1
+(`register_all.py`). A caller that needs another root registers under a name
+of its own (`register_coco_instances`, `register_coco_panoptic`,
+`register_sem_seg`, `register_cityscapes_instance`,
+`register_cityscapes_panoptic`) or calls `register_all_coco` / `register_all`
+/ `register_more` with the root before anything imports this module."""
 
 import os
 

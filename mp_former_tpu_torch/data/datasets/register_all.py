@@ -3,8 +3,9 @@
 the d2 builtins it relies on): COCO panoptic (with semantic ground truth),
 ADE20K semantic, instance and panoptic, Cityscapes semantic, instance and
 panoptic, Mapillary Vistas semantic and panoptic, ADE20K-full and
-COCO-stuff-10k, in the standard d2 layout under $DETECTRON2_DATASETS. LVIS
-(`lvis_v1_*`) is not registered yet (ROADMAP A16c).
+COCO-stuff-10k and LVIS v1, in the standard d2 layout under
+$DETECTRON2_DATASETS. LVIS images carry only a `coco_url`; `coco.py` keeps
+its split directory under `coco/`.
 
 Every registration sets `evaluator_type` to the value the reference's
 build_evaluator dispatches on (reference train_net.py:142-222) and carries
@@ -308,8 +309,8 @@ def register_all(root: Optional[str] = None) -> None:
     """COCO panoptic, ADE20K (semantic, instance, panoptic), Cityscapes
     (semantic, instance, panoptic) and Mapillary Vistas panoptic in the
     standard layout under `root` ($DETECTRON2_DATASETS, else `datasets`;
-    `mp_former_tpu/data/datasets/register_all.py:248-371` less LVIS, ROADMAP
-    A16c); a name already registered is left as it is."""
+    `mp_former_tpu/data/datasets/register_all.py:248-371`), and LVIS v1; a
+    name already registered is left as it is."""
     from .coco import register_coco_instances
 
     root = root or os.environ.get("DETECTRON2_DATASETS", "datasets")
@@ -388,6 +389,14 @@ def register_all(root: Optional[str] = None) -> None:
                 kw["ignore_label"] = 65
             register_coco_panoptic(name, os.path.join(root, jf), os.path.join(root, ir),
                                    os.path.join(root, pr), evaluator_type=et, **kw)
+
+    # LVIS v1 (reference build_evaluator's evaluator_type "lvis"); the images
+    # are COCO's, named by their coco_url
+    for name, jf in (("lvis_v1_train", "lvis/lvis_v1_train.json"),
+                     ("lvis_v1_val", "lvis/lvis_v1_val.json")):
+        if name not in DatasetCatalog:
+            register_coco_instances(name, os.path.join(root, jf), os.path.join(root, "coco/"))
+            MetadataCatalog.get(name).set(evaluator_type="lvis")
 
 
 def register_more(root: Optional[str] = None) -> None:

@@ -54,11 +54,17 @@ class TransformRecord:
         return c
 
 
+def resize_uint8(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(H, W, C) uint8 tensor on any device -> (h, w, C) uint8 on the same
+    device, bilinear with half-pixel centres (cv2's INTER_LINEAR), rounded."""
+    x = img.permute(2, 0, 1)[None].float()
+    x = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+    return x.round_().clamp_(0, 255)[0].permute(1, 2, 0).to(torch.uint8)
+
+
 def _resize_image(img: np.ndarray, h: int, w: int) -> np.ndarray:
     """(H, W, C) uint8 -> (h, w, C) uint8, bilinear with half-pixel centres."""
-    x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None].float()
-    x = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
-    return x.round_().clamp_(0, 255)[0].permute(1, 2, 0).to(torch.uint8).numpy()
+    return resize_uint8(torch.from_numpy(np.ascontiguousarray(img)), h, w).numpy()
 
 
 def random_flip(rng: np.random.RandomState, enabled: bool = True, prob: float = 0.5):

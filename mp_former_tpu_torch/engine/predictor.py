@@ -24,8 +24,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from ..data.transforms import resize_uint8
 from ..inference import (InstanceOutput, instance_inference, panoptic_inference,
                          sem_seg_postprocess, semantic_inference, upsample_masks)
 from ..models import build_model
@@ -50,10 +50,7 @@ def preprocess_image(cfg, image_bgr: np.ndarray,
         scale = cfg.INPUT.MAX_SIZE_TEST / max(h, w)
     rh, rw = int(h * scale + 0.5), int(w * scale + 0.5)
     nh, nw = (rh + 31) // 32 * 32, (rw + 31) // 32 * 32
-    x = torch.from_numpy(np.ascontiguousarray(img)).to(device)
-    x = x.permute(2, 0, 1)[None].float()
-    x = F.interpolate(x, size=(rh, rw), mode="bilinear", align_corners=False)
-    x = x.round_().clamp_(0, 255)[0].permute(1, 2, 0)
+    x = resize_uint8(torch.from_numpy(np.ascontiguousarray(img)).to(device), rh, rw).float()
     mean = torch.tensor(cfg.MODEL.PIXEL_MEAN, dtype=torch.float32, device=x.device)
     canvas = mean.expand(nh, nw, 3).clone()
     canvas[:rh, :rw] = x
@@ -113,6 +110,20 @@ def postprocess_panoptic(logits: torch.Tensor, masks: torch.Tensor, image_size: 
                               num_classes, object_mask_threshold, overlap_threshold, is_thing)
 
 
+def load_model(cfg) -> torch.nn.Module:
+    """`build_model(cfg)` with MODEL.WEIGHTS loaded where it names any; a
+    name that is not found locally raises (a fresh model would report
+    near-zero AP without a word)."""
+    model = build_model(cfg)
+    if cfg.MODEL.WEIGHTS:
+        local = locate_weights(cfg.MODEL.WEIGHTS)
+        if local is None:
+            raise FileNotFoundError(f"MODEL.WEIGHTS {cfg.MODEL.WEIGHTS} not found locally "
+                                    "(download it or point MODEL.WEIGHTS at a file)")
+        load_weights(model, load_state_dict_file(local))
+    return model
+
+
 def switched_tasks(cfg) -> List[str]:
     """The tasks MASK_FORMER.TEST switches on, in TASK_KEYS' order."""
     t = cfg.MODEL.MASK_FORMER.TEST
@@ -143,16 +154,7 @@ class Predictor:
             is_thing = is_thing_array(cfg, MetadataCatalog.get(names[0]) if names else {})
         self.is_thing = np.asarray(is_thing, bool)
         self.device = torch.device(device)
-        if model is None:
-            model = build_model(cfg)
-            if cfg.MODEL.WEIGHTS:
-                # a fresh model would report near-zero AP without a word: raise
-                local = locate_weights(cfg.MODEL.WEIGHTS)
-                if local is None:
-                    raise FileNotFoundError(f"MODEL.WEIGHTS {cfg.MODEL.WEIGHTS} not found locally "
-                                            "(download it or point MODEL.WEIGHTS at a file)")
-                load_weights(model, load_state_dict_file(local))
-        self.model = model.to(self.device).eval()
+        self.model = (load_model(cfg) if model is None else model).to(self.device).eval()
 
     def preprocess(self, image_bgr: np.ndarray):
         return preprocess_image(self.cfg, image_bgr, self.device)

@@ -12,8 +12,8 @@ reference's Trainer.build_evaluator, train_net.py:142-222;
 | cityscapes_instance           | CityscapesInstance (the official protocol)                                |
 | cityscapes_sem_seg            | CityscapesSemSeg (IoU, iIoU)                                              |
 | cityscapes_panoptic_seg       | PQ (PANOPTIC_ON) + CityscapesSemSeg (SEMANTIC_ON) + CityscapesInstance (INSTANCE_ON) |
+| lvis                          | LVIS (federated AP, max(DETECTIONS_PER_IMAGE, 300) detections an image)    |
 
-`lvis` raises NotImplementedError: LVIS evaluation waits for ROADMAP A16c.
 One model forward serves every evaluator of a set: `EvaluatorSet.tasks`
 names the post-processings ("instance", "semantic", "panoptic") the
 evaluation loop must produce. The Cityscapes evaluators take the record
@@ -32,6 +32,7 @@ from ..data.dataset_mappers.mask_former_mappers import read_label_map
 from .cityscapes_eval import CityscapesInstanceEvaluator, CityscapesSemSegEvaluator
 from .coco_eval import COCOEvaluator
 from .evaluators import COCOPanopticEvaluator, InstanceSegEvaluator, SemSegEvaluator
+from .lvis_eval import LVISEvaluator
 
 logger = logging.getLogger(__name__)
 
@@ -124,17 +125,14 @@ def cityscapes_thing_index(meta, num_classes: int) -> Optional[np.ndarray]:
 def build_evaluator(cfg, dataset_name: str, records: Optional[List[dict]] = None) -> EvaluatorSet:
     """The evaluators of `dataset_name`'s `evaluator_type`, in the JAX
     package's order (`mp_former_tpu/evaluation/build.py:134-224`); raises
-    NotImplementedError for `lvis` (ROADMAP A16c), for a dataset without an
-    `evaluator_type`, or when the switches leave no evaluator."""
+    NotImplementedError for a dataset without an `evaluator_type`, or when
+    the switches leave no evaluator."""
     from ..data.catalog import DatasetCatalog, MetadataCatalog
 
     meta = MetadataCatalog.get(dataset_name)
     et = meta.get("evaluator_type")
     if et is None:
         raise NotImplementedError(f"no evaluator_type registered for dataset {dataset_name}")
-    if et == "lvis":
-        raise NotImplementedError(
-            f"the port has no LVIS evaluator yet (dataset {dataset_name}): ROADMAP A16c")
     if records is None:
         records = DatasetCatalog.get(dataset_name)
     test_cfg = cfg.MODEL.MASK_FORMER.TEST
@@ -193,6 +191,10 @@ def build_evaluator(cfg, dataset_name: str, records: Optional[List[dict]] = None
     # ADE20K instance (:210-212)
     if et == "ade20k_panoptic_seg" and test_cfg.INSTANCE_ON:
         coco_inst(InstanceSegEvaluator)
+    # LVIS (:214-215)
+    if et == "lvis":
+        entries.append(_Entry("instance", LVISEvaluator(
+            records, meta.get("json_file"), max_dets=max(cfg.TEST.DETECTIONS_PER_IMAGE, 300))))
     if not entries:
         raise NotImplementedError(
             f"no evaluator for the dataset {dataset_name} of the type {et} with the enabled "

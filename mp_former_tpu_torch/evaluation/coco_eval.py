@@ -3,8 +3,9 @@ algorithm with IoU matrices and crowd handling, greedy matching per IoU
 threshold, 101-point precision interpolation, area ranges and maxDets.
 
 The port's own copy of `mp_former_tpu/evaluation/coco_eval.py` (that module
-imports no jax, but its package does), without the LVIS options and the
-merge of per-rank evaluators, which nothing in the port uses yet.
+imports no jax, but its package does), without the merge of per-rank
+evaluators, which nothing in the port uses yet. `add_image`'s `eval_cats`
+and `ignore_unmatched_cats` are LVIS's federated options (`lvis_eval.py`).
 `COCOEvaluator` is the d2-protocol wrapper (reset / process / evaluate) of
 `mp_former_tpu/evaluation/evaluators.py`.
 """
@@ -94,10 +95,14 @@ class CocoAPEvaluator:
         gt_masks_or_boxes,               # list of (H,W) bool | (G,4) xywh
         gt_iscrowd: np.ndarray,          # (G,) bool
         gt_areas: Optional[np.ndarray] = None,
+        eval_cats: Optional[set] = None,              # LVIS federated: only these
+        ignore_unmatched_cats: Optional[set] = None,  # LVIS not_exhaustive
     ):
         det_cats = np.asarray(det_cats)
         gt_cats = np.asarray(gt_cats)
         cats = set(det_cats.tolist()) | set(gt_cats.tolist())
+        if eval_cats is not None:
+            cats &= eval_cats
         self._cats |= cats
         self._acc_cache.clear()
         for c in cats:
@@ -128,6 +133,8 @@ class CocoAPEvaluator:
                 "ious": ious,
                 "gt_crowd": gt_iscrowd[gsel].astype(bool),
                 "gt_areas": np.asarray(areas, np.float64),
+                "ignore_unmatched": bool(
+                    ignore_unmatched_cats and c in ignore_unmatched_cats),
             })
 
     # ------------------------------------------------------------------
@@ -164,8 +171,11 @@ class CocoAPEvaluator:
                 dt_m[ti, di] = m
                 gt_m[ti, m] = di
         # det ignore: matched to ignored gt, or unmatched + outside area range
+        # (or unmatched entirely, for LVIS not-exhaustively-annotated images)
         da = rec["det_areas"]
         out_rng = (da < lo) | (da > hi)
+        if rec.get("ignore_unmatched"):
+            out_rng = np.ones_like(out_rng)
         dt_ig = np.zeros((t, d), bool)
         for ti in range(t):
             matched = dt_m[ti] >= 0

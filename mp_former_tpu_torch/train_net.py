@@ -47,20 +47,16 @@ def setup(args):
     """Reference setup (train_net.py:356-370): the config from the file and
     the overrides, the INSTANT_DROP hack, frozen; logging; the merged config
     dumped to OUTPUT_DIR/config.yaml."""
-    from .config import add_deeplab_config, add_maskformer2_config, get_cfg
+    from .config import build_cfg
 
-    cfg = get_cfg()
-    add_deeplab_config(cfg)
-    add_maskformer2_config(cfg)
-    if args.config_file:
-        cfg.merge_from_file(args.config_file)
-    cfg.merge_from_list(args.opts or [])
+    cfg = build_cfg(args.config_file, args.opts or [])
     # INSTANT_DROP hack (reference train_net.py:388-392)
     if cfg.SOLVER.INSTANT_DROP:
         drop = cfg.SOLVER.DROP_EP
         iters_ep = cfg.SOLVER.MAX_ITER // 12
+        cfg.defrost()
         cfg.SOLVER.STEPS = (int(drop * iters_ep), int((drop + 100) * iters_ep))
-    cfg.freeze()
+        cfg.freeze()
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
@@ -131,8 +127,7 @@ def evaluate(cfg, model, max_images=None) -> dict:
             continue
         results.update(r if len(cfg.DATASETS.TEST) == 1 else {name: r})
     if not results:
-        logger.warning("no eval task ran: the port evaluates every evaluator type of the "
-                       "recipes but LVIS (ROADMAP A16c)")
+        logger.warning("no eval task ran")
     return results
 
 
@@ -141,14 +136,10 @@ def main(args):
         raise NotImplementedError(
             f"--num-gpus {args.num_gpus} --num-machines {args.num_machines}: the port trains and "
             "evaluates on one card in one process; distributed training is ROADMAP A21")
-    import torch
+    from .config import cfg_device
 
     cfg = setup(args)
-    device = torch.device("cuda" if cfg.MODEL.DEVICE == "tpu" else cfg.MODEL.DEVICE)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"MODEL.DEVICE {cfg.MODEL.DEVICE}: torch finds no CUDA device; "
-                           "pass MODEL.DEVICE cpu to run on the CPU with the kernels' plain "
-                           "versions")
+    device = cfg_device(cfg)
 
     if args.eval_only:
         from .engine.convert import load_state_dict_file, load_weights, locate_weights

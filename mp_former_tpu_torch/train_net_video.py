@@ -46,17 +46,9 @@ def default_argument_parser() -> argparse.ArgumentParser:
 def setup(args):
     """The config from the file and the overrides, with the video keys,
     frozen; logging; OUTPUT_DIR made, the config dumped into it."""
-    from .config import (add_deeplab_config, add_maskformer2_config,
-                         add_maskformer2_video_config, get_cfg)
+    from .config import build_cfg
 
-    cfg = get_cfg()
-    add_deeplab_config(cfg)
-    add_maskformer2_config(cfg)
-    add_maskformer2_video_config(cfg)
-    if args.config_file:
-        cfg.merge_from_file(args.config_file)
-    cfg.merge_from_list(args.opts or [])
-    cfg.freeze()
+    cfg = build_cfg(args.config_file, args.opts or [], video=True)
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
@@ -70,18 +62,13 @@ def main(args):
         raise NotImplementedError(f"--num-gpus {args.num_gpus}: the port trains and evaluates "
                                   "on one card in one process; distributed training and "
                                   "evaluation are ROADMAP A21")
-    import torch
-
     from .data.catalog import DatasetCatalog
+    from .config import cfg_device
     from .models import build_model
     from .video.ytvis import register_all_ytvis
 
     cfg = setup(args)
-    device = torch.device("cuda" if cfg.MODEL.DEVICE == "tpu" else cfg.MODEL.DEVICE)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"MODEL.DEVICE {cfg.MODEL.DEVICE}: torch finds no CUDA device; "
-                           "pass MODEL.DEVICE cpu to run on the CPU with the kernels' plain "
-                           "versions")
+    device = cfg_device(cfg)
     register_all_ytvis()
     if not args.eval_only:
         from .engine.trainer import Trainer

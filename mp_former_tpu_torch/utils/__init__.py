@@ -13,6 +13,7 @@ from .registry import (
 )
 from .shape_spec import ShapeSpec
 from .interp import resize
+from .boxes import box_xyxy_to_cxcywh, box_cxcywh_to_xyxy, masks_to_boxes
 
 
 def compute_dtype(cfg) -> torch.dtype:

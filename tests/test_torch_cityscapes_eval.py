@@ -11,10 +11,10 @@ package.
   thing classes.
 - `build_evaluator` for every evaluator type of the recipes under each of
   the 8 combinations of the MASK_FORMER.TEST switches: the same (task,
-  evaluator class) entries in the same order; LVIS raises in the port and
-  names A16c.
+  evaluator class) entries in the same order, LVIS's included.
 """
 
+import json
 from unittest import mock
 
 import cv2
@@ -151,11 +151,16 @@ def _entries(evset):
 
 
 @pytest.mark.parametrize("et", TYPES)
-def test_build_evaluator_matches_jax_under_every_switch(et):
+def test_build_evaluator_matches_jax_under_every_switch(et, tmp_path):
     record = {"image_id": 0, "height": 4, "width": 4, "annotations": [],
               "pan_seg_file_name": "x.npy", "segments_info": []}
     sets = {"gt": [dict(record, sem_seg_file_name="y.npy")], "no_gt": [record]}
     thing_map = {lab.trainId: lab.hasInstances for lab in EVAL_LABELS}
+    lvis_json = str(tmp_path / "lvis.json")
+    with open(lvis_json, "w") as f:
+        json.dump({"images": [{"id": 0, "height": 4, "width": 4, "neg_category_ids": [1]}],
+                   "categories": [{"id": 1, "name": "a", "frequency": "r"}],
+                   "annotations": []}, f)
     with mock.patch.object(DatasetCatalog, "_registry", {}), \
             mock.patch.object(MetadataCatalog, "_meta", {}), \
             mock.patch.object(JaxDatasetCatalog, "_registry", {}), \
@@ -166,7 +171,7 @@ def test_build_evaluator_matches_jax_under_every_switch(et):
                 catalog.register(name, lambda recs=recs: recs)
                 meta.get(name).set(evaluator_type=et, thing_map=thing_map, ignore_label=255)
             catalog.register("lvis", lambda: [record])
-            meta.get("lvis").set(evaluator_type="lvis")
+            meta.get("lvis").set(evaluator_type="lvis", json_file=lvis_json)
         built = 0
         for bits in range(8):
             jcfg, tcfg = _cfgs([bool(bits >> i & 1) for i in range(3)])
@@ -180,5 +185,6 @@ def test_build_evaluator_matches_jax_under_every_switch(et):
                 assert _entries(build_evaluator(tcfg, name)) == want, (bits, name)
                 built += 1
         assert built > 0
-        with pytest.raises(NotImplementedError, match="A16c"):
-            build_evaluator(tcfg, "lvis")
+        got, want = build_evaluator(tcfg, "lvis"), jax_build_evaluator(jcfg, "lvis")
+        assert _entries(got) == _entries(want) == [("instance", "LVISEvaluator")]
+        assert got.entries[0].evaluator.max_dets == want.entries[0].evaluator.max_dets == 300

@@ -23,14 +23,13 @@ GET = re.compile(r"\bcfg\.(" + PATH + r")\.get\(\s*[\"']([A-Z][A-Z0-9_]*)[\"']")
 GETATTR = re.compile(r"getattr\(\s*cfg\.(" + PATH + r")\s*,\s*[\"']([A-Z][A-Z0-9_]*)[\"']")
 
 SET_ASIDE = {
-    "A19 test-time augmentation": {"TEST.AUG.FLIP", "TEST.AUG.MAX_SIZE", "TEST.AUG.MIN_SIZES"},
     # A21 distributed: the device mesh and token sharding
     "A21": {"TPU.MESH_AXES", "TPU.MESH_SHAPE", "TPU.SHARD_TOKENS"},
-    "A14h auction matcher": {"TPU.MATCHER_HOST_EXACT"},
-    # TPU-runtime workarounds, not ported on purpose (ROADMAP §A)
+    # TPU-runtime workarounds, not ported on purpose (ROADMAP §A); the
+    # auction matcher exists because the TPU runtime rejects host callbacks
     "TPU runtime": {"TPU.FUSED_MASKED_ATTN", "TPU.POINT_MATMUL_SAMPLING", "TPU.DONATE",
                     "TPU.SPLIT_STEP", "TPU.HOST_ACCUM", "TPU.EVAL_STREAM", "TPU.EVAL_BUCKET_STEP",
-                    "TPU.SCAN_ENCODER"},
+                    "TPU.SCAN_ENCODER", "TPU.MATCHER_HOST_EXACT"},
     # stored by the JAX head and never used (mp_former_tpu/models/meta_arch/
     # mask_former_head.py:47-48; IGNORE_VALUE is read by the evaluators)
     "stored, unused": {"MODEL.SEM_SEG_HEAD.LOSS_WEIGHT"},

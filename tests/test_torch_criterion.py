@@ -10,7 +10,8 @@ valid pairs first; the port takes the valid pairs only, so it reads the
 leading rows of each recorded draw.
 
 Tolerance 2e-5 relative (1e-6 absolute) on losses: float32 sums over up to
-16 x 256 entries in another order.
+16 x 256 entries in another order. The `grid` mode's four main cases are in
+tests/test_torch_criterion_grid.py.
 """
 
 import numpy as np
@@ -111,24 +112,6 @@ def _run_both(monkeypatch, jc, tc, outputs, jt, tt, assignments):
 def _assignments(rng, layers, b, q, n):
     return np.stack([np.stack([rng.permutation(q)[:n] for _ in range(b)])
                      for _ in range(layers)]).astype(np.int64)
-
-
-@pytest.mark.parametrize("importance", [1.0, 0.75])
-@pytest.mark.parametrize("with_dn", [False, True])
-def test_grid_mode_losses_match_jax(monkeypatch, with_dn, importance):
-    """`grid` mode (the JAX default): with importance 1.0 no draw is needed,
-    with 0.75 the Bernoulli extras are the recorded ones. Invalid slots in
-    both images; DN with scalar 2 over all slots."""
-    b, q, n, h, w, layers = 2, 10, 5, 16, 16, 3
-    rng = np.random.RandomState(3)
-    jt, tt = _targets(rng, b, n, 64, [[1, 1, 1, 0, 0], [1, 0, 0, 0, 0]])
-    meta = {"pad_size": 2 * n, "max_num": n, "scalar": 2}
-    outputs = _outputs(rng, b, q, h, w, layers, 2 * n if with_dn else 0, meta)
-    jc, tc = _criteria("grid", 512, 128, importance)
-    got = _run_both(monkeypatch, jc, tc, outputs, jt, tt, _assignments(rng, layers, b, q, n))
-    assert len(got) == 6 * layers
-    if not with_dn:
-        assert all(got[k].item() == 0.0 for k in got if "_dn" in k)
 
 
 def test_grid_mode_dn_block_cut_to_max_num_matches_jax(monkeypatch):

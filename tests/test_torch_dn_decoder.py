@@ -9,7 +9,8 @@ inside the JAX decoder and hands the port the same numbers in the same order
 by replacing the one function the port's decoder draws with.
 
 Tolerances as tests/test_torch_slice.py (float32 on both sides): logits 1e-3,
-mask logits 1e-2.
+mask logits 1e-2. The model-level DN outputs are held in
+tests/test_torch_dn_outputs.py.
 """
 
 import numpy as np
@@ -117,12 +118,16 @@ def assert_outputs_match(got, want, dn_queries):
         check(g, w, f"dn aux {i}")
 
 
-@pytest.fixture(scope="module")
-def base():
+def seeded_base():
     """Seeded, perturbed JAX params and an image: the DN settings change no
     parameter's shape, so every case shares them."""
     _, _, params, _, _, img = _build_pair(SMALL + DN, IMG)
     return params, img
+
+
+@pytest.fixture(scope="module")
+def base():
+    return seeded_base()
 
 
 def models_for(params, overrides):
@@ -157,39 +162,6 @@ def run_pair(monkeypatch, base, overrides, counts=(3, 1), n=6, dn_groups=None):
     got = tmodel(torch.from_numpy(img), tt, dn_groups=dn_groups)
     assert not recorded, "the port drew fewer times than the JAX decoder"
     return got, want
-
-
-@pytest.mark.parametrize("num_dn,dn_max_gt,queries", [(1, 0, 6), (5, 4, 20)])
-def test_dn_outputs_match_jax_without_noise(monkeypatch, base, num_dn, dn_max_gt, queries):
-    """NUM_DN 1 (the released recipe) and 5; TPU.DN_MAX_GT 4 cuts the block
-    from 6 slots a group to 4. Slots without an instance are in the block."""
-    got, want = run_pair(monkeypatch, base, ["MODEL.DN.NUM_DN", str(num_dn), "MODEL.DN.NOISE_SCALE",
-                                       "0.0", "MODEL.MASK_FORMER.LB_NOISE_RATIO", "0.0",
-                                       "TPU.DN_MAX_GT", str(dn_max_gt)])
-    assert_outputs_match(got, want, queries)
-    assert got["pred_logits"].shape[1] == 8
-
-
-def test_dn_outputs_match_jax_with_recorded_label_and_point_noise(monkeypatch, base):
-    """Class-flip noise 0.5 and point noise 0.4 on the attention masks of two
-    groups, refreshed in every layer (ALL_LY_DN): the JAX side's draws."""
-    got, want = run_pair(monkeypatch, base, ["MODEL.DN.NUM_DN", "2", "MODEL.DN.NOISE_SCALE", "0.4",
-                                       "MODEL.MASK_FORMER.LB_NOISE_RATIO", "0.5",
-                                       "TPU.DN_MAX_GT", "0"])
-    assert_outputs_match(got, want, 12)
-
-
-def test_dn_budget_rule_with_compute_dn_groups(monkeypatch, base):
-    """NUM_DN >= 100 is a budget of DN queries: groups = budget // batch max,
-    the block cut to groups * batch_max (here 33 * 3 = 99 queries)."""
-    _, tt = make_targets()
-    groups = compute_dn_groups(100, tt.valid)
-    assert groups == jax_compute_dn_groups(100, tt.valid.numpy()) == (33, 3)
-    got, want = run_pair(monkeypatch, base, ["MODEL.DN.NUM_DN", "100", "MODEL.DN.NOISE_SCALE", "0.0",
-                                       "MODEL.MASK_FORMER.LB_NOISE_RATIO", "0.0",
-                                       "TPU.DN_MAX_GT", "4"], dn_groups=groups)
-    assert_outputs_match(got, want, 99)
-    assert got["dn_out"]["dn_args"] == {"max_num": 3, "pad_size": 99, "scalar": 33}
 
 
 @pytest.mark.parametrize("scalar,counts,bucket", [(100, (7, 3), 1), (150, (7, 3), 1), (5, (7, 3), 1),

@@ -1,6 +1,6 @@
 """The port's matcher against the JAX package's (`mp_former_tpu/models/
-matcher.py`): pairwise costs, the invalid-column fill, the cost matrix on
-shared points, and the assignments.
+matcher.py`): pairwise costs, the invalid-column fill and the assignments
+(the cost matrix on shared points: tests/test_torch_matcher_costs.py).
 
 Tolerances: 1e-5 absolute on costs of magnitude ~1 (float32 sums over the
 points in another order); assignments are compared exactly, on costs that have
@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 from mp_former_tpu.models import matcher as jm
@@ -57,29 +56,6 @@ def test_fill_invalid_columns_matches_jax():
     want = np.asarray(jm.fill_invalid_columns(jnp.asarray(cost), jnp.asarray(valid)))
     got = tm.fill_invalid_columns(torch.from_numpy(cost), torch.from_numpy(valid)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("valid_counts", [(3, 1), (5, 0)])
-def test_cost_matrix_matches_jax_on_shared_points(valid_counts):
-    rng = np.random.RandomState(2)
-    b, q, n, h, w, points = 2, 8, 5, 16, 16, 256
-    t = _targets(rng, b, n, 64, 64, valid_counts)
-    logits = rng.randn(b, q, 6).astype(np.float32)
-    masks = rng.randn(b, q, h, w).astype(np.float32) * 2
-    key = jax.random.PRNGKey(7)
-    coords = np.asarray(jax.random.uniform(key, (b, points, 2)))  # what the JAX matcher draws
-    jt, tt = _both(t)
-    want = np.asarray(jm.match_cost_matrix(jnp.asarray(logits), jnp.asarray(masks), jt, points,
-                                           2.0, 5.0, 5.0, key))
-    got = tm.match_cost_matrix(torch.from_numpy(logits), torch.from_numpy(masks), tt, points,
-                               2.0, 5.0, 5.0, coords=torch.from_numpy(coords)).numpy()
-    assert got.shape == want.shape == (b, q, n)
-    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
-    # the matcher class, and its assignment against the JAX package's host solver
-    matcher = tm.HungarianMatcher(2.0, 5.0, 5.0, points)
-    assign = matcher(torch.from_numpy(logits), torch.from_numpy(masks), tt,
-                     coords=torch.from_numpy(coords)).numpy()
-    np.testing.assert_array_equal(assign, jm._lsa_host(want))
 
 
 def test_assignments_match_the_jax_host_solver_and_are_permutations():

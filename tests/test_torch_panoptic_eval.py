@@ -95,11 +95,11 @@ def _cfgs(overrides):
     return out
 
 
-def test_build_evaluator_matches_jax_under_every_switch(caplog):
+def test_build_evaluator_matches_jax_under_every_switch(caplog, tmp_path):
     """The task lists of both packages for each of the 8 combinations; a
     split without semantic ground truth skips the semantic evaluator with a
-    warning; where no evaluator is left both raise. LVIS raises in the port
-    and names A16c."""
+    warning; where no evaluator is left both raise. LVIS builds the same
+    entries in both."""
     records = [{"image_id": 0, "height": 4, "width": 4, "annotations": [],
                 "pan_seg_file_name": "x.npy", "segments_info": []}]
     with_gt = [dict(records[0], sem_seg_file_name="y.npy")]
@@ -128,9 +128,17 @@ def test_build_evaluator_matches_jax_under_every_switch(caplog):
             assert [e.task for e in got.entries] == [e.task for e in want.entries]
             if name.endswith("no_gt") and bits & 4:
                 assert "semantic" not in got.tasks and "no sem_seg_file_name" in caplog.text
-    MetadataCatalog.get("torch_pan_build_lvis").set(evaluator_type="lvis")
-    with pytest.raises(NotImplementedError, match="A16c"):
-        build_evaluator(tcfg, "torch_pan_build_lvis", records)
+    lvis_json = str(tmp_path / "lvis.json")
+    with open(lvis_json, "w") as f:
+        json.dump({"images": [{"id": 0, "height": 4, "width": 4}],
+                   "categories": [{"id": 1, "name": "a", "frequency": "c"}],
+                   "annotations": []}, f)
+    for meta in (MetadataCatalog, JaxMetadataCatalog):
+        meta.get("torch_pan_build_lvis").set(evaluator_type="lvis", json_file=lvis_json)
+    got = build_evaluator(tcfg, "torch_pan_build_lvis", records)
+    want = jax_build_evaluator(jcfg, "torch_pan_build_lvis", records)
+    assert [(e.task, type(e.evaluator).__name__) for e in got.entries] == \
+        [(e.task, type(e.evaluator).__name__) for e in want.entries] == [("instance", "LVISEvaluator")]
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,6 @@
-"""`grid_sample` / `point_sample` of the port against the JAX package's
-(`mp_former_tpu/utils/interp.py:116,169`), same inputs made with numpy.
+"""`point_sample` of the port against the JAX package's
+(`mp_former_tpu/utils/interp.py:169`), same inputs made with numpy
+(`grid_sample`: tests/test_torch_grid_sample.py).
 
 Tolerance 1e-5 absolute on values of magnitude ~1: both are float32 bilinear
 sums of four taps; the two round the pixel coordinate in a different order.
@@ -15,21 +16,6 @@ from mp_former_tpu.utils import interp as jinterp
 from mp_former_tpu_torch.utils import interp as tinterp
 
 TOL = 1e-5
-
-
-@pytest.mark.parametrize("align_corners", [False, True])
-@pytest.mark.parametrize("B,H,W,C,P", [(2, 7, 9, 3, 50), (1, 16, 16, 1, 256), (3, 1, 5, 2, 11)])
-def test_grid_sample_matches_jax(B, H, W, C, P, align_corners):
-    rng = np.random.RandomState(0)
-    x = rng.randn(B, H, W, C).astype(np.float32)
-    # a tenth of the range lies off the map: zero padding
-    grid = (rng.rand(B, P, 2) * 2.4 - 1.2).astype(np.float32)
-    want = np.asarray(jinterp.grid_sample(jnp.asarray(x), jnp.asarray(grid),
-                                          align_corners=align_corners))
-    got = tinterp.grid_sample(torch.from_numpy(x), torch.from_numpy(grid),
-                              align_corners=align_corners).numpy()
-    assert got.shape == want.shape == (B, P, C)
-    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
 
 
 @pytest.mark.parametrize("B,H,W,C,P", [(2, 16, 24, 5, 300), (1, 4, 4, 1, 7)])

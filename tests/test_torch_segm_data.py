@@ -188,7 +188,7 @@ def _metadata(meta):
 
 def test_registrations_match_jax_and_npy_twins_pair(trees):
     """`register_all` and `register_more` under both packages on the PNG tree:
-    the same names (less LVIS, A16c), records and metadata; on the `.npy`
+    the same names (LVIS v1 included), records and metadata; on the `.npy`
     tree the port's records are those with every file through its twin."""
     def registered(register_all, register_more, dataset_catalog, metadata_catalog, root):
         def load(name):  # the tree has no COCO: its panoptic json is missing in both
@@ -208,8 +208,7 @@ def test_registrations_match_jax_and_npy_twins_pair(trees):
                       JaxMetadataCatalog, trees["png"])
     got = registered(port_register.register_all, port_register.register_more, DatasetCatalog,
                      MetadataCatalog, trees["png"])
-    assert set(want) - set(got) == {"lvis_v1_train", "lvis_v1_val"}
-    assert set(got) <= set(want)
+    assert set(got) == set(want) and {"lvis_v1_train", "lvis_v1_val"} <= set(got)
     sizes = {}
     for name, (records, meta) in got.items():
         assert records == want[name][0], name

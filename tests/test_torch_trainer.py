@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from mp_former_tpu_torch.config import add_deeplab_config, add_maskformer2_config, get_cfg
-from mp_former_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
+from mp_former_tpu_torch.data.catalog import DatasetCatalog
 from mp_former_tpu_torch.data.datasets.coco import register_coco_instances
 from mp_former_tpu_torch.engine import trainer as trainer_mod
 from mp_former_tpu_torch.engine.trainer import Trainer
@@ -120,19 +120,20 @@ def test_trainer_closes_its_loader_when_a_step_raises(dataset, tmp_path, monkeyp
 
 
 def test_test_skips_datasets_the_port_cannot_evaluate(dataset, tmp_path, caplog):
-    # LVIS is the one evaluator type the port does not evaluate yet (ROADMAP A16c)
-    MetadataCatalog.get("torch_trainer_lvis").set(evaluator_type="lvis")
-    if "torch_trainer_lvis" not in DatasetCatalog:
-        DatasetCatalog.register("torch_trainer_lvis", lambda: [])
-    cfg = _cfg(tmp_path, ["DATASETS.TEST", "('torch_trainer_lvis', 'not_registered')"])
+    # a dataset registered without an evaluator_type has no evaluator (every
+    # type the JAX package dispatches on is evaluated, LVIS included)
+    if "torch_trainer_untyped" not in DatasetCatalog:
+        DatasetCatalog.register("torch_trainer_untyped", lambda: [])
+    cfg = _cfg(tmp_path, ["DATASETS.TEST", "('torch_trainer_untyped', 'not_registered')"])
     trainer = Trainer(cfg, train_loader=iter(()), model=_seeded_model(cfg), device="cpu")
     trainer.model.eval()
     with caplog.at_level(logging.WARNING):
         assert trainer.test() is None
-    assert "ROADMAP A16" in caplog.text and "not_registered not registered" in caplog.text
+    assert "no evaluator_type registered for dataset torch_trainer_untyped" in caplog.text
+    assert "not_registered not registered" in caplog.text
     assert not trainer.model.training
     # two datasets: results keyed by name
-    cfg2 = _cfg(tmp_path, ["DATASETS.TEST", "('torch_trainer_val', 'torch_trainer_lvis')"])
+    cfg2 = _cfg(tmp_path, ["DATASETS.TEST", "('torch_trainer_val', 'torch_trainer_untyped')"])
     trainer.cfg = cfg2
     res = trainer.test(max_images=1)
     assert set(res) == {"torch_trainer_val"} and np.isfinite(res["torch_trainer_val"]["segm"]["AP"])

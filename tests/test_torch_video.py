@@ -3,7 +3,8 @@ temporal position term, the temporal decoder alone on a batch of two clips,
 `VideoMaskFormer` on a 3-frame clip (weights carried by
 `state_dict_from_jax_params`, strict), the converter round trip with the
 video decoder's `query_embed`, and all 12 YouTube-VIS recipes built in the
-port with the JAX model's parameter shapes. The JAX package runs its
+port with the JAX model's parameter shapes (`check_recipe_shapes`, run by
+tests/test_torch_video_recipes_{small,large}.py). The JAX package runs its
 unpadded forward (no `frame_valid`), which the port's whole-clip forward is.
 """
 
@@ -204,12 +205,12 @@ RECIPES = sorted(os.path.relpath(os.path.join(root, f), CONFIGS)
 _JAX_SHAPES = {}
 
 
-@pytest.mark.parametrize("rel", RECIPES)
-def test_video_recipe_builds_with_the_jax_shapes(rel):
-    """Each YouTube-VIS recipe at full width: the port's model on the meta
+def check_recipe_shapes(rel):
+    """A YouTube-VIS recipe at full width: the port's model on the meta
     device, through the JAX importer, against `jax.eval_shape` of the JAX
-    model's init, leaf for leaf (one JAX trace a distinct architecture: the
-    2019 and 2021 recipes differ only in their datasets)."""
+    model's init, leaf for leaf (one JAX trace a distinct architecture in a
+    process: the 2019 and 2021 recipes differ only in their datasets). The
+    tests are tests/test_torch_video_recipes_{small,large}.py."""
     jcfg, tcfg = video_cfgs(rel, overrides=["MODEL.WEIGHTS", ""], frames=2)
     assert tcfg.MODEL.META_ARCHITECTURE == "VideoMaskFormer"
     with torch.device("meta"):
