@@ -301,7 +301,23 @@ result line):
     and `demo` (`demo.demo` on two `.npy` images and `predict.main` on one with
     the COCO panoptic recipe, `demo_video.demo` on an 8-frame 720x1280 clip
     with the R50 YouTube-VIS 2019 recipe: K1 6 and K3 9 a forward, their PNGs
-    written; `forward_raw` against the plain ops).
+    written; `forward_raw` against the plain ops);
+32. A21, after `train_coco`, data parallelism through the port's
+    `parallel/` code (`launch`, DDP in `Trainer`, the rank-free draws of
+    `parallel/rows.py`, `sharded_eval_loop`): `ddp_train`, two ranks on the
+    one card over gloo (which carries CUDA tensors for all-reduce and
+    broadcast; NCCL takes one card a rank) run 2 steps of phase 13's recipe
+    at B = 8 (4 images a rank) with `GRAD_ACCUM_STEPS` 1 and 2; step 1 hands
+    each rank the one-process step's attention masks, ReLU decisions and
+    assignments (its rows of them, `PairedAttention`, `PairedRelu`), and the
+    ranks' loss dicts of both steps and all-reduced gradients of step 1 are
+    held against the one-process steps on the 8 images; K1 12, K1 backward
+    6, K3 9, K3 backward 9 a rank and micro-batch; `ddp_eval`, on the same
+    ranks, `run_evaluation` of `train_coco`'s 8 val images with the seeded
+    model: every AP key equal to the one-process run's, each image's
+    detections equal, K1 6 and K3 9 an image; `ddp_nccl`, one rank in an
+    NCCL group: `Trainer` wraps the model in DDP, and its step's gradients
+    equal the undistributed step's; `torch.cuda.nccl.version()` printed.
 
 Every training phase recomputes the pixel decoder's encoder layers in the
 backward, as the recipes' `TPU.REMAT_ENCODER` default says: K1 (or K2) runs
@@ -322,6 +338,7 @@ and power limit, and last the result line `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import json
 import math
@@ -4645,6 +4662,384 @@ def phase_demo(torch, card: str) -> dict:
     return {"launches": launches, **flips}
 
 
+# A21: data parallelism. Two ranks share the one card over gloo; each takes
+# its block of 4 of phase train's B = 8 images
+DDP_ROOT = os.path.join(REPO, "output", "chip_smoke_ddp")
+DDP_RANKS, DDP_ACCUMS, DDP_STEPS = 2, (1, 2), 2
+DDP_VAL = "chip_smoke_ddp_val"
+DDP_ORACLE_JSON = os.path.join(DDP_ROOT, "oracle_val.json")
+DDP_ORACLE_TOP = 3  # detections of each image that become its ground truth
+
+
+def ddp_cfg(accum: int):
+    return load_cfg(CONFIG, [*TRAIN_OVERRIDES, "TPU.GRAD_ACCUM_STEPS", str(accum),
+                             "DATASETS.TEST", f"('{DDP_VAL}',)",
+                             "OUTPUT_DIR", os.path.join(DDP_ROOT, f"accum{accum}")])
+
+
+def pack_bools(t) -> tuple:
+    return np.packbits(t.cpu().numpy().reshape(-1)), tuple(t.shape)
+
+
+def unpack_bools(torch, packed) -> "torch.Tensor":
+    bits, shape = packed
+    n = int(np.prod(shape))
+    return torch.from_numpy(np.unpackbits(bits)[:n].reshape(shape).astype(bool)).cuda()
+
+
+def recorded_step(torch, trainer, batch) -> dict:
+    """One `Trainer` step with its decisions kept: the losses, the gradients,
+    the decoder's attention masks and the ReLU decisions (in call order, a
+    micro-batch after the other), the matcher's assignments a micro-batch."""
+    pairing, relu = PairedAttention(trainer.model), PairedRelu()
+    solved, solve = [], trainer.criterion.assign
+
+    def assign(costs):
+        solved.append(solve(costs))
+        return solved[-1]
+
+    trainer.criterion.assign = assign
+    try:
+        with pairing.recording(), relu.recording():
+            metrics = trainer.run_step(batch)
+    finally:
+        del trainer.criterion.assign
+    grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()
+             if p.grad is not None}
+    return {"losses": {k: float(v) for k, v in metrics.items()}, "grads": grads,
+            "attn": pairing.kept, "relu": relu.kept, "assign": solved}
+
+
+def rank_rows(record: dict, accum: int, rank: int, ranks: int = DDP_RANKS) -> dict:
+    """Rank `rank`'s rows (of `ranks`) of a one-process step's decisions:
+    micro-batch m of the one-process step holds rows m, m + accum, ... of the
+    batch, and the rank's block of the batch is a block of each micro-batch."""
+    rows = TRAIN_BATCH // accum // ranks
+    mine = slice(rank * rows, (rank + 1) * rows)
+    out = {}
+    for key in ("attn", "relu"):
+        per_micro = len(record[key]) // accum
+        if per_micro * accum != len(record[key]):
+            raise AssertionError(f"ddp_train: {len(record[key])} {key} calls over {accum} "
+                                 "micro-batches")
+        out[key] = [pack_bools(t[mine]) for t in record[key]]
+    out["assign"] = [a[:, mine].cpu() for a in record["assign"]]
+    return out
+
+
+@contextlib.contextmanager
+def replaying(torch, trainer, decisions: dict):
+    """The model and criterion take the handed decisions (`rank_rows`) in
+    call order; yields the pairings, whose `flips` and `margin` count the
+    decisions this run would have taken otherwise."""
+    pairing, relu = PairedAttention(trainer.model), PairedRelu()
+    pairing.kept = [unpack_bools(torch, t) for t in decisions["attn"]]
+    relu.kept = [unpack_bools(torch, t) for t in decisions["relu"]]
+    handed = iter(a.cuda() for a in decisions["assign"])
+    trainer.criterion.assign = lambda costs: next(handed)
+    try:
+        with pairing.replaying(), relu.replaying():
+            yield pairing, relu
+    finally:
+        del trainer.criterion.assign
+    if pairing.kept or relu.kept or next(handed, None) is not None:
+        raise AssertionError("the step took fewer decisions than were handed to it")
+
+
+def register_ddp_val(json_file: str) -> None:
+    from mp_former_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
+    from mp_former_tpu_torch.data.datasets.coco import register_coco_instances
+
+    DatasetCatalog._registry.pop(DDP_VAL, None)
+    MetadataCatalog._meta.pop(DDP_VAL, None)
+    register_coco_instances(DDP_VAL, json_file, os.path.join(COCO_ROOT, "coco", "val2017"))
+
+
+def write_ddp_oracle(detections: dict, num_classes: int) -> None:
+    """`train_coco`'s val images with the seeded model's own DDP_ORACLE_TOP
+    best detections of each as ground truth (uncompressed RLE, one category
+    a model class), so that AP measures something at random weights."""
+    with open(os.path.join(COCO_ROOT, "coco", "annotations", "instances_val2017.json")) as f:
+        data = json.load(f)
+    annotations = []
+    for image in data["images"]:
+        scores, classes, packed = detections[image["id"]]
+        masks = np.unpackbits(packed)[:len(scores) * image["height"] * image["width"]].reshape(
+            len(scores), image["height"], image["width"]).astype(bool)
+        for k in np.argsort(-scores, kind="stable")[:DDP_ORACLE_TOP]:
+            ys, xs = np.nonzero(masks[k])
+            if not len(ys):
+                continue
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": image["id"],
+                "category_id": int(classes[k]) + 1, "iscrowd": 0, "area": int(len(ys)),
+                "bbox": [int(xs.min()), int(ys.min()), int(np.ptp(xs)) + 1, int(np.ptp(ys)) + 1],
+                "segmentation": uncompressed_rle(masks[k])})
+    data["annotations"] = annotations
+    data["categories"] = [{"id": c + 1, "name": f"class-{c}"} for c in range(num_classes)]
+    with open(DDP_ORACLE_JSON, "w") as f:
+        json.dump(data, f)
+
+
+def ddp_detections(torch, cfg, model) -> tuple:
+    """`run_evaluation` of DDP_VAL; (its results, each image's detections:
+    scores, classes, packed masks)."""
+    from mp_former_tpu_torch.engine.eval_loop import run_evaluation
+    from mp_former_tpu_torch.evaluation.build import EvaluatorSet
+
+    seen, process = {}, EvaluatorSet.process
+
+    def keep(self, record, outputs):
+        scores, classes, masks = outputs["instance"]
+        seen[record["image_id"]] = (np.asarray(scores), np.asarray(classes),
+                                    np.packbits(np.asarray(masks).reshape(-1)))
+        return process(self, record, outputs)
+
+    with mock.patch.object(EvaluatorSet, "process", keep), torch.no_grad():
+        results = run_evaluation(cfg, model, DDP_VAL)
+    return results, seen
+
+
+def ddp_worker(out_dir: str) -> None:
+    """One of the DDP_RANKS ranks of phases ddp_train and ddp_eval: every
+    accumulation setting of DDP_ACCUMS (DDP_STEPS steps, the first taking the
+    handed decisions), then the evaluation; what the parent holds, saved."""
+    import torch
+
+    from mp_former_tpu_torch.engine.trainer import Trainer
+    from mp_former_tpu_torch.parallel.dist import get_rank, get_world_size
+    from mp_former_tpu_torch.structures import Batch, Targets
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = get_rank(), get_world_size()
+    batches = torch.load(os.path.join(out_dir, "batches.pt"), weights_only=False)
+    rows = slice(rank * TRAIN_BATCH // world, (rank + 1) * TRAIN_BATCH // world)
+    local = [Batch(b.images[rows], Targets(*(t[rows] for t in b.targets))) for b in batches]
+    out = {"rank": rank, "world": world}
+    start = seeded_model(torch, ddp_cfg(1))  # the accumulation settings share the model
+    for accum in DDP_ACCUMS:
+        cfg = ddp_cfg(accum)
+        decisions = torch.load(os.path.join(out_dir, f"accum{accum}_rank{rank}.pt"),
+                               weights_only=False)
+        trainer = Trainer(cfg, iter(()), model=copy.deepcopy(start), device="cuda")
+        losses, counts = [], []
+        for step, batch in enumerate(local):
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            with replaying(torch, trainer, decisions) if step == 0 else \
+                    contextlib.nullcontext((None, None)) as (pairing, relu):
+                metrics = trainer.run_step(batch)
+            torch.cuda.synchronize()
+            losses.append({k: float(v) for k, v in metrics.items()})
+            counts.append(kernel_counts(backward=True))
+            if step == 0:
+                out[f"accum{accum}_flips"] = (pairing.flips, pairing.margin, relu.flips,
+                                              relu.margin)
+                out[f"accum{accum}_grads"] = {n: p.grad.detach().cpu() for n, p in
+                                              trainer.model.named_parameters()
+                                              if p.grad is not None} if rank == 0 else \
+                    {n: float(p.grad.abs().sum()) for n, p in trainer.model.named_parameters()
+                     if p.grad is not None}
+            out[f"accum{accum}_step{step}_s"] = time.perf_counter() - t0
+        out[f"accum{accum}_losses"], out[f"accum{accum}_counts"] = losses, counts
+        out[f"accum{accum}_ddp"] = type(trainer.step_model).__name__
+        del trainer
+        torch.cuda.empty_cache()
+    register_ddp_val(DDP_ORACLE_JSON)
+    cfg = ddp_cfg(1)
+    model = start.cuda()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    out["eval"], out["detections"] = ddp_detections(torch, cfg, model)
+    out["eval_s"] = time.perf_counter() - t0
+    out["eval_counts"] = kernel_counts()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def hold_ddp_step(torch, phase: str, got_losses, got_grads, want: dict) -> dict:
+    """A distributed step's losses and all-reduced gradients against the
+    one-process step's (phase train's tolerances)."""
+    loss_err = max(abs(got_losses[k] - v) / max(abs(v), 1e-6) for k, v in want["losses"].items())
+    if got_losses.keys() != want["losses"].keys() or got_grads.keys() != want["grads"].keys():
+        raise AssertionError(f"{phase}: other losses or gradients than the one-process step's")
+    errs = sorted(((rel_err(got_grads[n].cuda(), g), n) for n, g in want["grads"].items()),
+                  reverse=True)
+    if not (loss_err <= TRAIN_LOSS_TOL and errs[0][0] <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"{phase}: the distributed step is not the one-process step: "
+                             f"losses {loss_err:.3e}, gradients {errs[:3]}")
+    return {"loss_max_rel_err": loss_err, "grad_max_rel_err": errs[0][0],
+            "worst": [(n, f"{e:.2e}") for e, n in errs[:3]], "gradients": len(errs)}
+
+
+def phase_ddp(torch, card: str) -> dict:
+    """Phases ddp_train and ddp_eval (item 32): the one-process steps and
+    evaluation here, then the two ranks through `launch`, held against them."""
+    import shutil
+
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from mp_former_tpu_torch.engine.trainer import Trainer
+    from mp_former_tpu_torch.parallel.dist import launch
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DDP_ROOT, ignore_errors=True)
+    os.makedirs(DDP_ROOT)
+    gen = synthetic_batches(TRAIN_BATCH, TRAIN_SIZE, 80, TRAIN_MAX_INSTANCES, seed=SEED + 2)
+    batches = [next(gen) for _ in range(DDP_STEPS)]
+    torch.save(batches, os.path.join(DDP_ROOT, "batches.pt"))
+    one = {}
+    start = seeded_model(torch, ddp_cfg(1))  # the accumulation settings share the model
+    for accum in DDP_ACCUMS:
+        cfg = ddp_cfg(accum)
+        trainer = Trainer(cfg, iter(()), model=copy.deepcopy(start), device="cuda")
+        first = recorded_step(torch, trainer, batches[0])
+        for rank in range(DDP_RANKS):
+            torch.save(rank_rows(first, accum, rank),
+                       os.path.join(DDP_ROOT, f"accum{accum}_rank{rank}.pt"))
+        second = {k: float(v) for k, v in trainer.run_step(batches[1]).items()}
+        one[accum] = {"first": first, "second": second}
+        if accum != 1:  # phase ddp_nccl takes accum 1's decisions
+            del first["attn"], first["relu"]
+        del trainer, first
+        torch.cuda.empty_cache()
+        log("ddp_train", one_process_accum=accum, at=f"{time.perf_counter() - t_phase:.1f}")
+    # the ground truth of the evaluation: the one-process run's own best detections
+    register_ddp_val(os.path.join(COCO_ROOT, "coco", "annotations", "instances_val2017.json"))
+    cfg = ddp_cfg(1)
+    model = start.cuda()
+    write_ddp_oracle(ddp_detections(torch, cfg, model)[1], cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+    register_ddp_val(DDP_ORACLE_JSON)
+    reset_kernel_counts()
+    one_eval, one_dets = ddp_detections(torch, cfg, model)
+    one_eval_counts = kernel_counts()
+    if not one_eval["segm"]["AP"] > 10:
+        raise AssertionError(f"ddp_eval: the oracle scores AP {one_eval['segm']['AP']}")
+    log("ddp_eval", one_process=True, at=f"{time.perf_counter() - t_phase:.1f}")
+    del model, start
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    launch(ddp_worker, DDP_RANKS, backend="gloo", args=(DDP_ROOT,))
+    ranks_s = time.perf_counter() - t_ranks
+    ranks = [torch.load(os.path.join(DDP_ROOT, f"rank{r}.pt"), weights_only=False)
+             for r in range(DDP_RANKS)]
+
+    launches = {}
+    for accum in DDP_ACCUMS:
+        phase = f"ddp_train_accum{accum}"
+        expected = step_expected(TRAIN_EXPECTED, True, accum)
+        for r in ranks:
+            if r[f"accum{accum}_counts"] != [expected] * DDP_STEPS:
+                raise AssertionError(f"{phase}: rank {r['rank']} launched "
+                                     f"{r[f'accum{accum}_counts']} in its steps, expected "
+                                     f"{expected} each")
+            if r[f"accum{accum}_ddp"] != "DistributedDataParallel":
+                raise AssertionError(f"{phase}: rank {r['rank']} stepped "
+                                     f"{r[f'accum{accum}_ddp']}, not DDP")
+            flips = r[f"accum{accum}_flips"]
+            if max(flips[1], flips[3]) > max(ATTN_FLIP_MARGIN, RELU_FLIP_MARGIN):
+                raise AssertionError(f"{phase}: rank {r['rank']} would take a decision "
+                                     f"otherwise far from 0: {flips}")
+        rank0 = ranks[0]
+        held = hold_ddp_step(torch, phase, rank0[f"accum{accum}_losses"][0],
+                             rank0[f"accum{accum}_grads"], one[accum]["first"])
+        # both ranks hold the all-reduced gradients
+        sums = {n: float(g.abs().sum()) for n, g in rank0[f"accum{accum}_grads"].items()}
+        other = ranks[1][f"accum{accum}_grads"]
+        if sums.keys() != other.keys() or any(abs(sums[n] - other[n]) > 1e-6 * max(sums[n], 1e-30)
+                                              for n in sums):
+            raise AssertionError(f"{phase}: the ranks hold different gradients")
+        second_err = max(abs(r[f"accum{accum}_losses"][1][k] - v) / max(abs(v), 1e-6)
+                         for r in ranks for k, v in one[accum]["second"].items())
+        if any(r[f"accum{accum}_losses"][1] != ranks[0][f"accum{accum}_losses"][1]
+               for r in ranks) or second_err > TRAIN_LOSS_TOL:
+            raise AssertionError(f"{phase}: step 2's losses {second_err:.3e} from the "
+                                 "one-process step's, or the ranks' differ")
+        launches[phase] = rank0[f"accum{accum}_counts"][0]
+        log(phase, ranks=DDP_RANKS, backend="gloo", batch=f"{TRAIN_BATCH}x{TRAIN_SIZE}",
+            rows_a_rank=TRAIN_BATCH // DDP_RANKS, steps=DDP_STEPS,
+            launches_a_rank_and_step=launches[phase], expected=expected,
+            step1_loss_max_rel_err=f"{held['loss_max_rel_err']:.3e}",
+            step1_grad_max_rel_err=f"{held['grad_max_rel_err']:.3e}", tol=TRAIN_GRAD_TOL,
+            gradients=held["gradients"], worst=held["worst"],
+            step2_loss_max_rel_err=f"{second_err:.3e}", loss_tol=TRAIN_LOSS_TOL,
+            decisions_taken_otherwise=[r[f"accum{accum}_flips"] for r in ranks],
+            rank_step_s=[[f"{r[f'accum{accum}_step{s}_s']:.3f}" for s in range(DDP_STEPS)]
+                         for r in ranks], card=repr(card))
+
+    n = len(one_dets)
+    for r in ranks:
+        mine = len(r["detections"])
+        if r["eval_counts"] != {k: v * mine for k, v in COCO_EVAL_EXPECTED.items()
+                                if k in r["eval_counts"]}:
+            raise AssertionError(f"ddp_eval: rank {r['rank']} launched {r['eval_counts']} "
+                                 f"over {mine} images")
+        if json.dumps(r["eval"], sort_keys=True) != json.dumps(one_eval, sort_keys=True):
+            raise AssertionError(f"ddp_eval: rank {r['rank']} merged {r['eval']}, one "
+                                 f"process {one_eval}")
+    dets = {k: v for r in ranks for k, v in r["detections"].items()}
+    if sorted(dets) != sorted(one_dets) or n != COCO_VAL_IMAGES:
+        raise AssertionError(f"ddp_eval: images {sorted(dets)}, one process {sorted(one_dets)}")
+    score_err = max(float(np.abs(dets[i][0] - one_dets[i][0]).max()) for i in dets)
+    other_classes = sum(int(not np.array_equal(dets[i][1], one_dets[i][1])) for i in dets)
+    pixels = sum(dets[i][2].size * 8 for i in dets)
+    other_pixels = sum(int(np.unpackbits(dets[i][2] ^ one_dets[i][2]).sum()) for i in dets)
+    log("ddp_eval", ranks=DDP_RANKS, images=n, images_a_rank=[len(r["detections"]) for r in ranks],
+        launches_a_rank=[r["eval_counts"] for r in ranks], one_process=one_eval_counts,
+        AP=f"{one_eval['segm']['AP']:.4f}", every_key_equal=True,
+        score_max_abs_err=f"{score_err:.3e}", images_with_other_classes=other_classes,
+        mask_pixels_other=other_pixels, mask_pixels=pixels,
+        rank_eval_s=[f"{r['eval_s']:.2f}" for r in ranks], card=repr(card))
+    if score_err > 1e-5 or other_classes or other_pixels > 1e-5 * pixels:
+        raise AssertionError(f"ddp_eval: detections differ from one process: scores "
+                             f"{score_err}, classes in {other_classes} images, "
+                             f"{other_pixels} mask pixels")
+    launches["ddp_eval"] = ranks[0]["eval_counts"]
+    log("ddp", two_ranks_s=f"{ranks_s:.1f}", phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    return {"launches": launches, "one": one[1]["first"], "batch": batches[0]}
+
+
+def phase_ddp_nccl(torch, card: str, one: dict, batch) -> dict:
+    """One rank in an NCCL group: `Trainer` wraps the model in DDP, and the
+    step (given the one-process step's decisions) gives its gradients."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mp_former_tpu_torch.engine.trainer import Trainer
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        cfg = ddp_cfg(1)
+        trainer = Trainer(cfg, iter(()), model=seeded_model(torch, cfg), device="cuda")
+        if type(trainer.step_model).__name__ != "DistributedDataParallel":
+            raise AssertionError("ddp_nccl: Trainer did not wrap the model in DDP")
+        decisions = rank_rows(one, 1, 0, ranks=1)
+        reset_kernel_counts()
+        with replaying(torch, trainer, decisions) as (pairing, relu):
+            metrics = trainer.run_step(batch)
+        launches = kernel_counts(backward=True)
+        grads = {n: p.grad.detach() for n, p in trainer.model.named_parameters()
+                 if p.grad is not None}
+        held = hold_ddp_step(torch, "ddp_nccl", {k: float(v) for k, v in metrics.items()},
+                             grads, one)
+    finally:
+        dist.destroy_process_group()
+    expected = step_expected(TRAIN_EXPECTED, True)
+    log("ddp_nccl", backend="nccl", nccl=torch.cuda.nccl.version(), world_size=1,
+        launches=launches, expected=expected,
+        loss_max_rel_err=f"{held['loss_max_rel_err']:.3e}",
+        grad_max_rel_err=f"{held['grad_max_rel_err']:.3e}", tol=TRAIN_GRAD_TOL,
+        decisions_taken_otherwise=(pairing.flips, pairing.margin, relu.flips, relu.margin),
+        card=repr(card))
+    if launches != expected:
+        raise AssertionError(f"ddp_nccl: launches {launches}, expected {expected}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4720,6 +5115,12 @@ def main() -> int:
                                       TRAIN_TPU_EXPECTED, busy=True)
     torch.cuda.empty_cache()
     train_coco = phase_train_coco(torch, card)
+    torch.cuda.empty_cache()
+    # A21: two ranks train and evaluate, then one rank in an NCCL group
+    ddp = phase_ddp(torch, card)
+    torch.cuda.empty_cache()
+    ddp["launches"]["ddp_nccl"] = phase_ddp_nccl(torch, card, ddp["one"], ddp["batch"])
+    del ddp["one"]
     torch.cuda.empty_cache()
     accum = phase_accum(torch, card)
     torch.cuda.empty_cache()
@@ -4800,7 +5201,7 @@ def main() -> int:
                "train_dn_modes": train_dn_modes,
                **{f"slice_{k}": v for k, v in maskformer1.items()},
                "eval_lvis": eval_lvis["launches"], "tta_semantic": tta_semantic["launches"],
-               **demos["launches"]}
+               **demos["launches"], **ddp["launches"]}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",

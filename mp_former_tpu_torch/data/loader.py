@@ -9,6 +9,14 @@ images, int64 labels, bool masks at the mapper's stride, float32 boxes, bool
 valid), pinned where the trainer copies it to a CUDA device, so that the copy
 can run without blocking. The JAX package's bit-packing collate serves its
 runtime's host link and is not ported.
+
+With several data-parallel ranks, rank r yields rows [r B / W, (r + 1) B / W)
+of the batch the one-process loader yields at that step, with the same
+augmentation draws. Which samples fill a batch depends on what the mapper
+returns (an unreadable image or an empty crop is skipped, and batches fill
+by canvas shape), so no rank can know its rows without the others' results:
+every rank runs the one-process stream and maps every row, as every process
+of the JAX package loads the whole batch, and collates its own block.
 """
 
 from __future__ import annotations
@@ -44,8 +52,12 @@ class TrainLoader:
     def __init__(self, records: List[dict], mapper: Callable, batch_size: int,
                  seed: int = 0, num_workers: int = 4, prefetch: int = 2,
                  filter_empty: bool = True, collate_fn: Optional[Callable] = None,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, rank: int = 0, world_size: int = 1):
+        if batch_size % world_size:
+            raise ValueError(f"a batch of {batch_size} does not split over {world_size} ranks")
         self.records = records
+        # this rank's rows of each batch
+        self.rows = slice(rank * batch_size // world_size, (rank + 1) * batch_size // world_size)
         self.mapper = mapper
         self.collate = collate_fn or functools.partial(collate, pin_memory=pin_memory)
         self.batch_size = batch_size
@@ -116,7 +128,7 @@ class TrainLoader:
                     # eviction victim below
                     groups[key] = groups.pop(key)
                     if len(groups[key]) == self.batch_size:
-                        if not self._put(self.collate(groups.pop(key))):
+                        if not self._put(self.collate(groups.pop(key)[self.rows])):
                             return
                 # rare canvas shapes must not pool samples forever: keep at
                 # most 16 groups, dropping the one that went longest without a
@@ -146,9 +158,11 @@ class TrainLoader:
         self._thread.join(timeout)
 
 
-def build_train_loader(cfg, pin_memory: bool = False) -> TrainLoader:
+def build_train_loader(cfg, pin_memory: bool = False, rank: int = 0,
+                       world_size: int = 1) -> TrainLoader:
     """Reference Trainer.build_train_loader (train_net.py:224-248): records
-    of DATASETS.TRAIN[0] through the mapper INPUT.DATASET_MAPPER_NAME names."""
+    of DATASETS.TRAIN[0] through the mapper INPUT.DATASET_MAPPER_NAME names;
+    rank `rank` of `world_size` takes its block of every batch."""
     from ..utils.registry import DATASET_MAPPER_REGISTRY
     from . import dataset_mappers  # noqa: F401  (registration)
     from .catalog import DatasetCatalog
@@ -160,4 +174,5 @@ def build_train_loader(cfg, pin_memory: bool = False) -> TrainLoader:
     return TrainLoader(
         records, mapper, cfg.SOLVER.IMS_PER_BATCH, seed=max(cfg.SEED, 0),
         num_workers=cfg.DATALOADER.NUM_WORKERS,
-        filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS, pin_memory=pin_memory)
+        filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS, pin_memory=pin_memory,
+        rank=rank, world_size=world_size)

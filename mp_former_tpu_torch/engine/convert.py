@@ -18,6 +18,13 @@ tree trained with `TPU.SAMPLING_ENGINE headshare` converts the same way: only
 the shape of `sampling_offsets` differs, and `load_weights` says so when such
 weights meet a model built for the other engine. `named_gradients_from_jax`
 carries a gradient tree across the same way, for the training tests.
+
+A whole training state crosses both ways (`torch_state_from_jax_train_state`,
+`torch_state_to_jax_train_state`, numpy only): the JAX trainer's `TrainState`
+(step, params, the optax chain's state), as Orbax restores it, against the
+port's `Trainer.save` layout (model, optimizer, scheduler, iteration,
+generator). `tools/convert_orbax_torch.py` reads and writes the Orbax side
+where JAX is installed.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import os
 import pickle
 import re
 from collections import OrderedDict
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -379,10 +386,230 @@ def locate_weights(weights: str) -> Optional[str]:
         raise ValueError(
             f"MODEL.WEIGHTS {weights} is a directory, i.e. an Orbax checkpoint of the JAX "
             "package; the port reads .pth and .pkl files only. Convert it where JAX is "
-            "installed: restore its params with mp_former_tpu.engine.checkpoint_import."
-            "_load_orbax_params, then torch.save({'model': mp_former_tpu_torch.engine.convert."
-            "state_dict_from_jax_params(params)}, 'model.pth') and point MODEL.WEIGHTS at it")
+            "installed: python tools/convert_orbax_torch.py --config-file <the run's yaml> "
+            f"--orbax {weights} --output-dir <dir> (then MODEL.WEIGHTS "
+            "<dir>/checkpoints/model_<step>.pth, or OUTPUT_DIR <dir> --resume)")
     return resolve_checkpoint_path(weights)
+
+
+# -- whole training states: the JAX TrainState <-> the port's Trainer.save --
+
+def _fields(node) -> Optional[Mapping]:
+    """A restored state node's fields: a dict as Orbax restores it without a
+    target, or a namedtuple (optax's states) with one; None for a leaf or a
+    sequence."""
+    if isinstance(node, Mapping):
+        return node
+    if hasattr(node, "_fields"):
+        return node._asdict()
+    return None
+
+
+def _state_nodes(tree) -> Iterator[Mapping]:
+    """The nodes of an optax chain's state, outer first, without descending
+    into the parameter-shaped trees they hold."""
+    fields = _fields(tree)
+    if fields is None:
+        if isinstance(tree, (list, tuple)):
+            for x in tree:
+                yield from _state_nodes(x)
+        return
+    yield fields
+    for k, v in fields.items():
+        if k not in ("mu", "nu", "trace"):
+            yield from _state_nodes(v)
+
+
+def _optax_parts(opt_state):
+    """(the Adam node {count, mu, nu} or None, SGD's trace node or None, the
+    schedule's count node), found by their fields (optax's ScaleByAdamState,
+    TraceState, ScaleByScheduleState)."""
+    adam = trace = schedule = None
+    for node in _state_nodes(opt_state):
+        keys = set(node)
+        if {"count", "mu", "nu"} <= keys and adam is None:
+            adam = node
+        elif "trace" in keys and trace is None:
+            trace = node
+        elif keys == {"count"} and schedule is None:
+            schedule = node
+    if schedule is None or (adam is None) == (trace is None):
+        raise ValueError("not the optax state of the JAX trainer (AdamW or SGD, with a "
+                         "schedule): found " + str([sorted(n) for n in _state_nodes(opt_state)]))
+    return adam, trace, schedule
+
+
+def _as_numpy(tree):
+    fields = _fields(tree)
+    if fields is not None:
+        return {k: _as_numpy(v) for k, v in fields.items()}
+    return np.asarray(tree)
+
+
+def _param_names(optimizer_state: Mapping) -> Dict[int, str]:
+    """The port optimizer's parameter index -> name (`param_groups` keeps
+    each group's `names`)."""
+    return {i: n for g in optimizer_state["param_groups"] for n, i in zip(g["names"], g["params"])}
+
+
+def torch_state_from_jax_train_state(train_state, cfg) -> Dict[str, Any]:
+    """The JAX trainer's `TrainState` (step, params, opt_state; numpy
+    leaves, as `tools/convert_orbax_torch.py` restores it) -> what the port's
+    `Trainer.save` writes, for the model and optimizer `cfg` builds:
+
+    - the params through `state_dict_from_jax_params` (the FrozenBN
+      statistics, params with zeroed updates in JAX, become buffers);
+    - AdamW: `ScaleByAdamState` mu / nu / count -> each parameter's
+      `exp_avg` / `exp_avg_sq` / `step` (`mp_former_tpu/engine/optimizer.py:
+      133-136`); SGD: `optax.trace` -> `momentum_buffer`; leaves the port
+      does not train (FrozenBN statistics, `FREEZE_AT`) keep no state;
+    - the schedule's count -> the scheduler's `last_epoch`, and each group's
+      LR at that count;
+    - the step -> `iteration`; `generator` None: the port's draws restart
+      from `SEED` (the two packages' random streams differ anyway).
+    """
+    from ..models import build_model
+    from .optimizer import build_lr_schedule, build_optimizer
+
+    ts = _fields(train_state)
+    model = build_model(cfg)
+    load_weights(model, state_dict_from_jax_params(_as_numpy(ts["params"])))
+    optimizer, scheduler = build_optimizer(cfg, model)
+    adam, trace, schedule = _optax_parts(ts["opt_state"])
+    opt = optimizer.state_dict()
+    names = _param_names(opt)
+    if adam is not None:
+        mu = state_dict_from_jax_params(_as_numpy(adam["mu"]))
+        nu = state_dict_from_jax_params(_as_numpy(adam["nu"]))
+        step = torch.tensor(float(np.asarray(adam["count"])))
+        opt["state"] = {i: {"step": step.clone(), "exp_avg": mu[n].float(),
+                            "exp_avg_sq": nu[n].float()} for i, n in names.items()}
+    else:
+        buf = state_dict_from_jax_params(_as_numpy(trace["trace"]))
+        opt["state"] = {i: {"momentum_buffer": buf[n].float()} for i, n in names.items()}
+    count = int(np.asarray(schedule["count"]))
+    lr = build_lr_schedule(cfg)(count)
+    for g in opt["param_groups"]:
+        g["lr"] = g["initial_lr"] * lr
+    sched = scheduler.state_dict()
+    sched.update(last_epoch=count, _step_count=count + 1,
+                 _last_lr=[g["lr"] for g in opt["param_groups"]])
+    return {"model": model.state_dict(), "optimizer": opt, "scheduler": sched,
+            "iteration": int(np.asarray(ts["step"])), "generator": None}
+
+
+def _inverse_of_conversion(params_template) -> Callable[[Mapping[str, torch.Tensor]], Any]:
+    """The inverse of `state_dict_from_jax_params` on trees shaped as
+    `params_template`: the conversion only renames, transposes and
+    concatenates, so it is learnt by converting a tree whose entries are
+    their own indices. The returned function takes a port state dict (keys
+    missing from it give 0) and returns the JAX tree, dtypes as the
+    template's."""
+    leaves, offset = [], 0
+
+    def tag(node):
+        nonlocal offset
+        fields = _fields(node)
+        if fields is not None:
+            return {k: tag(v) for k, v in fields.items()}
+        a = np.asarray(node)
+        leaves.append((offset, a.shape, a.dtype))
+        ids = np.arange(offset, offset + a.size, dtype=np.float64).reshape(a.shape)
+        offset += a.size
+        return ids
+
+    tagged = tag(params_template)
+    index = {k: v.numpy().astype(np.int64).reshape(-1)
+             for k, v in state_dict_from_jax_params(tagged).items()}
+    covered = np.zeros(offset, bool)
+    for ids in index.values():
+        covered[ids] = True
+    if not covered.all():
+        raise ValueError(f"{int((~covered).sum())} entries of the JAX params have no place "
+                         "in the port's state dict")
+    total = offset
+
+    def invert(sd: Mapping[str, torch.Tensor]):
+        flat = np.zeros(total, np.float64)
+        for k, ids in index.items():
+            if k in sd:
+                flat[ids] = sd[k].detach().cpu().double().numpy().reshape(-1)
+        it = iter(leaves)
+
+        def untag(node):
+            fields = _fields(node)
+            if fields is not None:
+                return {k: untag(v) for k, v in fields.items()}
+            start, shape, dtype = next(it)
+            return flat[start:start + int(np.prod(shape))].reshape(shape).astype(dtype)
+
+        return untag(params_template)
+
+    return invert
+
+
+def _replace_fields(node, new: Mapping):
+    if isinstance(node, Mapping):
+        return {**node, **new}
+    return node._replace(**new)
+
+
+def _rebuild(tree, swap: Callable[[Any], Any]):
+    """`tree` with each state node passed through `swap` (which returns it,
+    or a new node), outer first."""
+    swapped = swap(tree)
+    if swapped is not tree:
+        return swapped
+    fields = _fields(tree)
+    if fields is not None:
+        return _replace_fields(tree, {k: _rebuild(v, swap) for k, v in fields.items()
+                                      if k not in ("mu", "nu", "trace")})
+    if isinstance(tree, (list, tuple)):
+        rebuilt = [_rebuild(x, swap) for x in tree]
+        return type(tree)(*rebuilt) if hasattr(tree, "_fields") else type(tree)(rebuilt)
+    return tree
+
+
+def torch_state_to_jax_train_state(state: Mapping[str, Any], template):
+    """What the port's `Trainer.save` writes -> the JAX trainer's
+    `TrainState`, shaped as `template` (a TrainState, or its dict, whose
+    opt_state is `build_optimizer(cfg, params).init(params)` of the JAX
+    package; numpy or JAX leaves): the inverse of
+    `torch_state_from_jax_train_state`. Leaves the port keeps no optimizer
+    state for (the FrozenBN statistics, `FREEZE_AT`) get zero moments, as
+    their updates are zeroed in JAX; both counts and the step come from the
+    port's optimizer, scheduler and iteration."""
+    ts = _fields(template)
+    invert = _inverse_of_conversion(ts["params"])
+    params = invert(state["model"])
+    opt = state["optimizer"]
+    names = _param_names(opt)
+    per_param = {names[i]: v for i, v in opt["state"].items()}
+    step = int(state["iteration"])
+    count = int(state["scheduler"]["last_epoch"])
+    _optax_parts(ts["opt_state"])  # the JAX trainer's chain, or raise
+
+    def swap(node):
+        """The Adam, trace and schedule nodes with the port's state."""
+        fields = _fields(node)
+        if fields is None:
+            return node
+        if {"count", "mu", "nu"} <= set(fields):
+            return _replace_fields(node, {
+                "count": np.asarray(step, np.asarray(fields["count"]).dtype),
+                "mu": invert({n: v["exp_avg"] for n, v in per_param.items()}),
+                "nu": invert({n: v["exp_avg_sq"] for n, v in per_param.items()})})
+        if "trace" in fields:
+            return _replace_fields(node, {"trace": invert(
+                {n: v["momentum_buffer"] for n, v in per_param.items()})})
+        if set(fields) == {"count"}:
+            return _replace_fields(node, {"count": np.asarray(
+                count, np.asarray(fields["count"]).dtype)})
+        return node
+
+    new = {"step": np.asarray(step, np.asarray(ts["step"]).dtype), "params": params,
+           "opt_state": _rebuild(ts["opt_state"], swap)}
+    return _replace_fields(template, new)
 
 
 def load_weights(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor],

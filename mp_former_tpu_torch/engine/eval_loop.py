@@ -7,8 +7,11 @@ Each record is decoded, preprocessed on the device, run through the model
 once and post-processed in the reference's order by `Predictor` for every task
 its evaluators ask for (instance, semantic, panoptic), one image at a time.
 The JAX package's streamed and bucketed evaluation (`TPU.EVAL_STREAM`,
-`TPU.EVAL_BUCKET_STEP`) and its mesh sharding amortise costs of the TPU runtime
-and are not ported: the canvas is the resized image padded to a multiple of 32.
+`TPU.EVAL_BUCKET_STEP`) and its mesh of devices within a process amortise
+costs of the TPU runtime and are not ported: the canvas is the resized image
+padded to a multiple of 32. Across data-parallel ranks `run_evaluation`
+shards the records and merges the evaluators (`parallel/dist.py:
+sharded_eval_loop`), and every rank returns the results of the whole set.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.dist import sharded_eval_loop
 from .predictor import TASK_KEYS, Predictor
 
 logger = logging.getLogger(__name__)
@@ -112,29 +116,36 @@ def run_evaluation(cfg, model: torch.nn.Module, dataset_name: str,
     forward per image, on the model's own device, post-processed for every
     task of the evaluators (`EvaluatorSet.tasks`), with the dataset's thing
     classes for the panoptic fusion. `max_images` caps the records, so an
-    unreadable one shrinks the evaluated set, as in the JAX package. The
-    `Predictor` puts the model in `.eval()` mode (`Trainer.test` restores
-    its own)."""
+    unreadable one shrinks the evaluated set, as in the JAX package. Across
+    data-parallel ranks each takes its share of the records and every rank
+    returns the merged results (`sharded_eval_loop`). The `Predictor` puts
+    the model in `.eval()` mode (`Trainer.test` restores its own)."""
     from ..data.catalog import DatasetCatalog, MetadataCatalog
     from ..evaluation.build import build_evaluator, is_thing_array
 
     records = DatasetCatalog.get(dataset_name)
     evset = build_evaluator(cfg, dataset_name, records)
-    if max_images is not None:
-        records = records[:max_images]
     predictor = Predictor(cfg, model=model, device=next(model.parameters()).device,
                           is_thing=is_thing_array(cfg, MetadataCatalog.get(dataset_name)))
     tasks = evset.tasks
     evset.reset()
-    n = 0
-    t0 = time.perf_counter()
-    for rec, out in _predict(predictor, records, tasks):
+
+    def read(rec: dict) -> Optional[Tuple[dict, np.ndarray]]:
+        image = read_image(rec)
+        return None if image is None else (rec, image)
+
+    def process(item: Tuple[dict, np.ndarray]) -> None:
+        rec, image = item
+        out_hw = (rec.get("height") or image.shape[0], rec.get("width") or image.shape[1])
+        out = predictor(image, out_hw, tasks=tasks, sem_seg_labels=True)
         outputs = {t: out[TASK_KEYS[t]] for t in tasks}
         if "instance" in outputs:
             inst = outputs["instance"]
             outputs["instance"] = (inst["scores"], inst["classes"], inst["masks"])
         evset.process(rec, outputs)
-        n += 1
+
+    t0 = time.perf_counter()
+    n = sharded_eval_loop(records, evset, read, process, max_records=max_images)
     results = evset.evaluate()
     dt = time.perf_counter() - t0
     logger.info("evaluated %d images of %s (%s) in %.1f s (%.2f img/s): %s", n, dataset_name,

@@ -15,6 +15,15 @@ A video model trains through the same loop (`mp_former_tpu/engine/trainer.py:61-
 the caller passes its criterion (`video/criterion.py:build_video_criterion`)
 and a loader of clips (`video/ytvis.py:build_clip_loader`), and `test`
 scores tube AP with the whole-clip loop (`:259-276`).
+
+In a process group of W ranks (`parallel/dist.py:launch`) the model is
+wrapped in DDP (also where W is 1), each rank takes its block of
+SOLVER.IMS_PER_BATCH / W rows of every global batch (the cfg's loader does;
+a loader the caller passes must), and a step is the one-process step on the
+global batch (`train_step.py`).
+Every rank seeds its generator alike and resumes from the same checkpoint;
+rank 0 alone writes checkpoints and `metrics.json`, whose losses are the
+global batch's; `test` shards the records over the ranks.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ import torch
 from ..data.loader import build_train_loader
 from ..models import build_model
 from ..models.criterion import build_criterion
+from ..parallel.dist import get_rank, get_world_size, is_main_process
+from ..parallel.mesh import data_parallel_size
 from ..structures import Batch
 from .convert import load_state_dict_file, load_weights, locate_weights
 from .optimizer import build_gradient_clipper, build_optimizer
@@ -59,9 +70,22 @@ class Trainer:
         self.clip_gradients = build_gradient_clipper(cfg)
         self.dn_group_bucket = int(cfg.TPU.DN_GROUP_BUCKET)
         self.accum = int(cfg.TPU.GRAD_ACCUM_STEPS or 1)
-        if cfg.SOLVER.IMS_PER_BATCH % self.accum:
+        self.world = data_parallel_size(cfg, get_world_size())
+        if cfg.SOLVER.IMS_PER_BATCH % (self.world * self.accum):
+            ranks = f"{self.world} ranks x " if self.world > 1 else ""
             raise ValueError(f"SOLVER.IMS_PER_BATCH={cfg.SOLVER.IMS_PER_BATCH} must be "
-                             f"divisible by TPU.GRAD_ACCUM_STEPS={self.accum}")
+                             f"divisible by {ranks}TPU.GRAD_ACCUM_STEPS={self.accum}")
+        # the module the step runs: DDP wherever a process group runs (one rank
+        # of one card included)
+        self.step_model = self.model
+        if torch.distributed.is_available() and torch.distributed.is_initialized():
+            from torch.nn.parallel import DistributedDataParallel
+
+            ids = [torch.cuda.current_device()] if self.device.type == "cuda" else None
+            # a DN mode or a decoder variant may leave parameters without a gradient
+            self.step_model = DistributedDataParallel(
+                self.model, device_ids=ids, broadcast_buffers=False,
+                find_unused_parameters=True)
         self.train_loader = train_loader
         self.max_iter = cfg.SOLVER.MAX_ITER
         self.checkpoint_period = cfg.SOLVER.CHECKPOINT_PERIOD
@@ -73,7 +97,10 @@ class Trainer:
     def _checkpoint_dir(self) -> str:
         return os.path.join(self.output_dir, "checkpoints")
 
-    def save(self, step: int) -> str:
+    def save(self, step: int) -> Optional[str]:
+        """Rank 0 writes `checkpoints/model_<step>.pth` (None on the others)."""
+        if not is_main_process():
+            return None
         os.makedirs(self._checkpoint_dir(), exist_ok=True)
         path = os.path.join(self._checkpoint_dir(), f"model_{step:07d}.pth")
         torch.save({"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
@@ -100,7 +127,8 @@ class Trainer:
             self.model.load_state_dict(state["model"])
             self.optimizer.load_state_dict(state["optimizer"])
             self.scheduler.load_state_dict(state["scheduler"])
-            self.generator.set_state(state["generator"].cpu())
+            if state.get("generator") is not None:  # a converted JAX run has none
+                self.generator.set_state(state["generator"].cpu())
             self.iteration = int(state["iteration"])
             logger.info("resumed from %s", path)
         elif self.cfg.MODEL.WEIGHTS:
@@ -132,7 +160,9 @@ class Trainer:
         prof.stop()
         profile_dir = self.cfg.TPU.PROFILE_DIR
         os.makedirs(profile_dir, exist_ok=True)
-        path = os.path.join(profile_dir, f"steps_{first}-{self.iteration - 1}.pt.trace.json")
+        rank = f"_rank{get_rank()}" if self.world > 1 else ""
+        path = os.path.join(profile_dir,
+                            f"steps_{first}-{self.iteration - 1}{rank}.pt.trace.json")
         prof.export_chrome_trace(path)
         logger.info("profiled steps %d-%d into %s", first, self.iteration - 1, path)
         return path
@@ -140,7 +170,7 @@ class Trainer:
     def run_step(self, batch: Batch, stage: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
         """One step; `stage(name)`, where given, wraps each stage of it
         (`train_step`)."""
-        metrics = train_step(self.model, self.criterion, self.optimizer, self.scheduler,
+        metrics = train_step(self.step_model, self.criterion, self.optimizer, self.scheduler,
                              batch.to(self.device, non_blocking=True), self.generator,
                              clip_gradients=self.clip_gradients,
                              dn_group_bucket=self.dn_group_bucket, accum=self.accum, stage=stage)
@@ -162,7 +192,8 @@ class Trainer:
         metrics_path = os.path.join(self.output_dir, "metrics.json")
         loader = self.train_loader
         if loader is None:
-            loader = build_train_loader(self.cfg, pin_memory=self.device.type == "cuda")
+            loader = build_train_loader(self.cfg, pin_memory=self.device.type == "cuda",
+                                        rank=get_rank(), world_size=self.world)
         profiling = None  # (profiler, its first step) while a trace is recorded
         try:
             batches = iter(loader)
@@ -195,8 +226,9 @@ class Trainer:
                                 "loss_dice %.4f data_time %.4f", step, line["total_loss"],
                                 line.get("loss_ce", 0.0), line.get("loss_mask", 0.0),
                                 line.get("loss_dice", 0.0), line["data_time"])
-                    with open(metrics_path, "a") as f:
-                        f.write(json.dumps(line) + "\n")
+                    if is_main_process():
+                        with open(metrics_path, "a") as f:
+                            f.write(json.dumps(line) + "\n")
                 for hook in (hooks or {}).values():
                     hook(step, self)
                 if (step + 1) % self.checkpoint_period == 0 and step + 1 < self.max_iter:

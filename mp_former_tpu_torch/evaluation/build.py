@@ -86,6 +86,15 @@ class EvaluatorSet:
         for e in self.entries:
             e.evaluator.reset()
 
+    def merge_from(self, other: "EvaluatorSet") -> None:
+        """Fold in another rank's set, built from the same config: each
+        evaluator merges its twin (`mp_former_tpu/evaluation/build.py:95-103`)."""
+        if [(e.task, type(e.evaluator)) for e in self.entries] != \
+                [(e.task, type(e.evaluator)) for e in other.entries]:
+            raise ValueError("merge_from needs evaluator sets built from the same config")
+        for mine, theirs in zip(self.entries, other.entries):
+            mine.evaluator.merge_from(theirs.evaluator)
+
     def process(self, record: dict, task_outputs: Dict) -> None:
         for e in self.entries:
             if e.task in task_outputs:

@@ -103,6 +103,10 @@ class CityscapesInstanceEvaluator:
         self._per_class: Dict[int, List[dict]] = {
             i: [] for i in range(len(INSTANCE_LABELS))}
 
+    def merge_from(self, other: "CityscapesInstanceEvaluator") -> None:
+        for c, recs in other._per_class.items():
+            self._per_class[c].extend(recs)
+
     # ------------------------------------------------------------------
     def process(self, record: dict, scores: np.ndarray, classes: np.ndarray,
                 masks: List[np.ndarray],
@@ -228,6 +232,10 @@ class CityscapesSemSegEvaluator:
         self._i_fn = np.zeros(n, np.float64)
         # per-instance records for iIoU: (class, size, tp_pixels)
         self._instances: List[tuple] = []
+
+    def merge_from(self, other: "CityscapesSemSegEvaluator") -> None:
+        self._conf += other._conf
+        self._instances.extend(other._instances)
 
     _label_id_to_train = None
 

@@ -3,8 +3,8 @@ algorithm with IoU matrices and crowd handling, greedy matching per IoU
 threshold, 101-point precision interpolation, area ranges and maxDets.
 
 The port's own copy of `mp_former_tpu/evaluation/coco_eval.py` (that module
-imports no jax, but its package does), without the merge of per-rank
-evaluators, which nothing in the port uses yet. `add_image`'s `eval_cats`
+imports no jax, but its package does), with its `merge_from` of the
+evaluators of other ranks (`parallel/dist.py:sharded_eval_loop`). `add_image`'s `eval_cats`
 and `ignore_unmatched_cats` are LVIS's federated options (`lvis_eval.py`).
 `COCOEvaluator` is the d2-protocol wrapper (reset / process / evaluate) of
 `mp_former_tpu/evaluation/evaluators.py`.
@@ -85,6 +85,14 @@ class CocoAPEvaluator:
         self._records: Dict[int, List[dict]] = defaultdict(list)
         self._cats: set = set()
         self._acc_cache: Dict[str, np.ndarray] = {}
+
+    def merge_from(self, other: "CocoAPEvaluator") -> None:
+        """Fold in another evaluator's per-image records (a rank that
+        evaluated other images), before `summarize`."""
+        for c, recs in other._records.items():
+            self._records[c].extend(recs)
+        self._cats |= other._cats
+        self._acc_cache.clear()
 
     def add_image(
         self,
@@ -317,6 +325,9 @@ class COCOEvaluator:
             gt_iscrowd=np.asarray(gt_crowd, bool),
             gt_areas=np.asarray(gt_areas, np.float64),
         )
+
+    def merge_from(self, other: "COCOEvaluator") -> None:
+        self._ap.merge_from(other._ap)
 
     def evaluate(self) -> Dict[str, Dict[str, float]]:
         return {"segm": self._ap.summarize()}

@@ -41,6 +41,9 @@ class COCOPanopticEvaluator:
     def reset(self) -> None:
         self._pq.reset()
 
+    def merge_from(self, other: "COCOPanopticEvaluator") -> None:
+        self._pq.merge_from(other._pq)
+
     def process_prediction(self, record: dict, pred_map: np.ndarray,
                            pred_segments: List[dict]) -> None:
         gt_map = read_id_map(record["pan_seg_file_name"])
@@ -66,6 +69,9 @@ class SemSegEvaluator:
 
     def reset(self) -> None:
         self._conf = np.zeros((self.num_classes + 1, self.num_classes + 1), np.int64)
+
+    def merge_from(self, other: "SemSegEvaluator") -> None:
+        self._conf += other._conf
 
     def process(self, pred: np.ndarray, gt: np.ndarray) -> None:
         """pred (H, W) class ids; gt (H, W) class ids with the ignore label."""

@@ -59,6 +59,9 @@ class LVISEvaluator:
     def reset(self) -> None:
         self._ap = CocoAPEvaluator("segm", max_dets=self.max_dets)
 
+    def merge_from(self, other: "LVISEvaluator") -> None:
+        self._ap.merge_from(other._ap)
+
     def process(self, image_id, scores: np.ndarray, classes: np.ndarray,
                 masks: Sequence[np.ndarray]) -> None:
         """Predictions at the image's original resolution, contiguous

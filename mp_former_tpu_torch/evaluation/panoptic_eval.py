@@ -1,8 +1,8 @@
 """Panoptic Quality (PQ) in plain numpy: the port's own copy of
 `mp_former_tpu/evaluation/panoptic_eval.py:21-147` (that module imports no
-jax, but its package does), without the merge of per-rank evaluators, which
-nothing in the port uses yet; with panopticapi's pq_compute semantics and the
-quirks `tests/test_panoptic_differential.py` pins.
+jax, but its package does), with its merge of other ranks' evaluators; with
+panopticapi's pq_compute semantics and the quirks
+`tests/test_panoptic_differential.py` pins.
 
 PQ per class: sum of IoU(TP) / (|TP| + |FP|/2 + |FN|/2), a match at IoU > 0.5
 (unique by construction); void is left out of the unions, and a predicted
@@ -26,6 +26,12 @@ class PQStat:
         self.fp = defaultdict(int)
         self.fn = defaultdict(int)
 
+    def merge(self, other: "PQStat") -> None:
+        for mine, theirs in ((self.iou, other.iou), (self.tp, other.tp),
+                             (self.fp, other.fp), (self.fn, other.fn)):
+            for k, v in theirs.items():
+                mine[k] += v
+
 
 class PanopticEvaluator:
     """Accumulate (pred_map, pred_segments, gt_map, gt_segments) pairs.
@@ -40,6 +46,9 @@ class PanopticEvaluator:
 
     def reset(self):
         self._stat = PQStat()
+
+    def merge_from(self, other: "PanopticEvaluator") -> None:
+        self._stat.merge(other._stat)
 
     def process(self, pred_map: np.ndarray, pred_segments: List[dict],
                 gt_map: np.ndarray, gt_segments: List[dict]):

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from ...parallel.rows import draw
 from ...utils import float32_region
 from ...utils.layers import LayerNorm
 from ...utils.registry import BACKBONE_REGISTRY
@@ -301,8 +302,8 @@ class SwinTransformer(nn.Module):
         if block.drop_path == 0.0 or not train:
             return (None, None)
         keep = 1.0 - block.drop_path
-        return tuple((torch.rand((b, 1, 1), generator=generator, device=device) < keep)
-                     .float() / keep for _ in range(2))
+        return tuple((draw(lambda s: torch.rand(s, generator=generator, device=device),
+                           (b, 1, 1), 0) < keep).float() / keep for _ in range(2))
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

@@ -32,6 +32,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.rows import RowShard, current_rows, draw, gather_rows
 from ..structures import Targets
 from ..utils.interp import point_sample, resize
 from .matcher import HungarianMatcher, lsa_host, uniform
@@ -61,12 +62,29 @@ def sigmoid_ce_loss(point_logits, point_labels, num_masks):
 
 def _valid_pairs(valid: torch.Tensor, max_pairs: int):
     """The valid (image, slot) pairs in row-major order, at most `max_pairs`
-    where that is positive: (image index, slot index), each (P,)."""
+    where that is positive: (image index, slot index), each (P,), and the
+    shard of the pairs that draws over them take (None in one process). In
+    a distributed step (`parallel/rows.py`) the cap and the order are the
+    global batch's, and this rank keeps the pairs of its rows."""
     n = valid.shape[1]
-    sel = valid.reshape(-1).nonzero()[:, 0]
+    shard = current_rows()
+    full = gather_rows(valid)
+    sel = full.reshape(-1).nonzero()[:, 0]
     if max_pairs > 0:
         sel = sel[:max_pairs]
-    return sel // n, sel % n
+    if shard is None:
+        return sel // n, sel % n, None
+    lo, hi = shard.start * n, (shard.start + shard.count) * n
+    mine = sel[(sel >= lo) & (sel < hi)] - lo
+    pairs = RowShard(total=int(sel.shape[0]), start=int((sel < lo).sum()),
+                     count=int(mine.shape[0]))
+    return mine // n, mine % n, pairs
+
+
+def _uniform_pairs(shape, generator, device, axis: int, pairs: Optional[RowShard]):
+    """`uniform` over `shape`, whose `axis` holds the pairs: this rank's of
+    the global batch's draw where `pairs` is a shard."""
+    return draw(lambda s: uniform(s, generator, device), shape, axis, pairs)
 
 
 class SetCriterion:
@@ -93,17 +111,31 @@ class SetCriterion:
         self.matcher_host_seconds = 0.0
 
     # ------------------------------------------------------------------
-    def loss_labels(self, pred_logits, qidx, labels, valid):
-        """Weighted CE with no-object weight eos_coef (reference :127-144).
-        qidx (B, N): the query matched to each slot; invalid slots dropped."""
+    def _class_targets(self, pred_logits, qidx, labels, valid):
+        """(B, Q) class targets: the matched slot's label, else no-object."""
         b, q, _ = pred_logits.shape
         target = torch.full((b, q), self.num_classes, dtype=torch.long,
                             device=pred_logits.device)
         bidx = torch.arange(b, device=valid.device)[:, None].expand_as(qidx)
         target[bidx[valid], qidx[valid]] = labels[valid].long()
+        return target
+
+    def _class_weight(self, pred_logits):
         weight = pred_logits.new_ones(self.num_classes + 1, dtype=torch.float32)
         weight[-1] = self.eos_coef
-        return {"loss_ce": F.cross_entropy(pred_logits.float().transpose(1, 2), target, weight)}
+        return weight
+
+    def loss_labels(self, pred_logits, qidx, labels, valid, norm=None):
+        """Weighted CE with no-object weight eos_coef (reference :127-144).
+        qidx (B, N): the query matched to each slot; invalid slots dropped.
+        The weighted sum is divided by `norm` where given, else by the
+        batch's own weight sum (torch's weighted mean)."""
+        target = self._class_targets(pred_logits, qidx, labels, valid)
+        weight = self._class_weight(pred_logits)
+        logits = pred_logits.float().transpose(1, 2)
+        if norm is None:
+            return {"loss_ce": F.cross_entropy(logits, target, weight)}
+        return {"loss_ce": F.cross_entropy(logits, target, weight, reduction="sum") / norm}
 
     # -- random mode -----------------------------------------------------
     def loss_masks_stacked(self, pred_masks, qidx, gt_masks, valid, num_masks, generator=None):
@@ -118,28 +150,32 @@ class SetCriterion:
         valid pairs in row-major order. Returns {"loss_mask": (L,), "loss_dice": (L,)}."""
         l, b, q, h, w = pred_masks.shape
         gt_n = gt_masks.shape[1]
-        sel_b, sel_n = _valid_pairs(valid, self.max_pairs)
+        sel_b, sel_n, pairs = _valid_pairs(valid, self.max_pairs)
         p = sel_b.shape[0]
+        num_sampled = int(self.num_points * self.oversample_ratio)
+        num_uncertain = int(self.importance_sample_ratio * self.num_points)
+        num_random = self.num_points - num_uncertain
+        device = pred_masks.device
         if p == 0:
+            if pairs is not None and pairs.total:  # the other ranks draw: stay in step
+                _uniform_pairs((l, 0, num_sampled, 2), generator, device, 1, pairs)
+                if num_random > 0:
+                    _uniform_pairs((l, 0, num_random, 2), generator, device, 1, pairs)
             zero = pred_masks.sum((1, 2, 3, 4)) * 0.0
             return {"loss_mask": zero, "loss_dice": zero}
         sel_q = qidx[:, sel_b, sel_n]                                  # (L, P)
         pred_rows = pred_masks[torch.arange(l, device=sel_q.device)[:, None],
                                sel_b[None], sel_q].float()             # (L, P, h, w)
         pred_rows = pred_rows.reshape(l * p, h, w)
-        num_sampled = int(self.num_points * self.oversample_ratio)
-        num_uncertain = int(self.importance_sample_ratio * self.num_points)
-        num_random = self.num_points - num_uncertain
-        device = pred_masks.device
         with torch.no_grad():
-            coords1 = uniform((l, p, num_sampled, 2), generator, device)
+            coords1 = _uniform_pairs((l, p, num_sampled, 2), generator, device, 1, pairs)
             logits1 = sample_mask_points(pred_rows, coords1.reshape(l * p, num_sampled, 2))
             uncertainty = -logits1.abs().reshape(l, p, num_sampled)
             top = uncertainty.topk(num_uncertain, dim=-1)[1]
             coords = torch.gather(coords1, 2, top[..., None].expand(-1, -1, -1, 2))
             if num_random > 0:
-                coords = torch.cat([coords, uniform((l, p, num_random, 2), generator, device)],
-                                   dim=2)
+                extra = _uniform_pairs((l, p, num_random, 2), generator, device, 1, pairs)
+                coords = torch.cat([coords, extra], dim=2)
             pts = coords.shape[2]
             # the ground truth of a pair is the same in every layer
             gt_rows = gt_masks[sel_b, sel_n % gt_n].float()            # (P, H, W)
@@ -155,20 +191,23 @@ class SetCriterion:
     def _make_grid_ctx(self, gt_masks, valid, hw):
         """The valid pairs and their ground truth resized to the prediction
         grid, shared by all layers."""
-        sel_b, sel_n = _valid_pairs(valid, self.max_pairs)
+        sel_b, sel_n, pairs = _valid_pairs(valid, self.max_pairs)
         gt_rows = gt_masks[sel_b, sel_n % gt_masks.shape[1]].float()   # (P, H, W)
         gt_grid = resize(gt_rows, hw, "bilinear") if gt_rows.shape[0] else \
             gt_rows.new_zeros((0, *hw))
-        return {"sel_b": sel_b, "sel_n": sel_n, "gt_grid": gt_grid.reshape(-1, hw[0] * hw[1])}
+        return {"sel_b": sel_b, "sel_n": sel_n, "pairs": pairs,
+                "gt_grid": gt_grid.reshape(-1, hw[0] * hw[1])}
 
     def _loss_masks_grid(self, pred_masks, qidx, ctx, num_masks, generator=None):
         """Dense grid-point mask losses of one layer: uncertainty top-k over
         the prediction grid plus Bernoulli random extras (uniform draws (P, h*w)
         from `generator`)."""
         b, q, h, w = pred_masks.shape
-        sel_b, sel_n = ctx["sel_b"], ctx["sel_n"]
+        sel_b, sel_n, pairs = ctx["sel_b"], ctx["sel_n"], ctx["pairs"]
         p = sel_b.shape[0]
         if p == 0:
+            if pairs is not None and pairs.total:  # the other ranks draw: stay in step
+                _uniform_pairs((0, h * w), generator, pred_masks.device, 0, pairs)
             zero = pred_masks.sum() * 0.0
             return {"loss_mask": zero, "loss_dice": zero}
         logits = pred_masks[sel_b, qidx[sel_b, sel_n]].reshape(p, h * w).float()
@@ -185,7 +224,7 @@ class SetCriterion:
                 kth = sub.topk(max(1, (num_uncertain * m) // s), dim=-1)[0][:, -1:]
             else:
                 kth = unc.topk(num_uncertain, dim=-1)[0][:, -1:]
-            rand = uniform(logits.shape, generator, logits.device)
+            rand = _uniform_pairs(logits.shape, generator, logits.device, 0, pairs)
             sel_mask = ((unc >= kth) | (rand < num_random / s)).float()
             cnt = sel_mask.sum(-1).clamp(min=1.0)
         labels = ctx["gt_grid"]
@@ -216,13 +255,57 @@ class SetCriterion:
         self.matcher_host_seconds += time.perf_counter() - t0
         return torch.from_numpy(solved).reshape(l, b, n).to(costs.device)
 
+    @staticmethod
+    def _dn_layout(dn_out: Dict, targets: Targets):
+        """The DN block's targets: the ground truth tiled `scalar` times with
+        identity indices (reference :248-258), after the decoder's cut of the
+        block to its first max_num slots. (targets, labels, valid, qidx,
+        scalar)."""
+        scalar = dn_out["dn_args"]["scalar"]
+        n = dn_out["dn_args"]["max_num"]
+        dn_targets = targets.first(n) if n < targets.num_instances else targets
+        pad = scalar * n
+        b = targets.labels.shape[0]
+        dn_valid = dn_targets.valid.repeat(1, scalar)
+        dn_qidx = torch.arange(pad, device=dn_valid.device)[None].expand(b, pad)
+        return dn_targets, dn_targets.labels.repeat(1, scalar), dn_valid, dn_qidx, scalar
+
+    @torch.no_grad()
+    def class_weight_sums(self, outputs: Dict, targets: Targets,
+                          assignments: torch.Tensor) -> torch.Tensor:
+        """(L, 2): the weight sum of each layer's class loss over this batch's
+        queries, main and DN (0 without DN): the denominators of the weighted
+        means. A distributed step sums them over the ranks (`__call__`'s
+        `class_norm`)."""
+        layer_outputs = outputs["aux_outputs"] + [outputs]
+        sums = torch.zeros((len(layer_outputs), 2), dtype=torch.float32,
+                           device=outputs["pred_logits"].device)
+        dn_out = outputs.get("dn_out")
+        if dn_out is not None:
+            _, dn_labels, dn_valid, dn_qidx, _ = self._dn_layout(dn_out, targets)
+            dn_layers = dn_out["aux_outputs"] + [dn_out]
+        for li, out in enumerate(layer_outputs):
+            logits = out["pred_logits"]
+            weight = self._class_weight(logits)
+            target = self._class_targets(logits, assignments[li], targets.labels, targets.valid)
+            sums[li, 0] = weight[target].sum()
+            if dn_out is not None:
+                logits = dn_layers[li]["pred_logits"]
+                target = self._class_targets(logits, dn_qidx, dn_labels, dn_valid)
+                sums[li, 1] = weight[target].sum()
+        return sums
+
     def __call__(self, outputs: Dict, targets: Targets,
                  generator: Optional[torch.Generator] = None,
                  num_masks: Optional[torch.Tensor] = None,
-                 assignments: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                 assignments: Optional[torch.Tensor] = None,
+                 class_norm: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The full (unweighted) loss dict with the reference's key names.
         `num_masks` may be given (the number of valid instances of the global
-        batch, reference :235-237); `assignments` (L, B, N) skips the matcher."""
+        batch, reference :235-237); `assignments` (L, B, N) skips the matcher;
+        `class_norm` (L, 2) divides each layer's weighted class loss, main
+        and DN, where the batch's own weight sums should not (by default they
+        do: torch's weighted mean)."""
         if num_masks is None:
             num_masks = targets.valid.sum().float().clamp(min=1.0)
         dn_out = outputs.get("dn_out")
@@ -230,19 +313,10 @@ class SetCriterion:
         num_layers = len(layer_outputs)
         if assignments is None:
             assignments = self.assign(self.layer_costs(outputs, targets, generator))
+        norms = [(None, None)] * num_layers if class_norm is None else class_norm.unbind(0)
 
-        # DN: targets tiled `scalar` times with identity indices (reference
-        # :248-258); the decoder may have cut the DN block to its first max_num
-        # slots, which the targets follow
         if dn_out is not None:
-            scalar = dn_out["dn_args"]["scalar"]
-            n = dn_out["dn_args"]["max_num"]
-            dn_targets = targets.first(n) if n < targets.num_instances else targets
-            pad = scalar * n
-            b = targets.labels.shape[0]
-            dn_labels = dn_targets.labels.repeat(1, scalar)
-            dn_valid = dn_targets.valid.repeat(1, scalar)
-            dn_qidx = torch.arange(pad, device=dn_valid.device)[None].expand(b, pad)
+            dn_targets, dn_labels, dn_valid, dn_qidx, scalar = self._dn_layout(dn_out, targets)
             dn_num_masks = num_masks * scalar
             dn_layers = dn_out["aux_outputs"] + [dn_out]
 
@@ -271,7 +345,7 @@ class SetCriterion:
             d = {}
             if "labels" in self.losses:
                 d.update(self.loss_labels(out["pred_logits"], assignments[li], targets.labels,
-                                          targets.valid))
+                                          targets.valid, norms[li][0]))
             if with_masks and use_grid:
                 d.update(self._loss_masks_grid(out["pred_masks"], assignments[li], main_ctx,
                                                num_masks, generator))
@@ -282,7 +356,7 @@ class SetCriterion:
                 d = {}
                 if "labels" in self.losses:
                     d.update(self.loss_labels(dn_layers[li]["pred_logits"], dn_qidx, dn_labels,
-                                              dn_valid))
+                                              dn_valid, norms[li][1]))
                 if with_masks and use_grid:
                     d.update(self._loss_masks_grid(dn_layers[li]["pred_masks"], dn_qidx, dn_ctx,
                                                    dn_num_masks, generator))

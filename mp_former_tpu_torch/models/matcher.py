@@ -19,6 +19,7 @@ import scipy.optimize
 import torch
 import torch.nn.functional as F
 
+from ..parallel.rows import draw
 from ..structures import Targets
 from ..utils.interp import point_sample
 
@@ -90,7 +91,8 @@ def match_cost_matrix(pred_logits: torch.Tensor, pred_masks: torch.Tensor, targe
     prob = pred_logits.float().softmax(-1)
     cc = -torch.gather(prob, 2, targets.labels[:, None, :].expand(-1, prob.shape[1], -1))
     if coords is None:
-        coords = uniform((b, num_points, 2), generator, pred_logits.device)
+        # an image's points: this rank's rows of the global batch's draw
+        coords = draw(lambda s: uniform(s, generator, pred_logits.device), (b, num_points, 2), 0)
     out_pts = point_sample(pred_masks.float().permute(0, 2, 3, 1), coords).transpose(1, 2)
     tgt_pts = point_sample(targets.masks.float().permute(0, 2, 3, 1), coords).transpose(1, 2)
     cm = batch_sigmoid_ce_cost(out_pts, tgt_pts)

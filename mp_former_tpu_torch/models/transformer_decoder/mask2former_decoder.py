@@ -38,7 +38,9 @@ under `base`, `lb` and `mask` the DN rows take the model's own predicted
 masks from layer 1 on. The noise is drawn from the forward's `generator`
 through `models/matcher.py:uniform`, in the JAX decoder's order: the static3
 noise, the label flips and their values, the content noise of `base` / `lb`
-/ `shift`, then one point-noise tensor a refresh.
+/ `shift`, then one point-noise tensor a refresh. Every draw has the batch
+first; a distributed step draws the global batch's and keeps its rows
+(`parallel/rows.py`).
 
 The attention mask is (B, Q, S), shared by the heads, where every row's mask
 is; with per-head DN rows (`HEAD_DN` in `points` / `mask`) it is
@@ -52,6 +54,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from ...parallel.rows import draw
 from ...structures import DNArgs
 from ...utils import float32_region, region_dtype
 from ...utils.interp import resize
@@ -67,6 +70,12 @@ DN_MODES = ("points", "lb", "mask", "base") + STATIC3_MODES
 # the modes whose DN rows get fresh ground-truth masks in refreshed layers (JAX :506-511)
 _REFRESH_MODES = ("points",) + STATIC3_MODES
 
+
+
+def _uniform_rows(shape, generator, device) -> torch.Tensor:
+    """`uniform` over a batch-first `shape`: in a distributed step this
+    rank's rows of the global batch's draw (`parallel/rows.py`)."""
+    return draw(lambda s: uniform(s, generator, device), shape, 0)
 
 def build_transformer_decoder(cfg, in_channels):
     """Registry dispatch (reference maskformer_transformer_decoder.py:22-27)."""
@@ -126,7 +135,7 @@ def static3_blocked(mode: str, fg: torch.Tensor, boxes: torch.Tensor, noise_scal
     if mode == "shift":
         # v6 (:1098-1128). Quirk kept: the row shift comes from the box width,
         # the column shift from its height, both scaled by the grid *width*
-        delta = (uniform((n, 2), generator, device) * 2 - 1) * half * noise_scale * w8
+        delta = (_uniform_rows((n, 2), generator, device) * 2 - 1) * half * noise_scale * w8
         dr = torch.floor(delta[:, 0]).long()[:, None, None]
         dc = torch.floor(delta[:, 1]).long()[:, None, None]
         dest_r = (rr[None] + dr).clamp(0, h8 - 1).expand(n, h8, w8)
@@ -136,7 +145,7 @@ def static3_blocked(mode: str, fg: torch.Tensor, boxes: torch.Tensor, noise_scal
         # v7 (:1227-1266): with probability 1 - DN_RATIO the mask grows by
         # 1 + noise_scale about its box centre; shift_scale also shifts as v6
         sh, sw = int(h8 * (1 + noise_scale)) + 1, int(w8 * (1 + noise_scale)) + 1
-        is_scale = (uniform((n,), generator, device) > dn_ratio)[:, None, None]
+        is_scale = (_uniform_rows((n,), generator, device) > dn_ratio)[:, None, None]
         # the centre offsets truncate toward zero (torch .long())
         dc0 = ((h8 - sh) * boxes[:, 0]).to(torch.int32).long()[:, None, None]
         dc1 = ((w8 - sw) * boxes[:, 1]).to(torch.int32).long()[:, None, None]
@@ -149,7 +158,7 @@ def static3_blocked(mode: str, fg: torch.Tensor, boxes: torch.Tensor, noise_scal
         base_r = torch.where(is_scale, ii + dc0, ii).float()
         base_c = torch.where(is_scale, jj + dc1, jj).float()
         if mode == "shift_scale":
-            delta = (uniform((n, 2), generator, device) * 2 - 1) * half * noise_scale * w8
+            delta = (_uniform_rows((n, 2), generator, device) * 2 - 1) * half * noise_scale * w8
             base_r = base_r + delta[:, 0, None, None]
             base_c = base_c + delta[:, 1, None, None]
         # the destinations floor after the clamp
@@ -160,7 +169,8 @@ def static3_blocked(mode: str, fg: torch.Tensor, boxes: torch.Tensor, noise_scal
         # v8 (:1371-1390): one rectangle of about noise_scale x the mask's
         # area opened, with a random aspect at a random place
         area = (fg.sum((1, 2)).float() * noise_scale).clamp(min=1.0)
-        u_short, u_aspect, u_row, u_col = (uniform((n,), generator, device) for _ in range(4))
+        u_short, u_aspect, u_row, u_col = (_uniform_rows((n,), generator, device)
+                                            for _ in range(4))
         short = (torch.floor(u_short * torch.floor(torch.sqrt(area))) + 1).to(torch.int32)
         long = torch.floor(area / short).to(torch.int32)
         ph = torch.where(u_aspect < 0.5, short, long.clamp(max=h8))
@@ -178,7 +188,7 @@ def static3_blocked(mode: str, fg: torch.Tensor, boxes: torch.Tensor, noise_scal
         for h, w in reversed(size_list):
             if (h, w) != (h8, w8):
                 chain = resize(chain.float(), (h, w), "nearest") > 0.5
-            levels.append(chain | (uniform(chain.shape, generator, device) < noise_scale))
+            levels.append(chain | (_uniform_rows(chain.shape, generator, device) < noise_scale))
         return levels[::-1]
     else:
         raise ValueError(f"{mode!r} is not a static3 DN mode {STATIC3_MODES}")
@@ -349,7 +359,7 @@ class MultiScaleMaskedTransformerDecoderMaskDN(nn.Module):
                 m = blk[:, None, None].expand(shape)
                 if mask_noise > 0:
                     ratio = (~m).sum(-1).float() * mask_noise / s
-                    flip = uniform(shape, generator, device) < ratio[..., None]
+                    flip = _uniform_rows(shape, generator, device) < ratio[..., None]
                     m = (m ^ flip) | ~valid[:, None, None, :, None]
                 # (B, scalar, heads, N, S) -> (B, heads, scalar * N, S)
                 return m.transpose(1, 2).reshape(B, shape[2], pad_size, s)
@@ -357,8 +367,8 @@ class MultiScaleMaskedTransformerDecoderMaskDN(nn.Module):
         labels = targets.labels[:, None, :].expand(B, scalar, N)
         if mode in _REFRESH_MODES and self.dn_label_noise_ratio > 0:
             # class-flip noise (reference :1004-1018; v6-v9 apply the same block)
-            flip = uniform(labels.shape, generator, device) < self.dn_label_noise_ratio
-            rand_lb = (uniform(labels.shape, generator, device) * self.num_classes).long()
+            flip = _uniform_rows(labels.shape, generator, device) < self.dn_label_noise_ratio
+            rand_lb = (_uniform_rows(labels.shape, generator, device) * self.num_classes).long()
             labels = torch.where(flip, rand_lb, labels)
         labels = labels.clamp(0, self.num_classes - 1)
         if mode == "base":
@@ -375,7 +385,7 @@ class MultiScaleMaskedTransformerDecoderMaskDN(nn.Module):
         # label noise (:1158-1162)
         if noise_scale > 0 and (mode in ("base", "lb") or
                                 (mode == "shift" and self.dn_label_noise_ratio <= 0)):
-            u = uniform(content.shape, generator, device)
+            u = _uniform_rows(content.shape, generator, device)
             content = content + (u * 2 - 1) * noise_scale * content
         content = (content * valid[:, None, :, None]).to(region_dtype(device.type))
         tgt_mask = _dn_tgt_mask(scalar, N, self.num_queries).to(device)

@@ -15,8 +15,12 @@ or `--eval-only --resume`. Flags come before the overrides. It runs on
 and raises where a CUDA card is asked for and there is none. A config written
 for the JAX package that names its accelerator (`MODEL.DEVICE tpu`, as
 `tools/ab_base_synthetic.yaml` does) runs on the port's, the CUDA card. Datasets come
-from `$DETECTRON2_DATASETS` (`data/datasets/builtin.py`). One process on one
-card: `--num-gpus` and `--num-machines` above 1 raise (ROADMAP A21).
+from `$DETECTRON2_DATASETS` (`data/datasets/builtin.py`). `--num-gpus N`
+trains and evaluates data-parallel in N processes, one a card, over NCCL
+(over gloo with `MODEL.DEVICE cpu`), as the reference launches
+(train_net.py:399-412); `--num-machines M --machine-rank r --dist-url
+tcp://<first machine>:<port>` spans M machines. A step of N ranks is the
+one-process step on the whole SOLVER.IMS_PER_BATCH (`engine/train_step.py`).
 """
 
 from __future__ import annotations
@@ -33,11 +37,11 @@ def default_argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--config-file", default="", metavar="FILE")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--eval-only", action="store_true")
-    p.add_argument("--num-gpus", type=int, default=1,
-                   help="1 only: the port trains and evaluates in one process on one card")
+    p.add_argument("--num-gpus", type=int, default=1, help="processes (cards) a machine")
     p.add_argument("--num-machines", type=int, default=1)
     p.add_argument("--machine-rank", type=int, default=0)
-    p.add_argument("--dist-url", default="auto")
+    p.add_argument("--dist-url", default="auto",
+                   help="tcp://host:port of the first machine; 'auto': a free local port")
     p.add_argument("--max-eval-images", type=int, default=None)
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return p
@@ -46,8 +50,9 @@ def default_argument_parser() -> argparse.ArgumentParser:
 def setup(args):
     """Reference setup (train_net.py:356-370): the config from the file and
     the overrides, the INSTANT_DROP hack, frozen; logging; the merged config
-    dumped to OUTPUT_DIR/config.yaml."""
+    dumped to OUTPUT_DIR/config.yaml (by rank 0)."""
     from .config import build_cfg
+    from .parallel.dist import is_main_process
 
     cfg = build_cfg(args.config_file, args.opts or [])
     # INSTANT_DROP hack (reference train_net.py:388-392)
@@ -60,8 +65,9 @@ def setup(args):
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
-    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+    if is_main_process():
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
     return cfg
 
 
@@ -132,11 +138,14 @@ def evaluate(cfg, model, max_images=None) -> dict:
 
 
 def main(args):
-    if args.num_gpus > 1 or args.num_machines > 1:
-        raise NotImplementedError(
-            f"--num-gpus {args.num_gpus} --num-machines {args.num_machines}: the port trains and "
-            "evaluates on one card in one process; distributed training is ROADMAP A21")
+    """Train, or evaluate with `--eval-only` (results returned; printed by
+    rank 0). Asked for more than one process outside a process group, it
+    launches them (`launch_main`), each of which runs this."""
     from .config import cfg_device
+    from .parallel.dist import get_world_size, is_main_process
+
+    if args.num_gpus * args.num_machines > 1 and get_world_size() == 1:
+        return launch_main(args)
 
     cfg = setup(args)
     device = cfg_device(cfg)
@@ -153,7 +162,8 @@ def main(args):
         load_weights(model, load_state_dict_file(local))
         logger.info("evaluating %s", local)
         results = evaluate(cfg, model.to(device), args.max_eval_images)
-        print(results)
+        if is_main_process():
+            print(results)
         verify_results(cfg, results)
         return results
 
@@ -163,6 +173,20 @@ def main(args):
     start = trainer.resume_or_load(resume=args.resume)
     trainer.train(start)
     return None
+
+
+def launch_main(args, entry=None, video: bool = False) -> None:
+    """`entry(args)` (by default `main`) in `--num-gpus` processes on each
+    of `--num-machines` machines (`parallel/dist.py:launch`; one process:
+    here), over NCCL, or gloo where the config's MODEL.DEVICE is cpu. A count
+    above the machine's CUDA cards raises on NCCL."""
+    from .config import build_cfg
+    from .parallel.dist import launch
+
+    cpu = build_cfg(args.config_file, args.opts or [], video=video).MODEL.DEVICE == "cpu"
+    launch(entry or main, args.num_gpus, num_machines=args.num_machines,
+           machine_rank=args.machine_rank, dist_url=args.dist_url, args=(args,),
+           backend="gloo" if cpu else "nccl")
 
 
 if __name__ == "__main__":

@@ -19,7 +19,9 @@ initialization, with a warning) and is scored with
 DATASETS.TEST[0] whole, in one forward, then tube AP, printed. It runs on
 `MODEL.DEVICE` (`cuda` by default; `cpu` runs the kernels' plain versions).
 Datasets come from `$DETECTRON2_DATASETS` (`video/ytvis.py:register_all_ytvis`),
-frames as `.npy` where no decoder is installed.
+frames as `.npy` where no decoder is installed. `--num-gpus`,
+`--num-machines`, `--machine-rank` and `--dist-url` launch data-parallel
+processes as `train_net.py` does.
 """
 
 from __future__ import annotations
@@ -36,8 +38,11 @@ def default_argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--config-file", default="", metavar="FILE")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--eval-only", action="store_true")
-    p.add_argument("--num-gpus", type=int, default=1,
-                   help="1 only: the port runs in one process on one card")
+    p.add_argument("--num-gpus", type=int, default=1, help="processes (cards) a machine")
+    p.add_argument("--num-machines", type=int, default=1)
+    p.add_argument("--machine-rank", type=int, default=0)
+    p.add_argument("--dist-url", default="auto",
+                   help="tcp://host:port of the first machine; 'auto': a free local port")
     p.add_argument("--max-eval-videos", type=int, default=None)
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return p
@@ -45,27 +50,33 @@ def default_argument_parser() -> argparse.ArgumentParser:
 
 def setup(args):
     """The config from the file and the overrides, with the video keys,
-    frozen; logging; OUTPUT_DIR made, the config dumped into it."""
+    frozen; logging; OUTPUT_DIR made, the config dumped into it (by rank 0)."""
     from .config import build_cfg
+    from .parallel.dist import is_main_process
 
     cfg = build_cfg(args.config_file, args.opts or [], video=True)
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
-    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+    if is_main_process():
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
     return cfg
 
 
 def main(args):
-    if args.num_gpus > 1:
-        raise NotImplementedError(f"--num-gpus {args.num_gpus}: the port trains and evaluates "
-                                  "on one card in one process; distributed training and "
-                                  "evaluation are ROADMAP A21")
+    """Train, or score with `--eval-only`. Asked for more than one process
+    outside a process group, it launches them (`train_net.launch_main`),
+    each of which runs this."""
     from .data.catalog import DatasetCatalog
     from .config import cfg_device
     from .models import build_model
+    from .parallel.dist import get_rank, get_world_size, is_main_process
+    from .train_net import launch_main
     from .video.ytvis import register_all_ytvis
+
+    if args.num_gpus * args.num_machines > 1 and get_world_size() == 1:
+        return launch_main(args, main, video=True)
 
     cfg = setup(args)
     device = cfg_device(cfg)
@@ -76,7 +87,8 @@ def main(args):
         from .video.ytvis import build_clip_loader
 
         loader = build_clip_loader(cfg, DatasetCatalog.get(cfg.DATASETS.TRAIN[0]),
-                                   pin_memory=device.type == "cuda")
+                                   pin_memory=device.type == "cuda", rank=get_rank(),
+                                   world_size=get_world_size())
         try:
             trainer = Trainer(cfg, loader, model=build_model(cfg),
                               criterion=build_video_criterion(cfg), device=device)
@@ -98,7 +110,8 @@ def main(args):
     logger.info("evaluating %s", local)
     records = DatasetCatalog.get(cfg.DATASETS.TEST[0])
     results = inference_on_video_dataset(cfg, model.to(device), records, args.max_eval_videos)
-    print(results)
+    if is_main_process():
+        print(results)
     return results
 
 

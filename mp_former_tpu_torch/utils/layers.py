@@ -20,6 +20,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel.rows import draw
+
 
 class Conv2d(nn.Conv2d):
     def __init__(self, *args, norm: Optional[nn.Module] = None,
@@ -73,9 +75,10 @@ def keep_mask(shape, rate: float, generator: Optional[torch.Generator],
 
 def keep_masks(shapes: Sequence[Tuple[int, ...]], rate: float,
                generator: Optional[torch.Generator], device) -> Tuple[torch.Tensor, ...]:
-    """One `keep_mask` a shape, drawn in the order given (through this
-    module's `keep_mask`, which a test may replace)."""
-    return tuple(keep_mask(s, rate, generator, device) for s in shapes)
+    """One `keep_mask` a batch-first shape, drawn in the order given (through
+    this module's `keep_mask`, which a test may replace); in a distributed
+    step this rank's rows of the global batch's draw (`parallel/rows.py`)."""
+    return tuple(draw(lambda t: keep_mask(t, rate, generator, device), s, 0) for s in shapes)
 
 
 def apply_keep(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
@@ -92,4 +95,4 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     in eval mode or at rate 0."""
     if not train or rate == 0.0:
         return x
-    return apply_keep(x, keep_mask(x.shape, rate, generator, x.device), rate)
+    return apply_keep(x, keep_masks([x.shape], rate, generator, x.device)[0], rate)

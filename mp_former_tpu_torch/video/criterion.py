@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..models.criterion import SetCriterion
+from ..parallel.rows import draw
 from ..models.matcher import (HungarianMatcher, batch_dice_cost, batch_sigmoid_ce_cost,
                               fill_invalid_columns, uniform)
 from ..structures import VideoTargets
@@ -35,7 +36,8 @@ class VideoHungarianMatcher(HungarianMatcher):
         prob = pred_logits.float().softmax(-1)
         cc = -torch.gather(prob, 2, targets.labels[:, None, :].expand(-1, q, -1))
         if coords is None:
-            coords = uniform((b, self.num_points, 2), generator, pred_logits.device)
+            coords = draw(lambda s: uniform(s, generator, pred_logits.device),
+                          (b, self.num_points, 2), 0)
         pm = pred_masks.float().reshape(b, q * t, *pred_masks.shape[3:])
         out_pts = point_sample(pm.permute(0, 2, 3, 1), coords).transpose(1, 2)
         gm = targets.masks.float().reshape(b, n * t, *targets.masks.shape[3:])

@@ -5,7 +5,8 @@ YTVIS evaluator; `mp_former_tpu/video/eval_loop.py:20-188`).
 Each clip runs in one forward at its own length: PyTorch runs eagerly, so
 the JAX package's static length buckets, padding frames and per-bucket jit
 cache (`t_bucket`, `make_clip_forward`, `_clip_forward`) have no counterpart.
-One device; the mesh and the sharded loop are ROADMAP A21.
+Across data-parallel ranks the clips are sharded and the evaluators merged
+(`parallel/dist.py:sharded_eval_loop`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from ..data.transforms import _resize_image
 from ..engine.eval_loop import read_image
+from ..parallel.dist import sharded_eval_loop
 from ..utils.interp import resize
 from .ytvis_eval import YTVISEvaluator
 
@@ -79,27 +81,24 @@ def inference_on_video_dataset(cfg, model: torch.nn.Module, records: List[dict],
     the model's device (reference video_maskformer_model.py:255-287).
     `max_videos` caps the records, so an unreadable one shrinks the evaluated
     set, as in the JAX package; `max_frames` cuts long clips (None: no cut).
-    The model is put in `.eval()` mode (`Trainer.test` restores its own)."""
+    Across data-parallel ranks each scores its share of the clips and every
+    rank returns the merged results. The model is put in `.eval()` mode
+    (`Trainer.test` restores its own)."""
     model.eval()
     evaluator = YTVISEvaluator(records)
     num_classes = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
     device = next(model.parameters()).device
-    if max_videos is not None:
-        records = records[:max_videos]
-    n = 0
-    for rec in records:
-        item = prep_clip(cfg, rec, max_frames)
-        if item is None:
-            continue
+
+    def process(item: dict) -> None:
+        rec = item["rec"]
         out = model(torch.from_numpy(item["clip"])[None].to(device))
         scores, classes, tubes = inference_video(
             out["pred_logits"][0], out["pred_masks"][0], (item["rh"], item["rw"]),
             rec["height"], rec["width"], num_classes)
         evaluator.process(rec["video_id"], scores, classes, list(tubes))
-        n += 1
-    if n < len(records):
-        logger.warning("evaluated %d of %d records (%d could not be read)", n, len(records),
-                       len(records) - n)
+
+    n = sharded_eval_loop(records, evaluator, lambda rec: prep_clip(cfg, rec, max_frames),
+                          process, max_records=max_videos)
     results = evaluator.evaluate()
     logger.info("evaluated %d videos: %s", n, results)
     return results

@@ -259,13 +259,17 @@ def collate_clips(samples: List[Dict], pin_memory: bool = False) -> Batch:
                               stack([s["valid"][:n] for s in samples], bool)))
 
 
-def build_clip_loader(cfg, records: List[dict], pin_memory: bool = False) -> TrainLoader:
+def build_clip_loader(cfg, records: List[dict], pin_memory: bool = False, rank: int = 0,
+                      world_size: int = 1) -> TrainLoader:
     """The training loader of the video entry point (the root
     `train_net_video.py:99-120`): `records` through `YTVISDatasetMapper` with
     TPU.MAX_INSTANCES slots, SOLVER.IMS_PER_BATCH clips a batch,
-    `collate_clips`."""
+    `collate_clips`; rank `rank` of `world_size` takes its block of every
+    batch (cut after its own last valid slot: the step pads the ranks' slot
+    axes to the largest, `engine/train_step.py`)."""
     mapper = YTVISDatasetMapper(cfg, max_instances=cfg.TPU.MAX_INSTANCES)
     return TrainLoader(records, mapper, cfg.SOLVER.IMS_PER_BATCH, seed=max(cfg.SEED, 0),
                        num_workers=cfg.DATALOADER.NUM_WORKERS,
                        filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
-                       collate_fn=functools.partial(collate_clips, pin_memory=pin_memory))
+                       collate_fn=functools.partial(collate_clips, pin_memory=pin_memory),
+                       rank=rank, world_size=world_size)

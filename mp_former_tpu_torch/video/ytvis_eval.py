@@ -2,8 +2,8 @@
 mask2former_video/data_video/ytvis_eval.py:27-115 with its vendored
 ytvoseval; the port's copy of `mp_former_tpu/video/ytvis_eval.py:16-58`).
 A tube's IoU is the IoU of its time-flattened masks, so the COCOeval core
-(`evaluation/coco_eval.py:CocoAPEvaluator`) scores (T*H, W) masks. The merge
-of per-rank evaluators waits for distributed evaluation (ROADMAP A21)."""
+(`evaluation/coco_eval.py:CocoAPEvaluator`) scores (T*H, W) masks;
+`merge_from` folds in another rank's evaluator."""
 
 from __future__ import annotations
 
@@ -23,6 +23,9 @@ class YTVISEvaluator:
 
     def reset(self):
         self._ap = CocoAPEvaluator("segm", self.max_dets)
+
+    def merge_from(self, other: "YTVISEvaluator") -> None:
+        self._ap.merge_from(other._ap)
 
     def process(self, video_id, scores: np.ndarray, classes: np.ndarray,
                 tube_masks: List[np.ndarray]):

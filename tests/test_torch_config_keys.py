@@ -23,13 +23,13 @@ GET = re.compile(r"\bcfg\.(" + PATH + r")\.get\(\s*[\"']([A-Z][A-Z0-9_]*)[\"']")
 GETATTR = re.compile(r"getattr\(\s*cfg\.(" + PATH + r")\s*,\s*[\"']([A-Z][A-Z0-9_]*)[\"']")
 
 SET_ASIDE = {
-    # A21 distributed: the device mesh and token sharding
-    "A21": {"TPU.MESH_AXES", "TPU.MESH_SHAPE", "TPU.SHARD_TOKENS"},
     # TPU-runtime workarounds, not ported on purpose (ROADMAP §A); the
-    # auction matcher exists because the TPU runtime rejects host callbacks
+    # auction matcher exists because the TPU runtime rejects host callbacks;
+    # SHARD_TOKENS is a GSPMD layout hint for the TPU's gather-row floor that
+    # leaves the function unchanged, and under DDP each card holds whole images
     "TPU runtime": {"TPU.FUSED_MASKED_ATTN", "TPU.POINT_MATMUL_SAMPLING", "TPU.DONATE",
                     "TPU.SPLIT_STEP", "TPU.HOST_ACCUM", "TPU.EVAL_STREAM", "TPU.EVAL_BUCKET_STEP",
-                    "TPU.SCAN_ENCODER", "TPU.MATCHER_HOST_EXACT"},
+                    "TPU.SCAN_ENCODER", "TPU.MATCHER_HOST_EXACT", "TPU.SHARD_TOKENS"},
     # stored by the JAX head and never used (mp_former_tpu/models/meta_arch/
     # mask_former_head.py:47-48; IGNORE_VALUE is read by the evaluators)
     "stored, unused": {"MODEL.SEM_SEG_HEAD.LOSS_WEIGHT"},
@@ -56,6 +56,8 @@ def test_every_key_the_jax_package_reads_is_read_or_set_aside():
     assert ignored - set_aside == set(), "read by the JAX package, ignored by the port"
     assert set_aside - ignored == set(), "set aside, but read by the port (or by neither)"
     assert "TPU.PROFILE_DIR" in _reads("mp_former_tpu_torch")
+    # the data-parallel size (`parallel/mesh.py:data_parallel_size`)
+    assert {"TPU.MESH_SHAPE", "TPU.MESH_AXES"} <= _reads("mp_former_tpu_torch")
 
 
 def test_video_training_builds_trainer_with_clip_loader(tmp_path, monkeypatch):

@@ -122,8 +122,12 @@ def test_main_refuses(tmp_path):
              (["--eval-only", "--resume"], cpu, ValueError, "--eval-only needs MODEL.WEIGHTS"),
              # the recipe's ImageNet .pkl, absent from the checkout
              (["--eval-only"], cpu[:2], FileNotFoundError, "R-50.pkl not found locally"),
-             (["--num-gpus", "2"], [], NotImplementedError, "ROADMAP A21"),
-             (["--num-machines", "2"], [], NotImplementedError, "ROADMAP A21"),
+             # NCCL takes a card a process: more processes than cards raise
+             (["--num-gpus", "2"], [], ValueError, "need as many CUDA cards"),
+             (["--num-machines", "2", "--dist-url", "tcp://127.0.0.1:1"], [], ValueError,
+              "need as many CUDA cards") if not torch.cuda.is_available() else
+             (["--num-gpus", str(torch.cuda.device_count() + 1)], [], ValueError,
+              "need as many CUDA cards"),
              ([], ["SOLVER.IMS_PER_BATCH", "3", "TPU.GRAD_ACCUM_STEPS", "2", "MODEL.DEVICE",
                    "cpu"], ValueError, "divisible by TPU.GRAD_ACCUM_STEPS=2")]
     if not torch.cuda.is_available():
