@@ -483,6 +483,7 @@ def phase_build() -> None:
 
 def phase_k1(torch, card: str) -> dict:
     from mp_former_tpu_torch.ops import msda_cuda
+    from mp_former_tpu_torch.utils import flops as work
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     B, M, D, P = 1, 8, 32, 4
@@ -512,7 +513,7 @@ def phase_k1(torch, card: str) -> dict:
         del want, folded
         times = timed(lambda: msda_cuda.msda_fwd(v, MSDA_SHAPES, lo, a),
                       lambda: msda_cuda.ms_deform_attn_plain(v, MSDA_SHAPES, lo, a))
-        bnd = bound(nbytes(v, lo, a, got), on_map * 5 * 2 * D, name)
+        bnd = bound(nbytes(v, lo, a, got), work.k1_flops(on_map, D), name)
         log("K1", dtype=name, shape=f"B{B}xQ{S}xM{M}xD{D}xL{L}xP{P}", max_abs_err=f"{err:.3e}",
             max_abs_err_vs_folded=f"{folded_err:.3e}", tol=TOL[name], **fmt_times(times),
             bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
@@ -528,6 +529,7 @@ def phase_k3(torch, card: str) -> dict:
     import torch.nn.functional as F
 
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
+    from mp_former_tpu_torch.utils import flops as work
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     H, D = 8, 32
@@ -586,7 +588,7 @@ def phase_k3(torch, card: str) -> dict:
                       lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive))
             # q k^T and p v: 2 * 2 * Q * S * D per head. float32 runs them on the
             # tensor cores as 3xTF32: three times the operations, at the TF32 peak
-            flops = 4.0 * B * H * Q * S * D
+            flops = work.k3_flops(B, H, Q, S, D)
             n_bytes = nbytes(q, k, v, mask) + q.numel() * q.element_size()
             bnd = (bound(n_bytes, 3 * flops, "tf32") if dtype == torch.float32
                    else bound(n_bytes, flops, name))
@@ -674,6 +676,7 @@ def hold_k1_at(torch, g, shapes, batch: int, dtype) -> dict:
     at TOL times the plain output's largest entry where that is below 1
     (`scaled_tol`); timed beside the plain version and the bound."""
     from mp_former_tpu_torch.ops import msda_cuda
+    from mp_former_tpu_torch.utils import flops as work
 
     M, D, P = 8, 32, 4
     L, S = len(shapes), sum(a * b for a, b in shapes)
@@ -694,7 +697,7 @@ def hold_k1_at(torch, g, shapes, batch: int, dtype) -> dict:
     del want
     times = timed(lambda: msda_cuda.msda_fwd(v, shapes, lo, a),
                   lambda: msda_cuda.ms_deform_attn_plain(v, shapes, lo, a), plain_calls=2)
-    bnd = bound(nbytes(v, lo, a, got), on_map * 5 * 2 * D, name)
+    bnd = bound(nbytes(v, lo, a, got), work.k1_flops(on_map, D), name)
     return {"shape": f"B{batch}xQ{S}xM{M}xD{D}xL{L}xP{P}", "queries": S, "batch": batch,
             "max_abs_err": err, "plain_max_abs": out_max, "tol": tol, **times, **bnd}
 
@@ -713,6 +716,7 @@ def hold_k3_at(torch, g, Q: int, keys: int, dtype, batch: int = 1, dn: int = 0) 
     import torch.nn.functional as F
 
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
+    from mp_former_tpu_torch.utils import flops as work
 
     H, D = 8, 32
     name = str(dtype).split(".")[1]
@@ -735,7 +739,7 @@ def hold_k3_at(torch, g, Q: int, keys: int, dtype, batch: int = 1, dn: int = 0) 
                   lambda: mac.masked_attention_plain(q, k, v, mask),
                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive),
                   plain_calls=2 if batch * keys > 50000 else 5)
-    flops = 4.0 * batch * H * Q * keys * D
+    flops = work.k3_flops(batch, H, Q, keys, D)
     n_bytes = nbytes(q, k, v, mask) + q.numel() * q.element_size()
     bnd = (bound(n_bytes, 3 * flops, "tf32") if dtype == torch.float32
            else bound(n_bytes, flops, name))
@@ -819,6 +823,7 @@ def test_canvas_rows(res: dict, kernel: str) -> list:
 
 def phase_k2(torch, card: str) -> dict:
     from mp_former_tpu_torch.ops import tap_weighting as tw
+    from mp_former_tpu_torch.utils import flops as work
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     Q = sum(h * w for h, w in MSDA_SHAPES)
@@ -857,7 +862,7 @@ def phase_k2(torch, card: str) -> dict:
             t = timed(lambda: tw.weight_taps(taps, w, P, M, D),
                       lambda: tw.weight_taps_plain(taps, w, P, M, D),
                       lambda: torch.einsum("bpqtmd,bpqtm->bqmd", taps6, w5), calls=5)
-            bnd = bound(nbytes(taps, w, got), 2.0 * taps.numel(), name)
+            bnd = bound(nbytes(taps, w, got), work.k2_flops(taps.numel()), name)
             log("K2", case=case, dtype=name, shape=f"B{B}xQ{q}xP{P}xT{T}xM{M}xD{D}",
                 max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}", **fmt_times(t),
                 bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"],
@@ -1341,6 +1346,7 @@ def hold_k1_bwd_at(torch, card: str, phase: str, where: str, g, shapes, batch: i
     beside the plain backward (`plain_calls` a graph) and the bound; logged
     under `phase`. Returns the row."""
     from mp_former_tpu_torch.ops import msda_cuda
+    from mp_former_tpu_torch.utils import flops as work
     from mp_former_tpu_torch.utils.cuda_timing import two_clocks
 
     M, D, P = 8, 32, 4
@@ -1361,7 +1367,7 @@ def hold_k1_bwd_at(torch, card: str, phase: str, where: str, g, shapes, batch: i
     fwd_err = (fwd.float() - msda_cuda.ms_deform_attn_plain(
         value.float(), shapes, loc.float(), attn.float())).abs().max().item()
     fwd_ms = two_clocks(lambda: msda_cuda.msda_fwd(value, shapes, loc, attn))["ms"]
-    fwd_bound = bound(nbytes(value, loc, attn, fwd), on_map * 5 * 2 * D, name)
+    fwd_bound = bound(nbytes(value, loc, attn, fwd), work.k1_flops(on_map, D), name)
     got = msda_cuda.msda_bwd(go, value, shapes, loc, attn)
     want = msda_cuda.ms_deform_attn_backward_plain(go.float(), value.float(), shapes,
                                                    loc.float(), attn.float())
@@ -1380,7 +1386,7 @@ def hold_k1_bwd_at(torch, card: str, phase: str, where: str, g, shapes, batch: i
                   calls=10, plain_calls=plain_calls)
     # per tap on the map: the dot product with g and the add of w * g
     bnd = bound(nbytes(go, value, loc, attn, got[1], got[2]) + value.numel() * 4,
-                on_map * 4 * 4 * D, name)
+                work.k1_backward_flops(on_map, D), name)
     row = {"shape": f"B{batch}xQ{S}xM{M}xD{D}xL{L}xP{P}", "dtype": kind, "queries": S,
            "batch": batch, "rel_errs": errs, "max_abs_err": abs_err, "tol": BWD_TOL[name],
            "points_on_map": f"{on_map}/{batch * S * M * L * P}", **times, **bnd}
@@ -1501,6 +1507,7 @@ def hold_k3_bwd_at(torch, card: str, phase: str, where: str, g, B: int, Q: int, 
     import torch.nn.functional as F
 
     from mp_former_tpu_torch.ops import masked_attention_cuda as mac
+    from mp_former_tpu_torch.utils import flops as work
     from mp_former_tpu_torch.utils.cuda_timing import two_clocks
 
     H, D, blocked = 8, 32, 5
@@ -1589,7 +1596,7 @@ def hold_k3_bwd_at(torch, card: str, phase: str, where: str, g, B: int, Q: int, 
     # five products of 2 Q S D operations per head; as in the forward's bound,
     # float32 accuracy on the tensor cores is 3xTF32: three times the
     # operations at the TF32 peak
-    flops = 5 * 2.0 * B * H * Q * S * D
+    flops = work.k3_backward_flops(B, H, Q, S, D)
     n_bytes = nbytes(q, k, v, out32, go, mask, stats, *got)
     bnd = (bound(n_bytes, 3 * flops, "tf32") if dtype == torch.float32
            else bound(n_bytes, flops, name))
@@ -1674,6 +1681,7 @@ def phase_k2_bwd(torch, card: str) -> dict:
     from mp_former_tpu_torch.ops import msda_cuda
     from mp_former_tpu_torch.ops import tap_weighting as tw
     from mp_former_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from mp_former_tpu_torch.utils import flops as work
     from mp_former_tpu_torch.utils.cuda_timing import two_clocks
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -1712,11 +1720,11 @@ def phase_k2_bwd(torch, card: str) -> dict:
                       lambda: tw.weight_taps_backward_plain(taps, w, go, P, M, D), library,
                       calls=5, plain_calls=2)
             # per lane of the taps: a product for grad_taps, a multiply-add for grad_w
-            bnd = bound(nbytes(taps, w, go, *got), 3.0 * taps.numel(), name)
+            bnd = bound(nbytes(taps, w, go, *got), work.k2_backward_flops(taps.numel()), name)
             fwd = tw.tap_weight_fwd(taps, w, P, M, D)
             fwd_err = rel_err(fwd, tw.weight_taps_plain(taps.float(), w.float(), P, M, D))
             fwd_t = two_clocks(lambda: tw.tap_weight_fwd(taps, w, P, M, D), calls=5)
-            fwd_bound = bound(nbytes(taps, w, fwd), 2.0 * taps.numel(), name)
+            fwd_bound = bound(nbytes(taps, w, fwd), work.k2_flops(taps.numel()), name)
             log("K2_bwd", case=case, dtype=name, shape=f"B{B}xQ{Q}xP{P}xT{T}xM{M}xD{D}",
                 rel_err_taps_w=[f"{e:.2e}" for e in errs], tol=K2_BWD_TOL[name],
                 max_abs_err=f"{abs_err:.3e}", bitwise_reproducible=reproducible,
@@ -2588,6 +2596,171 @@ def phase_train_coco(torch, card: str) -> dict:
         card=repr(card))
     log("train_coco", ok=True)
     return train_launches
+
+
+# A24: the FLOP count of the eval forward and of a training step (the
+# released recipe at B = 2), on the card and on the CPU, at this side in pixels
+ANALYZE_SIZE, ANALYZE_BATCH, ANALYZE_PRINT_SIZE = 512, 2, 1024
+ANALYZE_TPU_EXPECTED = {"msda_fwd": 0, "tap_weight_fwd": 18, "masked_attn_fwd": 9}
+
+
+def analyze_step(torch, cfg, batch, device: str) -> dict:
+    """FLOPs by family of one training step of `batch` without the update
+    (`train_step` with `NoUpdate`), from the seeded model on `device`."""
+    from mp_former_tpu_torch.engine.train_step import train_step
+    from mp_former_tpu_torch.models.criterion import build_criterion
+    from mp_former_tpu_torch.utils.flops import FlopCount
+
+    model = seeded_model(torch, cfg).to(device).train()
+    stay = NoUpdate(model)
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    with FlopCount() as counter:
+        train_step(model, build_criterion(cfg), stay, stay, batch.to(device), generator)
+    return counter.by_family()
+
+
+def phase_analyze_model(torch, card: str) -> dict:
+    """A24, `tools/analyze_model_torch.py`: the counted FLOPs of the eval
+    forward of the released recipe (K1 6 launches, K3 9) and of the TPU
+    recipe (K2 18) at ANALYZE_SIZE, and of a training step of the released
+    recipe at B = ANALYZE_BATCH (K1 12 with remat, K1 backward 6, K3 9, K3
+    backward 9), through the kernels on the card and through their plain
+    versions on the CPU: equal family by family, the parameter total equal;
+    then the released recipe's count at ANALYZE_PRINT_SIZE on the card."""
+    from mp_former_tpu_torch.data.synthetic import synthetic_batches
+    from tools.analyze_model_torch import forward_flops, param_count
+
+    t0 = time.perf_counter()
+    gflops = lambda f: {k: f"{v / 1e9:.4f}" for k, v in f.items() if v}  # noqa: E731
+    launches = {}
+    for name, config, overrides, expected in (
+            ("released", CONFIG, [], SERVE_EXPECTED),
+            ("tpu", TPU_CONFIG, ["TPU.COMPUTE_DTYPE", "float32"], ANALYZE_TPU_EXPECTED)):
+        model = seeded_model(torch, load_cfg(config, overrides)).to("cuda")
+        reset_kernel_counts()
+        on_card = forward_flops(model, ANALYZE_SIZE, torch.device("cuda"))
+        launches[f"analyze_{name}"] = kernel_counts()
+        params = param_count(model)
+        on_cpu = forward_flops(model.cpu(), ANALYZE_SIZE, torch.device("cpu"))
+        log("analyze_model", recipe=name, what=f"eval forward @{ANALYZE_SIZE}px",
+            gflops_card=gflops(on_card), gflops_cpu=gflops(on_cpu),
+            total_gflops=f"{sum(on_card.values()) / 1e9:.4f}", parameters=params,
+            launches=launches[f"analyze_{name}"], card=repr(card))
+        if launches[f"analyze_{name}"] != expected:
+            raise AssertionError(f"analyze_model: {name}'s counted forward launched "
+                                 f"{launches[f'analyze_{name}']}, expected {expected}")
+        if on_card != on_cpu or param_count(model) != params:
+            raise AssertionError(f"analyze_model: {name}'s count on the card {on_card} is not "
+                                 f"the CPU's {on_cpu}")
+        del model
+
+    cfg = load_cfg(CONFIG, TRAIN_OVERRIDES)
+    batch = next(synthetic_batches(ANALYZE_BATCH, ANALYZE_SIZE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                   TRAIN_MAX_INSTANCES, seed=SEED))
+    expected = step_expected(TRAIN_EXPECTED, cfg.TPU.REMAT_ENCODER)
+    reset_kernel_counts()
+    on_card = analyze_step(torch, cfg, batch, "cuda")
+    launches["analyze_step"] = kernel_counts(backward=True)
+    on_cpu = analyze_step(torch, cfg, batch, "cpu")
+    log("analyze_model", recipe="released", what=f"training step B{ANALYZE_BATCH} "
+        f"@{ANALYZE_SIZE}px", gflops_card=gflops(on_card), gflops_cpu=gflops(on_cpu),
+        total_gflops=f"{sum(on_card.values()) / 1e9:.4f}", launches=launches["analyze_step"],
+        card=repr(card))
+    if launches["analyze_step"] != expected:
+        raise AssertionError(f"analyze_model: the counted step launched "
+                             f"{launches['analyze_step']}, expected {expected}")
+    if on_card != on_cpu:
+        raise AssertionError(f"analyze_model: the step's count on the card {on_card} is not "
+                             f"the CPU's {on_cpu}")
+
+    model = seeded_model(torch, load_cfg(CONFIG, [])).to("cuda")
+    big = forward_flops(model, ANALYZE_PRINT_SIZE, torch.device("cuda"))
+    del model
+    log("analyze_model", recipe="released", what=f"eval forward @{ANALYZE_PRINT_SIZE}px",
+        gflops_per_image=f"{sum(big.values()) / 1e9:.4f}", gflops_card=gflops(big),
+        seconds=f"{time.perf_counter() - t0:.1f}", card=repr(card))
+    log("analyze_model", ok=True)
+    return launches
+
+
+def eval_batch_runs(stdout: str) -> list:
+    """[checkpoint, printed results or None] in the order
+    `mp_former_tpu_torch.eval_batch` printed them."""
+    runs = []
+    for line in stdout.splitlines():
+        if line.startswith("=== evaluating ") and line.endswith(" ==="):
+            runs.append([line[len("=== evaluating "):-len(" ===")], None])
+        elif line.startswith("{") and runs:
+            runs[-1][1] = eval(line, {"nan": float("nan"), "np": np})
+    return runs
+
+
+def phase_eval_batch(torch, card: str) -> dict:
+    """A22b: the last two checkpoints phase train_coco saved (one seeded
+    model's run), a `.txt` beside them, through `python -m
+    mp_former_tpu_torch.eval_batch` on the card over train_coco's val split:
+    the checkpoints in sorted order, the `.txt` skipped, and each
+    checkpoint's AP keys equal to an in-process `run_evaluation` of the same
+    weights on the card (under the entry point's TF32 defaults), within
+    LVIS_AP_TOL."""
+    import shutil
+    import subprocess
+
+    from mp_former_tpu_torch.engine.convert import load_state_dict_file, load_weights
+    from mp_former_tpu_torch.engine.eval_loop import run_evaluation
+
+    t0 = time.perf_counter()
+    src = os.path.join(REPO, "output", "chip_smoke_train_coco", "checkpoints")
+    ckpts = sorted(f for f in os.listdir(src) if f.endswith(".pth"))[-2:]
+    root = os.path.join(REPO, "output", "chip_smoke_eval_batch")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    for f in ckpts:
+        shutil.copy(os.path.join(src, f), root)
+    with open(os.path.join(root, "notes.txt"), "w") as f:
+        f.write("not a checkpoint\n")
+    opts = ["MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME",
+            "MultiScaleMaskedTransformerDecoderMaskDN", *TRAIN_OVERRIDES,
+            "DATASETS.TEST", "('coco_2017_val',)",
+            "OUTPUT_DIR", os.path.join(REPO, "output", "chip_smoke_eval_batch_out")]
+    env = dict(os.environ, DETECTRON2_DATASETS=COCO_ROOT)
+    out = subprocess.run([sys.executable, "-m", "mp_former_tpu_torch.eval_batch", root,
+                          "--config-file", CONFIG, *opts], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    runs = eval_batch_runs(out.stdout)
+    run_s = time.perf_counter() - t0
+    if out.returncode or [os.path.basename(p) for p, _ in runs] != ckpts \
+            or any(r is None for _, r in runs):
+        raise AssertionError(f"eval_batch: rc {out.returncode}, runs {runs} for {ckpts}; "
+                             f"stderr {out.stderr[-3000:]}")
+    cfg = load_cfg(CONFIG, [*TRAIN_OVERRIDES, "DATASETS.TEST", "('coco_2017_val',)"])
+    diffs = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the entry point's default, as torch sets it
+    try:
+        for path, printed in runs:
+            model = seeded_model(torch, cfg)
+            load_weights(model, load_state_dict_file(path))
+            want = run_evaluation(cfg, model.to("cuda"), "coco_2017_val")
+            keys = set(printed["segm"])
+            if set(printed) != set(want) or keys != set(want["segm"]):
+                raise AssertionError(f"eval_batch: {path} printed {printed}, in process {want}")
+            diffs[os.path.basename(path)] = max(
+                0.0 if (np.isnan(printed["segm"][k]) and np.isnan(want["segm"][k]))
+                else abs(printed["segm"][k] - want["segm"][k]) for k in keys)
+            log("eval_batch", checkpoint=os.path.basename(path),
+                segm_AP=f"{printed['segm']['AP']:.4f}",
+                in_process_AP=f"{want['segm']['AP']:.4f}",
+                largest_key_diff=f"{diffs[os.path.basename(path)]:.2e}", card=repr(card))
+            del model
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log("eval_batch", checkpoints=ckpts, skipped="notes.txt", run_s=f"{run_s:.1f}",
+        seconds=f"{time.perf_counter() - t0:.1f}", tol=LVIS_AP_TOL, card=repr(card))
+    if max(diffs.values()) > LVIS_AP_TOL:
+        raise AssertionError(f"eval_batch: AP keys off the in-process evaluation by {diffs}")
+    log("eval_batch", ok=True)
+    return {"checkpoints": ckpts, "largest_key_diff": diffs}
 
 
 ACCUM = 2
@@ -3502,8 +3675,8 @@ SWIN_TRAIN = (("train_swin", ["MODEL.SWIN.USE_CHECKPOINT", "True"], 1),
               ("train_swin_accum4", [], 4))
 SWIN_STEP_BATCH = 2
 # steps of the Swin-L training phases: the first warms up, the second is held
-# against the plain versions, the last is profiled, the two between are timed
-SWIN_TRAIN_STEPS = 5
+# against the plain versions, the third is timed, the last is profiled
+SWIN_TRAIN_STEPS = 4
 
 
 @contextlib.contextmanager
@@ -5116,6 +5289,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_coco = phase_train_coco(torch, card)
     torch.cuda.empty_cache()
+    # A24 and A22b: the FLOP count on the card against the CPU's, and the
+    # checkpoint-directory evaluator over train_coco's checkpoints
+    analyze = phase_analyze_model(torch, card)
+    torch.cuda.empty_cache()
+    phase_eval_batch(torch, card)
+    torch.cuda.empty_cache()
     # A21: two ranks train and evaluate, then one rank in an NCCL group
     ddp = phase_ddp(torch, card)
     torch.cuda.empty_cache()
@@ -5201,7 +5380,7 @@ def main() -> int:
                "train_dn_modes": train_dn_modes,
                **{f"slice_{k}": v for k, v in maskformer1.items()},
                "eval_lvis": eval_lvis["launches"], "tta_semantic": tta_semantic["launches"],
-               **demos["launches"], **ddp["launches"]}
+               **demos["launches"], **ddp["launches"], **analyze}
     csrc = "mp_former_tpu_torch/csrc/"
     kernels = [
         {"name": "msda_fwd", "route": "cuda", "source": csrc + "msda_fwd.cu",

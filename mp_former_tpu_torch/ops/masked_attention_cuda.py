@@ -36,6 +36,7 @@ import math
 
 import torch
 
+from ..utils import flops
 from .cuda_build import DTYPE_CODES, check_inputs, launch, sm_count
 
 # launches of the forward since the last reset (one per call: the tile kernel
@@ -369,6 +370,8 @@ def masked_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            B, H, Q, S, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
            Q * H * D, D, H * D, mask_sb, mask_sh, chunk, DTYPE_CODES[q.dtype])
     LAUNCHES += 1
+    if flops.counting():
+        flops.add("K3", flops.k3_flops(B, H, Q, S, D))
     return (out, stats, out32) if with_stats else out
 
 
@@ -432,6 +435,8 @@ def masked_attn_bwd(grad_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v:
            *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *grad_out.stride()[:3],
            mask_sb, mask_sh, chunk, DTYPE_CODES[q.dtype])
     BWD_LAUNCHES += 1
+    if flops.counting():
+        flops.add("K3 backward", flops.k3_backward_flops(B, H, Q, S, D))
     return dq.transpose(1, 2), dk.to(q.dtype).transpose(1, 2), dv.to(q.dtype).transpose(1, 2)
 
 
@@ -464,4 +469,10 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             return MaskedAttentionFunction.apply(q, k, v, mask)
         return masked_attn_fwd(q, k, v, mask)
+    if flops.counting():
+        B, H, Q, D = q.shape
+        S = k.shape[2]
+        return flops.plain_counted(lambda *qkv: masked_attention_plain(*qkv, mask), "K3",
+                                   flops.k3_flops(B, H, Q, S, D),
+                                   flops.k3_backward_flops(B, H, Q, S, D), q, k, v)
     return masked_attention_plain(q, k, v, mask)

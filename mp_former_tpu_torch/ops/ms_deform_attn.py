@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import flops
 from .msda_cuda import CHANNELS as K1_CHANNELS, MSDeformAttnFunction, ms_deform_attn_plain, msda_fwd
 from .tap_weighting import weight_taps
 
@@ -125,6 +126,12 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
             return MSDeformAttnFunction.apply(value, spatial_shapes, sampling_locations,
                                               attention_weights)
         return msda_fwd(value, spatial_shapes, sampling_locations, attention_weights)
+    if flops.counting():
+        points, d = flops.k1_points(sampling_locations), value.shape[-1]
+        return flops.plain_counted(
+            lambda *t: ms_deform_attn_plain(t[0], spatial_shapes, *t[1:]), "K1",
+            flops.k1_flops(points, d), flops.k1_backward_flops(points, d),
+            value, sampling_locations, attention_weights)
     return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights)
 
 
@@ -168,8 +175,16 @@ def ms_deform_attn_headshare(value: torch.Tensor, spatial_shapes: Sequence[Tuple
         else:
             taps = table.index_select(0, idx.reshape(-1)).view(B, Q, P, 4, M, D)
             del table
-            wtaps = taps * full.to(taps.dtype)[..., None]
-            out += wtaps.sum(dim=3).sum(dim=2).reshape(B, Q, M * D)
+
+            def weighted(taps, full):
+                wtaps = taps * full.to(taps.dtype)[..., None]
+                return wtaps.sum(dim=3).sum(dim=2).reshape(B, Q, M * D)
+
+            if flops.counting():  # the function K2 computes on CUDA tensors
+                out += flops.plain_counted(weighted, "K2", flops.k2_flops(taps.numel()),
+                                           flops.k2_backward_flops(taps.numel()), taps, full)
+            else:
+                out += weighted(taps, full)
         del taps
     return out
 

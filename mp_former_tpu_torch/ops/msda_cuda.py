@@ -26,6 +26,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..utils import flops
 from .cuda_build import DTYPE_CODES, check_inputs, launch
 
 # launches of the forward and of the backward kernel since the last reset
@@ -244,6 +245,8 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
            sampling_locations.data_ptr(), attention_weights.data_ptr(), out.data_ptr(),
            B, S, Q, M, L, P, D, code)
     LAUNCHES += 1
+    if flops.counting():
+        flops.add("K1", flops.k1_flops(B * Q * M * L * P, D))
     return out
 
 
@@ -270,6 +273,8 @@ def msda_bwd(grad_out: torch.Tensor, value: torch.Tensor,
            attention_weights.data_ptr(), grad_value.data_ptr(), grad_loc.data_ptr(),
            grad_attn.data_ptr(), B, S, Q, M, L, P, D, code)
     BWD_LAUNCHES += 1
+    if flops.counting():
+        flops.add("K1 backward", flops.k1_backward_flops(B * Q * M * L * P, D))
     return grad_value.to(value.dtype), grad_loc, grad_attn
 
 

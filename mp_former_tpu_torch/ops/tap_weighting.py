@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import flops
 from .cuda_build import DTYPE_CODES, check_inputs, launch
 
 # launches of the forward and the backward kernel since the last reset
@@ -83,6 +84,8 @@ def tap_weight_fwd(taps: torch.Tensor, w: torch.Tensor, n_points: int, n_heads: 
     launch("tap_weight_fwd", device, taps.data_ptr(), w.data_ptr(), out.data_ptr(),
            b, q, n_points, t, n_heads, d, DTYPE_CODES[taps.dtype])
     LAUNCHES += 1
+    if flops.counting():
+        flops.add("K2", flops.k2_flops(taps.numel()))
     return out
 
 
@@ -103,6 +106,8 @@ def tap_weight_bwd(taps: torch.Tensor, w: torch.Tensor, g: torch.Tensor, n_point
            grad_taps.data_ptr(), grad_w.data_ptr(), b, q, n_points, t, n_heads, d,
            DTYPE_CODES[taps.dtype])
     BWD_LAUNCHES += 1
+    if flops.counting():
+        flops.add("K2 backward", flops.k2_backward_flops(taps.numel()))
     return grad_taps, grad_w
 
 
@@ -138,4 +143,8 @@ def weight_taps(taps: torch.Tensor, w: torch.Tensor, n_points: int, n_heads: int
         # autograd records nothing here
         return tap_weight_fwd(taps.detach(), w.detach(), n_points, n_heads, d)
     _check_shapes(taps, w, n_points, n_heads, d)
+    if flops.counting():
+        return flops.plain_counted(lambda *tw: weight_taps_plain(*tw, n_points, n_heads, d), "K2",
+                                   flops.k2_flops(taps.numel()),
+                                   flops.k2_backward_flops(taps.numel()), taps, w)
     return weight_taps_plain(taps, w, n_points, n_heads, d)

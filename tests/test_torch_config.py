@@ -91,7 +91,7 @@ def _port_modules():
                            "tools.make_synthetic_segm_torch", "tools.probe_torch_msda_bwd_bound",
                            "tools.probe_torch_msda_bwd_windows",
                            "tools.probe_torch_masked_attn_offset",
-                           "tools.make_synthetic_ytvis_torch"]
+                           "tools.make_synthetic_ytvis_torch", "tools.analyze_model_torch"]
 
 
 def test_port_imports_no_jax():
